@@ -3,14 +3,16 @@
 A port of ``bayesfmmm_tpu`` (JAX) to PyTorch and CUDA.  Every state tensor
 carries a leading chain axis C, every updater takes an explicit
 ``torch.Generator``, and data (B, G, u, y, pen) is shared across chains.
-The two hot kernels of the sweep are hand-written CUDA
-(``bayesfmmm_torch/csrc``), built with nvcc at first use and bound with
-ctypes; on CPU tensors their plain PyTorch versions run instead.
+The sweep's three kernels (Cholesky factor-and-solve, mean/RSS, weighted
+Gram sums) are hand-written CUDA (``bayesfmmm_torch/csrc``), built with
+nvcc at first use and bound with ctypes; on CPU tensors their plain
+PyTorch versions run instead.
 
 The package imports nothing of JAX or of ``bayesfmmm_tpu``, so it runs on a
 machine that has neither.
 
-Quick start (the reference kernel census of the production sweep)::
+Quick start (the bench's production sweep; drop the flags for the
+reference kernel census)::
 
     import torch
     from bayesfmmm_torch import ModelConfig, Priors
@@ -22,9 +24,10 @@ Quick start (the reference kernel census of the production sweep)::
                                   n_time=(100, 100), device="cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
     state = init_state(g, ModelConfig(K=3, P=8, M=4), data, chains=256)
-    res = drivers.phase_warm_start(g, state, data, Priors(),
-                                   torch.full((3,), 10.0, device="cuda"),
-                                   n_iters=500)
+    res = drivers.phase_warm_start(
+        g, state, data, Priors(), torch.full((3,), 10.0, device="cuda"),
+        n_iters=500, collapsed_z=True, gauge=True, p_indep=0.3,
+        phi_mala_steps=4, phi_mala_step=0.05)
 """
 
 __version__ = "0.1.0"

@@ -8,6 +8,9 @@ Counterpart of ``bayesfmmm_tpu/ops/pallas_kernels.py``:
   * K2 ``mean_rss``   — mu = B w and rss = sum (y - mu)^2 in one pass over
     B, batched over chains (replaces ``fused_mean_rss``).  Source:
     csrc/mean_rss.cu.
+  * K3 ``weighted_gram`` — sum_n W[r, n] G[n] for every row r of W, the
+    data-precision block of the blocked updates (replaces
+    ``weighted_gram``).  Source: csrc/weighted_gram.cu.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 for CUDA tensors launches its kernel or raises: there is no fallback.  The
@@ -41,7 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the whole (D, D) matrix and two D-vectors there.
 SMEM_PER_BLOCK = 232_448
 
-LAUNCHES = {"chol_solve": 0, "mean_rss": 0}
+LAUNCHES = {"chol_solve": 0, "mean_rss": 0, "weighted_gram": 0}
 
 _lib = None
 
@@ -114,6 +117,8 @@ def _library():
         lib.bfmmm_chol_solve.restype = i
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
+        lib.bfmmm_weighted_gram.argtypes = [p, p, p, i, i, i, p]
+        lib.bfmmm_weighted_gram.restype = i
         _lib = lib
     return _lib
 
@@ -213,3 +218,31 @@ def mean_rss(B, y, w, want_mu=False):
             torch.cuda.current_stream().cuda_stream)
     _launched("mean_rss", rc)
     return rss, mu
+
+
+# ---------------------------------------------------------------------------
+# K3: weighted Gram sums
+# ---------------------------------------------------------------------------
+
+def weighted_gram_plain(W, G):
+    """out (R, P, P) = sum_n W[r, n] G[n] for W (R, N), G (N, P, P)."""
+    return torch.einsum("rn,npq->rpq", W, G)
+
+
+def weighted_gram(W, G):
+    """W (R, N) row weights, G (N, P, P) shared -> (R, P, P), one sum per
+    row."""
+    if not _route("weighted_gram", W):
+        return weighted_gram_plain(W, G)
+    R, N = W.shape
+    P = G.shape[-1]
+    _check_cuda("weighted_gram", (W, G), ((R, N), (N, P, P)))
+    out = torch.empty(R, P, P, dtype=W.dtype, device=W.device)
+    if R == 0 or P == 0:
+        return out
+    with torch.cuda.device(W.device):
+        rc = _library().bfmmm_weighted_gram(
+            W.data_ptr(), G.data_ptr(), out.data_ptr(), R, N, P,
+            torch.cuda.current_stream().cuda_stream)
+    _launched("weighted_gram", rc)
+    return out

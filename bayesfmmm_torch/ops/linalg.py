@@ -1,10 +1,13 @@
 """Small-matrix linear algebra and the fused precision draw.
 
-Port of the parts of ``bayesfmmm_tpu/ops/linalg.py`` the reference sweep
-uses.  The JAX package unrolls tiny Cholesky factorizations entry by entry
-to dodge the TPU's (8, 128) tile padding; on the GPU the batched
-``torch.linalg`` routines serve, and ``cholesky_ex`` is used so that no
-info check syncs the host.
+Port of the parts of ``bayesfmmm_tpu/ops/linalg.py`` the sweep uses.  The
+JAX package unrolls tiny Cholesky factorizations entry by entry, and its
+production updaters pass the M(M+1)/2 entries of an (M, M) matrix as
+separate arrays (the "entries interface", linalg.py:338-403), so that no
+trailing (M, M) tensor is padded to the TPU's (8, 128) tiles.  On the GPU a
+packed (..., M, M) tensor costs one batched ``torch.linalg`` launch where
+the entries form costs ~30 elementwise ones, so the port keeps the packed
+form only; ``cholesky_ex`` is used so that no info check syncs the host.
 
 The joint Phi draw — one D = K*M*P dimensional precision per chain per
 sweep — goes through ``precision_draw_pair``, which sends CUDA tensors to
@@ -32,6 +35,11 @@ def small_solve_upper_t(L, b):
     """x with L^T x = b for lower-triangular L."""
     return torch.linalg.solve_triangular(L.mT, b[..., None],
                                          upper=True)[..., 0]
+
+
+def small_chol_logdet(L):
+    """log det of the SPD matrix whose Cholesky factor is L (..., M, M)."""
+    return 2.0 * torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1)
 
 
 def precision_draw_pair(A, b, z):

@@ -56,7 +56,7 @@ def build_cache(data, state) -> SweepCache:
 def rss_from_coeffs(data, w):
     """Per-chain sum_n ||y_n - B_n w_n||^2 (C,), in residual space.  B rows
     and y are zero at padded points, so no mask is needed."""
-    return kernels.mean_rss(data.B, data.y, w)[0]
+    return kernels.mean_rss(data.B, data.y, w.contiguous())[0]
 
 
 def rss_rows_from_coeffs(data, w):

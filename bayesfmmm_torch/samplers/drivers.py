@@ -1,6 +1,6 @@
 """MCMC drivers: run a sweep over C chains and stack the traces.
 
-Port of the reference-census part of ``bayesfmmm_tpu/samplers/drivers.py``.
+Port of the phase-3 part of ``bayesfmmm_tpu/samplers/drivers.py``.
 The JAX package scans a jitted per-chain sweep and vmaps it over chains;
 here a Python loop runs the batched sweep of ops/gibbs.py, and the traces
 stack on the host-visible device with the chain axis first.  Tempered
@@ -54,14 +54,13 @@ def run_chain(generator, state, data, hp, c, *, sweep, n_iters, thin=1,
 
 
 def phase_warm_start(generator, state, data, hp, c, *, n_iters, thin=1,
-                     betas=None, n_temp_trans=0, covariate_mean=False,
-                     covariate_cov=False, collapsed_z=False, gauge=False):
+                     betas=None, n_temp_trans=0, **sweep_flags):
     """Phase 3 (BFMMM_MTT_warm_start, BFMMM.h:1346-1762): the production
-    sampler in the reference kernel census (ops/gibbs.py::sweep_full)."""
-    sweep = functools.partial(gibbs.sweep_full,
-                              covariate_mean=covariate_mean,
-                              covariate_cov=covariate_cov,
-                              collapsed_z=collapsed_z, gauge=gauge)
+    sampler.  ``sweep_flags`` are keyword flags of ops/gibbs.py::sweep_full
+    (the reference census without any; the bench's production census with
+    collapsed_z=True, gauge=True, p_indep=0.3, phi_mala_steps=4,
+    phi_mala_step=0.05)."""
+    sweep = functools.partial(gibbs.sweep_full, **sweep_flags)
     return run_chain(generator, state, data, hp, c, sweep=sweep,
                      n_iters=n_iters, thin=thin, betas=betas,
                      n_temp_trans=n_temp_trans)

@@ -15,8 +15,9 @@ All NumPy f64 on the host, O(N P^2) — negligible next to one sweep.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["spectral_init", "simplex_lsq"]
+__all__ = ["spectral_init", "spectral_ensemble", "simplex_lsq"]
 
 
 def _host(x):
@@ -105,3 +106,20 @@ def spectral_init(data, K, M, *, ridge=1e-6, jitter=1e-3, seed=0):
     rss = np.sum(((y - fit) * mask) ** 2)
     sigma2 = max(rss / max(mask.sum(), 1.0), 1e-6)
     return {"Z": Z, "nu": nu, "chi": chi, "Phi": Phi, "sigma2": sigma2}
+
+
+def spectral_ensemble(g, state, data, K, M, *, z_jitter=0.02):
+    """``state`` (C chains) with every chain at the spectral init, as the
+    bench seeds its ensemble: Z jittered per chain by ``z_jitter`` times a
+    normal draw from ``g``, floored at 1e-4 and renormalized."""
+    dev = state.Z.device
+    sp = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+          for k, v in spectral_init(data, K, M).items()}
+    Z0 = (sp["Z"] + z_jitter * torch.randn(
+        state.Z.shape, generator=g, device=dev)).clamp_min(1e-4)
+    return state.replace(
+        Z=Z0 / Z0.sum(-1, keepdim=True),
+        nu=sp["nu"].expand_as(state.nu).contiguous(),
+        chi=sp["chi"].expand_as(state.chi).contiguous(),
+        Phi=sp["Phi"].expand_as(state.Phi).contiguous(),
+        sigma2=sp["sigma2"].expand_as(state.sigma2).contiguous())

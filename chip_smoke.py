@@ -8,18 +8,28 @@ Phases, one line each, any failure exits non-zero:
   1. build the CUDA kernels from bayesfmmm_torch/csrc with nvcc;
   2. K1 chol_solve against its plain version (torch.linalg) at the main
      path's shape and two others;
-  3. K2 mean_rss against its plain version (einsum + sum);
-  4. the slice's main path: phase_warm_start in the reference kernel census
-     at the headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps
-     with the first 200 annealed from beta 0.1, held against the JAX
-     package's result for the same protocol
-     (tests/data/torch_slice_reference.json), with the kernels' launch
-     counts read around that run;
-  5. timings: chain-sweeps/s of the slice, and each kernel beside its plain
-     version at the main path's shapes.
+  3. K2 mean_rss against its plain version (einsum + sum) at the main
+     path's two shapes (C and the MGP-scale moves' 2C chain rows) and a
+     padded one;
+  4. K3 weighted_gram against its plain version (einsum) at the main
+     path's shape, a ragged one and a wider P;
+  5. slice 1's path: phase_warm_start in the reference kernel census at the
+     headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps with the
+     first 200 annealed from beta 0.1, held against the JAX package's
+     result for the same protocol (tests/data/torch_slice_reference.json),
+     with the kernels' launch counts read around that run;
+  6. slice 2's path, the bench's production census (collapsed Z/chi, gauge,
+     MGP- and noise-scale interweaves, Phi MALA), same protocol, held
+     against tests/data/torch_production_reference.json, launch counts
+     read around it;
+  7. timings: chain-sweeps/s of both paths, and each kernel beside its
+     plain version at the main path's shapes: device time from
+     torch.profiler, host-paced time from CUDA events.
 
 It then prints the card's name and power limit, one JSON line of kernel
-numbers, and as its last line {"ok": true, "device": {...}}.
+numbers, and as its last line {"ok": true, "device": {...}}.  Where the
+production sweep's time goes, updater by updater, is measured apart:
+python3 -m bayesfmmm_torch.utils.profile_sweep.
 """
 
 import json
@@ -30,6 +40,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from bayesfmmm_torch import ModelConfig, Priors
 from bayesfmmm_torch.convert import state_to_numpy
@@ -37,19 +49,32 @@ from bayesfmmm_torch.models.likelihood import log_likelihood
 from bayesfmmm_torch.models.state import init_state
 from bayesfmmm_torch.ops import gibbs, kernels
 from bayesfmmm_torch.samplers import drivers
-from bayesfmmm_torch.utils.init_strategies import spectral_init
+from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
 from bayesfmmm_torch.utils.simulate import simulate_functional
 
 ROOT = Path(__file__).resolve().parent
-REFERENCE = ROOT / "tests" / "data" / "torch_slice_reference.json"
+DATA = ROOT / "tests" / "data"
 
-# The slice protocol; must equal the one the JAX reference was made with.
+# The protocol both paths run; must equal the one the JAX references were
+# made with.
 PROTOCOL = dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100],
                 sweeps=500, anneal=200, beta0=0.1, z_jitter=0.02)
 CHAINS = 256
+# path -> (sweep_full flags, JAX reference, kernel launches per sweep)
+PATHS = {
+    "slice": ({}, DATA / "torch_slice_reference.json",
+              {"chol_solve": 1, "mean_rss": 2, "weighted_gram": 1}),
+    # K2: sigma2, the loglik probe, 4 MGP-scale moves, MALA's RSS of a
+    "production": (dict(collapsed_z=True, gauge=True, p_indep=0.3,
+                        phi_mala_steps=4, phi_mala_step=0.05),
+                   DATA / "torch_production_reference.json",
+                   {"chol_solve": 1, "mean_rss": 7, "weighted_gram": 1}),
+}
 
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
 K2_TOL = {"rss_rtol": 1e-5, "mu": 2e-5}     # tests/test_pallas_kernels.py
+# tests/test_pallas_kernels.py:46-47, the absolute part scaled by N/21
+K3_TOL = {"rtol": 2e-5, "atol_per_21": 2e-5}
 
 
 def check(ok, what):
@@ -66,9 +91,30 @@ def card_line():
     return out[0].strip()
 
 
-def cuda_ms(fn, reps=50, warmup=5):
+def device_ms(fn, reps=50, warmup=5):
+    """Device time per call: the profiler's summed durations of the card's
+    work over ``reps`` calls, so neither the host's pace nor a host sync
+    inside ``fn`` counts."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw no work on the card")
+    return us / reps / 1e3
+
+
+def paced_ms(fn, reps=50, warmup=5):
+    """ms per call between CUDA events around ``reps`` calls, each run as
+    the host issues it, so the host's pace shows."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -106,7 +152,9 @@ def k1_phase(dev, g):
 
 def k2_phase(dev, g):
     worst = 0.0
-    for C, N, L, P, pad in ((CHAINS, 100, 100, 8, None), (3, 13, 24, 6, 16)):
+    for C, N, L, P, pad in ((CHAINS, 100, 100, 8, None),
+                           (2 * CHAINS, 100, 100, 8, None),
+                           (3, 13, 24, 6, 16)):
         B = torch.randn(N, L, P, generator=g, device=dev)
         y = torch.randn(N, L, generator=g, device=dev)
         if pad is not None:
@@ -129,11 +177,29 @@ def k2_phase(dev, g):
     return worst
 
 
-def slice_phase(dev):
-    """Drive the main path; returns (seconds, launch counts)."""
-    ref = json.loads(REFERENCE.read_text())
-    check(ref["protocol"] == PROTOCOL and ref["port_chains"] == CHAINS,
-          f"reference protocol {ref['protocol']} != {PROTOCOL}")
+def k3_phase(dev, g):
+    worst = 0.0
+    for R, N, P in ((CHAINS * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
+                    (5, 21, 8), (7, 130, 16)):
+        G = torch.randn(N, P, P, generator=g, device=dev)
+        W = torch.rand(R, N, generator=g, device=dev)
+        out = kernels.weighted_gram(W, G)
+        ref = kernels.weighted_gram_plain(W, G)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        atol = K3_TOL["atol_per_21"] * N / 21
+        ok = bool((err <= atol + K3_TOL["rtol"] * ref.abs()).all())
+        print(f"  K3 weighted_gram R={R} N={N} P={P}: "
+              f"max|out-plain|={err.max().item():.3e} (tol "
+              f"{K3_TOL['rtol']} rel + {atol:.3e} abs)")
+        check(ok, f"K3 disagrees with its plain version at R={R} N={N} "
+                  f"P={P}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def headline_start(dev):
+    """The protocol's data, priors and spectral-init ensemble on ``dev``."""
     p = PROTOCOL
     K, P, M = p["K"], p["P"], p["M"]
     data, _ = simulate_functional(seed=p["seed"], N=p["N"], K=K, P=P, M=M,
@@ -141,57 +207,64 @@ def slice_phase(dev):
     hp, c = Priors(), torch.full((K,), 10.0, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     st = init_state(g, ModelConfig(K=K, P=P, M=M), data, chains=CHAINS)
-    sp = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
-          for k, v in spectral_init(data, K, M).items()}
-    Z0 = (sp["Z"] + p["z_jitter"] * torch.randn(
-        (CHAINS,) + sp["Z"].shape, generator=g, device=dev)).clamp_min(1e-4)
-    st = st.replace(Z=Z0 / Z0.sum(-1, keepdim=True),
-                    nu=sp["nu"].expand_as(st.nu).contiguous(),
-                    chi=sp["chi"].expand_as(st.chi).contiguous(),
-                    Phi=sp["Phi"].expand_as(st.Phi).contiguous(),
-                    sigma2=sp["sigma2"].expand_as(st.sigma2).contiguous())
+    st = spectral_ensemble(g, st, data, K, M, z_jitter=p["z_jitter"])
+    return data, hp, c, g, st
+
+
+def path_phase(dev, name):
+    """Drive one path through phase_warm_start; returns (seconds, launch
+    counts)."""
+    flags, ref_path, per_sweep = PATHS[name]
+    ref = json.loads(ref_path.read_text())
+    check(ref["protocol"] == PROTOCOL and ref["port_chains"] == CHAINS
+          and ref.get("census", {}) == flags,
+          f"{ref_path.name}: protocol {ref['protocol']} / census "
+          f"{ref.get('census')} != {PROTOCOL} / {flags}")
+    p = PROTOCOL
+    data, hp, c, g, st = headline_start(dev)
     betas = np.interp(np.arange(p["sweeps"]),
                       [0, p["anneal"] - 1, p["sweeps"] - 1],
                       [p["beta0"], 1.0, 1.0])
     ll0 = log_likelihood(st, data)
     # one throwaway sweep first, so library set-up is not timed
     gibbs.sweep_full(torch.Generator(device=dev).manual_seed(1), st, data,
-                     hp, c, beta=0.1)
+                     hp, c, beta=0.1, **flags)
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = drivers.phase_warm_start(g, st, data, hp, c, n_iters=p["sweeps"],
-                                   betas=betas)
+                                   betas=betas, **flags)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
 
     final = state_to_numpy(res.final_state)
     for f, v in final.items():
-        check(np.all(np.isfinite(v)), f"final state field {f} not finite")
+        check(np.all(np.isfinite(v)), f"{name}: final {f} not finite")
     for f, v in res.traces.items():
-        check(bool(torch.isfinite(v).all()), f"trace {f} not finite")
+        check(bool(torch.isfinite(v).all()), f"{name}: trace {f} not finite")
     ll = res.loglik
     check(ll.shape == (CHAINS, p["sweeps"]) and bool(torch.isfinite(ll).all()),
-          "loglik trace malformed")
+          f"{name}: loglik trace malformed")
     med0 = ll0.median().item()
     med_ll = ll[:, -1].median().item()
     med_s2 = float(np.median(final["sigma2"]))
-    print(f"  slice: {CHAINS} chains x {p['sweeps']} sweeps in "
+    print(f"  {name}: {CHAINS} chains x {p['sweeps']} sweeps in "
           f"{seconds:.3f} s; median loglik {med0:.2f} -> {med_ll:.2f}; "
           f"median sigma2 {med_s2:.6f}; launches {counts}")
-    check(med_ll > med0, "ensemble loglik did not rise from its start")
-    check(counts["chol_solve"] == p["sweeps"],
-          f"K1 launched {counts['chol_solve']} times in {p['sweeps']} sweeps")
-    check(counts["mean_rss"] == 2 * p["sweeps"],
-          f"K2 launched {counts['mean_rss']} times in {p['sweeps']} sweeps")
-    for name, med in (("loglik", med_ll), ("sigma2", med_s2)):
-        lo, hi = ref[name]["limits"]
-        print(f"  {name}: port median {med:.6g}, JAX median "
-              f"{ref[name]['median']:.6g}, limits [{lo:.6g}, {hi:.6g}] "
+    check(med_ll > med0, f"{name}: ensemble loglik did not rise")
+    for k, n in per_sweep.items():
+        check(counts[k] == n * p["sweeps"],
+              f"{name}: {k} launched {counts[k]} times in {p['sweeps']} "
+              f"sweeps, expected {n} per sweep")
+    for stat, med in (("loglik", med_ll), ("sigma2", med_s2)):
+        lo, hi = ref[stat]["limits"]
+        print(f"  {name} {stat}: port median {med:.6g}, JAX median "
+              f"{ref[stat]['median']:.6g}, limits [{lo:.6g}, {hi:.6g}] "
               f"({ref['limit_rule']})")
-        check(lo <= med <= hi, f"{name} median {med} outside [{lo}, {hi}]")
+        check(lo <= med <= hi,
+              f"{name}: {stat} median {med} outside [{lo}, {hi}]")
     return seconds, counts
 
 
@@ -218,24 +291,46 @@ def main():
     print("phase 2 K1 chol_solve vs plain: ok")
     k2_err = k2_phase(dev, g)
     print("phase 3 K2 mean_rss vs plain: ok")
+    k3_err = k3_phase(dev, g)
+    print("phase 4 K3 weighted_gram vs plain: ok")
 
-    seconds, counts = slice_phase(dev)
-    print("phase 4 slice main path: ok")
+    s_seconds, _ = path_phase(dev, "slice")
+    print("phase 5 slice 1 path (reference census): ok")
+    p_seconds, counts = path_phase(dev, "production")
+    print("phase 6 slice 2 path (production census): ok")
 
     A, b, z = spd(g, CHAINS, 96, dev)
-    k1_ms = cuda_ms(lambda: kernels.chol_solve(A, b, z))
-    k1_plain = cuda_ms(lambda: kernels.chol_solve_plain(A, b, z))
     B = torch.randn(100, 100, 8, generator=g, device=dev)
     y = torch.randn(100, 100, generator=g, device=dev)
     w = torch.randn(CHAINS, 100, 8, generator=g, device=dev)
-    k2_ms = cuda_ms(lambda: kernels.mean_rss(B, y, w))
-    k2_plain = cuda_ms(lambda: kernels.mean_rss_plain(B, y, w))
-    rate = CHAINS * PROTOCOL["sweeps"] / seconds
-    print(f"phase 5 timings on {card}: slice {rate:.1f} chain-sweeps/s "
-          f"({seconds / PROTOCOL['sweeps'] * 1e3:.3f} ms per sweep of "
-          f"{CHAINS} chains, loglik every sweep); K1 C={CHAINS} D=96 "
-          f"{k1_ms:.4f} ms vs plain {k1_plain:.4f} ms; K2 C={CHAINS} N=100 "
-          f"L=100 P=8 {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms")
+    G = torch.randn(100, 8, 8, generator=g, device=dev)
+    W = torch.rand(CHAINS * 3, 100, generator=g, device=dev)
+    calls = {  # kernel, plain version, each at the main path's shapes
+        "chol_solve": (lambda: kernels.chol_solve(A, b, z),
+                       lambda: kernels.chol_solve_plain(A, b, z)),
+        "mean_rss": (lambda: kernels.mean_rss(B, y, w),
+                     lambda: kernels.mean_rss_plain(B, y, w)),
+        "weighted_gram": (lambda: kernels.weighted_gram(W, G),
+                          lambda: kernels.weighted_gram_plain(W, G)),
+    }
+    ms = {}   # name -> (kernel, plain) device ms; then host-paced ms
+    for name, (kern, plain) in calls.items():
+        ms[name] = (device_ms(kern), device_ms(plain),
+                    paced_ms(kern), paced_ms(plain))
+    n = PROTOCOL["sweeps"]
+    print(f"phase 7 timings on {card}: slice 1 "
+          f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
+          f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
+          f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
+          f"({p_seconds / n * 1e3:.3f} ms per sweep), {CHAINS} chains, "
+          f"loglik every sweep")
+    for name, shape in (("chol_solve", f"C={CHAINS} D=96"),
+                        ("mean_rss", f"C={CHAINS} N=100 L=100 P=8"),
+                        ("weighted_gram", f"R={CHAINS * 3} N=100 P=8")):
+        t = ms[name]
+        print(f"  {name} {shape}: device {t[0]:.4f} ms vs plain "
+              f"{t[1]:.4f} ms; host-paced {t[2]:.4f} ms vs plain "
+              f"{t[3]:.4f} ms")
 
     src = "bayesfmmm_tpu/ops/pallas_kernels.py"
     print(card)
@@ -243,11 +338,18 @@ def main():
         {"name": "chol_solve", "route": "cuda",
          "source": "bayesfmmm_torch/csrc/chol_solve.cu",
          "replaces": f"{src}:228", "launches": counts["chol_solve"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+         "max_abs_err": k1_err, "ms": ms["chol_solve"][0],
+         "plain_ms": ms["chol_solve"][1]},
         {"name": "mean_rss", "route": "cuda",
          "source": "bayesfmmm_torch/csrc/mean_rss.cu",
          "replaces": f"{src}:68", "launches": counts["mean_rss"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
+         "max_abs_err": k2_err, "ms": ms["mean_rss"][0],
+         "plain_ms": ms["mean_rss"][1]},
+        {"name": "weighted_gram", "route": "cuda",
+         "source": "bayesfmmm_torch/csrc/weighted_gram.cu",
+         "replaces": f"{src}:122", "launches": counts["weighted_gram"],
+         "max_abs_err": k3_err, "ms": ms["weighted_gram"][0],
+         "plain_ms": ms["weighted_gram"][1]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

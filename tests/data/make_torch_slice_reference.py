@@ -68,7 +68,10 @@ def summary(x, n_port):
             "max": x.max(), "limits": [med - half, med + half]}
 
 
-def main():
+def main(census=None, out=OUT):
+    """Run the protocol with sweep_full(**census) (the reference census when
+    None) and write the summary to ``out``."""
+    census = census or {}
     p = PROTOCOL
     K, P, M = p["K"], p["P"], p["M"]
     data, _ = simulate_functional(seed=p["seed"], N=p["N"], K=K, P=P, M=M,
@@ -89,7 +92,8 @@ def main():
     def run(k, st):
         def body(s, inp):
             kk, b = inp
-            return gibbs.sweep_full(kk, s, data, hp, c, beta=b), None
+            return gibbs.sweep_full(kk, s, data, hp, c, beta=b,
+                                    **census), None
         st, _ = jax.lax.scan(body, st, (jax.random.split(k, p["sweeps"]),
                                         jnp.asarray(betas(p))))
         return st
@@ -106,6 +110,7 @@ def main():
         assert np.all(np.isfinite(np.asarray(leaf)))
     ref = {
         "protocol": p,
+        "census": census,
         "chains": CHAINS,
         "port_chains": PORT_CHAINS,
         "limit_rule": "median +- 5 * 1.2533 * (q75 - q25) / 1.349 * "
@@ -116,7 +121,7 @@ def main():
         "jax_version": jax.__version__,
         "cpu_seconds": round(seconds, 1),
     }
-    with open(OUT, "w") as f:
+    with open(out, "w") as f:
         json.dump(ref, f, indent=1, default=float)
         f.write("\n")
     print(json.dumps(ref, indent=1, default=float))

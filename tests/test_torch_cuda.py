@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 on the card, against their plain versions.
+"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions.
 
 These need an NVIDIA card with nvcc and skip elsewhere.  The file imports no
 JAX, so on a machine without it run it as
@@ -51,6 +51,7 @@ def test_chol_solve_rejects_oversize_dimension(dev):
 
 
 @pytest.mark.parametrize("C,N,L,P,pad", [(256, 100, 100, 8, None),
+                                         (512, 100, 100, 8, None),
                                          (3, 13, 24, 6, 16)])
 def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
     g = torch.Generator(device=dev).manual_seed(N)
@@ -67,3 +68,32 @@ def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
     assert torch.equal(rss, rss2)      # deterministic: same bits
     torch.testing.assert_close(rss, rss_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(mu, mu_p, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("R,N,P", [(768, 100, 8), (5, 21, 8), (7, 130, 16),
+                                   (1, 100, 8), (3, 40, 20)])
+def test_weighted_gram_kernel_matches_plain(dev, R, N, P):
+    """The main path's shape (R = 256 chains x 3 features), a ragged one,
+    a wider P, one row, and P*P above one block's 256 (p, q) columns."""
+    g = torch.Generator(device=dev).manual_seed(R + N)
+    G = torch.randn(N, P, P, generator=g, device=dev)
+    W = torch.rand(R, N, generator=g, device=dev)
+    before = kernels.LAUNCHES["weighted_gram"]
+    out = kernels.weighted_gram(W, G)
+    out2 = kernels.weighted_gram(W, G)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["weighted_gram"] == before + 2
+    assert torch.equal(out, out2)      # deterministic: same bits
+    torch.testing.assert_close(out, kernels.weighted_gram_plain(W, G),
+                               rtol=2e-5, atol=2e-5 * N / 21)
+
+
+def test_weighted_gram_rejects_bad_inputs(dev):
+    G = torch.randn(10, 8, 8, device=dev)
+    W = torch.rand(4, 10, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        kernels.weighted_gram(W.double(), G)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.weighted_gram(torch.rand(10, 4, device=dev).mT, G)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.weighted_gram(W, G[:9])

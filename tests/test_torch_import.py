@@ -38,6 +38,7 @@ def test_cpu_tensors_route_to_plain_versions():
     B = torch.randn(5, 6, 3, generator=rng)
     y = torch.randn(5, 6, generator=rng)
     w = torch.randn(2, 5, 3, generator=rng)
+    W = torch.rand(3, 5, generator=rng)
     kernels.reset_launch_counts()
     for got, want in zip(kernels.chol_solve(A, b, z),
                          kernels.chol_solve_plain(A, b, z)):
@@ -46,7 +47,11 @@ def test_cpu_tensors_route_to_plain_versions():
     rss_p, mu_p = kernels.mean_rss_plain(B, y, w, want_mu=True)
     assert torch.equal(rss, rss_p) and torch.equal(mu, mu_p)
     assert kernels.mean_rss(B, y, w)[1] is None
-    assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 0}
+    G = torch.randn(5, 3, 3, generator=rng)
+    assert torch.equal(kernels.weighted_gram(W, G),
+                       kernels.weighted_gram_plain(W, G))
+    assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 0,
+                                "weighted_gram": 0}
 
 
 def test_cuda_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -1,11 +1,15 @@
-"""Plain versions of the port's kernels K1 (chol_solve) and K2 (mean_rss)
-against the JAX package's Pallas kernels, run in interpret mode on the CPU,
-on identical inputs made with numpy.
+"""Plain versions of the port's kernels K1 (chol_solve), K2 (mean_rss) and
+K3 (weighted_gram) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU, on identical inputs made with numpy.
 
 Tolerances: K1 5e-5 on the mean and 5e-4 on the noise, those of the JAX
 package's own kernel test (tests/test_linalg.py:118-121); K2 2e-5 on mu and
-1e-5 relative on the RSS (f32 rounding of one P-term matvec and one sum).
+1e-5 relative on the RSS (f32 rounding of one P-term matvec and one sum);
+K3 2e-5 relative and absolute, that of tests/test_pallas_kernels.py:46-47,
+with the absolute part scaled by N/21 (f32 rounding of an N-term sum).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from bayesfmmm_tpu.ops import pallas_kernels as pk  # noqa: E402
 from bayesfmmm_tpu.ops.linalg import precision_draw_pair  # noqa: E402
 from bayesfmmm_torch.ops import kernels, linalg  # noqa: E402
+from bayesfmmm_torch.ops.gibbs import _weighted_gram  # noqa: E402
 
 
 def _spd_problem(seed, C, D, diag=50.0):
@@ -98,3 +103,32 @@ def test_mvn_from_precision_fused_moments():
     s = samp.double().numpy()
     np.testing.assert_allclose(s.mean(0), target, atol=0.05)
     np.testing.assert_allclose(np.cov(s.T), np.linalg.inv(A64), atol=0.05)
+
+
+@pytest.mark.parametrize("R,N,P", [(5, 21, 8), (4, 13, 6), (3, 100, 8),
+                                   (2, 130, 16)])
+def test_weighted_gram_plain_matches_pallas_kernel(R, N, P):
+    """Each row of W against its own call of the Pallas kernel (ragged N,
+    P 6, 8 and 16)."""
+    rng = np.random.default_rng(N)
+    G = rng.normal(size=(N, P, P)).astype(np.float32)
+    W = rng.uniform(size=(R, N)).astype(np.float32)
+    out = kernels.weighted_gram_plain(torch.from_numpy(W), torch.from_numpy(G))
+    assert out.shape == (R, P, P)
+    for r in range(R):
+        ref = np.asarray(pk.weighted_gram(jnp.asarray(G), jnp.asarray(W[r]),
+                                          tile_n=8))
+        np.testing.assert_allclose(out[r].numpy(), ref, rtol=2e-5,
+                                   atol=2e-5 * N / 21)
+
+
+def test_weighted_gram_keeps_leading_axes():
+    """The port's _weighted_gram flattens W's leading (chain, feature) axes
+    into K3's rows and restores them."""
+    rng = np.random.default_rng(0)
+    G = torch.from_numpy(rng.normal(size=(7, 5, 5)).astype(np.float32))
+    W = torch.from_numpy(rng.uniform(size=(3, 2, 7)).astype(np.float32))
+    out = _weighted_gram(SimpleNamespace(G=G), W.transpose(0, 1))
+    assert out.shape == (2, 3, 5, 5)
+    torch.testing.assert_close(out, torch.einsum("kcn,npq->kcpq",
+                                                 W.transpose(0, 1), G))

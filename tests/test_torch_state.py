@@ -78,6 +78,28 @@ def test_restated_numpy_modules_equal_jax_package(both):
         np.testing.assert_allclose(tsp[k], jsp[k], rtol=1e-12, atol=1e-12)
 
 
+def test_spectral_ensemble_seeds_every_chain(both):
+    """Every chain starts at the JAX package's spectral init; only Z is
+    jittered per chain, and its rows stay on the simplex."""
+    (jdata, _), (tdata, _) = both
+    jsp = jinit.spectral_init(jdata, 3, 2)
+    g = torch.Generator().manual_seed(0)
+    st = tstate.init_state(g, config.ModelConfig(K=3, P=7, M=2), tdata,
+                           chains=4)
+    flat = tinit.spectral_ensemble(g, st, tdata, 3, 2, z_jitter=0.0)
+    jit = tinit.spectral_ensemble(g, st, tdata, 3, 2)
+    for k in ("Z", "nu", "chi", "Phi", "sigma2"):
+        want = np.broadcast_to(np.asarray(jsp[k], np.float32),
+                               getattr(st, k).shape)
+        np.testing.assert_allclose(getattr(flat, k).numpy(), want,
+                                   rtol=1e-6, atol=1e-7)
+        if k != "Z":
+            assert torch.equal(getattr(jit, k), getattr(flat, k))
+    Z = jit.Z.numpy()
+    assert Z.min() > 0 and not np.allclose(Z[0], Z[1])
+    np.testing.assert_allclose(Z.sum(-1), 1.0, rtol=1e-6)
+
+
 def test_convert_roundtrip_is_exact(both):
     (jdata, jtruth), (tdata, _) = both
     cfg = jconfig.ModelConfig(K=3, P=7, M=2)

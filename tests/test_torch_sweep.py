@@ -1,9 +1,10 @@
-"""The slice as a whole: 150 reference-census sweeps in the JAX package
-(jit, vmapped over chains) and in the port, from the same converted initial
-ensemble on the same data.  The ensemble means of the loglik, sigma2 and 8
-fitted-curve probes after the run agree within 5 combined standard errors
-(the two packages draw different random numbers, so the chains are
-independent runs of one Markov kernel)."""
+"""The slices as a whole: 150 sweeps of the reference census and of the
+production census in the JAX package (jit, vmapped over chains) and in the
+port, from the same converted initial ensemble on the same data.  The
+ensemble means of the loglik, sigma2 and 8 fitted-curve probes after the
+run agree within 5 combined standard errors (the two packages draw
+different random numbers, so the chains are independent runs of one Markov
+kernel)."""
 
 import numpy as np
 import pytest
@@ -26,6 +27,13 @@ from bayesfmmm_torch.samplers import drivers  # noqa: E402
 
 CHAINS, SWEEPS = 128, 150
 K, P, M = 2, 6, 2
+# the bench's production census (bench.py:71-77); the JAX package runs MALA
+# under gauge=True by default, the port only when asked (ROADMAP F3)
+CENSUS = {
+    "reference": {},
+    "production": dict(collapsed_z=True, gauge=True, p_indep=0.3,
+                       phi_mala_steps=4, phi_mala_step=0.05),
+}
 # 8 (observation, time index) probes of the fitted curve
 PROBES = [(0, 2), (3, 10), (6, 18), (9, 5), (12, 12), (15, 0), (18, 8),
           (21, 15)]
@@ -40,7 +48,9 @@ def _probes(B, Z, nu, Phi, chi):
     return np.einsum("ip,cip->ci", B[n, t], w)
 
 
-def test_sweep_ensemble_matches_jax():
+@pytest.mark.parametrize("census", list(CENSUS))
+def test_sweep_ensemble_matches_jax(census):
+    flags = CENSUS[census]
     data, _ = simulate_functional(seed=9, N=24, K=K, P=P, M=M,
                                   n_time=(20, 24))
     cfg = ModelConfig(K=K, P=P, M=M)
@@ -60,7 +70,7 @@ def test_sweep_ensemble_matches_jax():
 
     def run(k, st):
         def body(s, kk):
-            return gibbs.sweep_full(kk, s, data, Priors(), c), None
+            return gibbs.sweep_full(kk, s, data, Priors(), c, **flags), None
         st, _ = jax.lax.scan(body, st, jax.random.split(k, SWEEPS))
         return st, log_likelihood(st, data)
 
@@ -72,7 +82,8 @@ def test_sweep_ensemble_matches_jax():
     g = torch.Generator().manual_seed(1)
     kernels.reset_launch_counts()
     res = drivers.phase_warm_start(g, tst0, tdata, TPriors(),
-                                   torch.full((K,), 10.0), n_iters=SWEEPS)
+                                   torch.full((K,), 10.0), n_iters=SWEEPS,
+                                   **flags)
     tst = res.final_state
     assert res.loglik.shape == (CHAINS, SWEEPS)
     assert res.traces["Phi"].shape == (CHAINS, SWEEPS, K, P, M)
@@ -109,9 +120,10 @@ def test_driver_thinning_and_flags_outside_the_slice():
                             n_iters=6, thin=3)
     assert res.loglik.shape == (3, 2) and res.traces["Z"].shape == (3, 2, 6, 2)
     assert torch.equal(res.traces["sigma2"][:, -1], res.final_state.sigma2)
-    for kw in (dict(collapsed_z=True), dict(gauge=True),
-               dict(covariate_mean=True), dict(n_temp_trans=5)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(z_anchor=True), dict(phi_chi_moves=1),
+               dict(hmc_steps=1), dict(covariate_mean=True),
+               dict(n_temp_trans=5)):
+        with pytest.raises(NotImplementedError, match="ROADMAP item"):
             drivers.phase_warm_start(g, st, data, hp, c, n_iters=1, **kw)
     with pytest.raises(ValueError, match="betas"):
         drivers.phase_warm_start(g, st, data, hp, c, n_iters=2, betas=[0.5])
