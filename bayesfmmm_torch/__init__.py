@@ -9,7 +9,11 @@ nvcc at first use and bound with ctypes; on CPU tensors their plain
 PyTorch versions run instead.
 
 The package imports nothing of JAX or of ``bayesfmmm_tpu``, so it runs on a
-machine that has neither.
+machine that has neither.  It runs on the CUDA card unless told otherwise:
+the entry points that build data or state (``simulate_functional``,
+``make_functional_data``, ``convert.data_from_jax``,
+``convert.state_from_numpy``) place their tensors there when no ``device``
+is given and raise without a card; ``device="cpu"`` asks for the CPU.
 
 Quick start (the bench's production sweep; drop the flags for the
 reference kernel census)::
@@ -21,11 +25,11 @@ reference kernel census)::
     from bayesfmmm_torch.utils.simulate import simulate_functional
 
     data, _ = simulate_functional(seed=7, N=100, K=3, P=8, M=4,
-                                  n_time=(100, 100), device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(0)
+                                  n_time=(100, 100))       # on the card
+    g = torch.Generator(device=data.device).manual_seed(0)
     state = init_state(g, ModelConfig(K=3, P=8, M=4), data, chains=256)
     res = drivers.phase_warm_start(
-        g, state, data, Priors(), torch.full((3,), 10.0, device="cuda"),
+        g, state, data, Priors(), torch.full((3,), 10.0, device=data.device),
         n_iters=500, collapsed_z=True, gauge=True, p_indep=0.3,
         phi_mala_steps=4, phi_mala_step=0.05)
 """

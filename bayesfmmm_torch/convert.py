@@ -11,13 +11,15 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from bayesfmmm_torch.models.state import STATE_FIELDS, GibbsState, ModelData
+from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState, ModelData,
+                                          default_device)
 
 
 def data_from_jax(jdata, device=None) -> ModelData:
     """Port ModelData holding the same arrays as a JAX ``ModelData`` of the
     functional or hd family (the identity-basis multivariate family is not
-    ported yet)."""
+    ported yet), on ``device``: the CUDA card when None."""
+    device = default_device(device)
     if jdata.identity_basis:
         raise NotImplementedError(
             "multivariate family: ROADMAP item 'covariate-adjusted models "
@@ -39,7 +41,9 @@ def state_from_numpy(leaves, chains=None, device=None) -> GibbsState:
     A leaf with the per-chain shape is broadcast over ``chains`` chains
     (1 if not given); a leaf that already has a leading chain axis (a
     vmapped state) is taken as it is, and must have ``chains`` entries when
-    ``chains`` is given."""
+    ``chains`` is given.  The tensors go to ``device``: the CUDA card when
+    None."""
+    device = default_device(device)
     get = leaves.__getitem__ if isinstance(leaves, Mapping) \
         else lambda f: getattr(leaves, f)
     out = {}

@@ -105,13 +105,29 @@ class GibbsState:
         return self.chi.shape[2]
 
 
+def default_device(device=None) -> torch.device:
+    """The device an entry point places its tensors on: ``device`` when one
+    is given, else the CUDA card.  Without a card it raises; there is no
+    fallback to the CPU, which has to be asked for by name."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "bayesfmmm_torch places data and state on the CUDA card unless "
+            "told otherwise, and torch.cuda.is_available() is false; pass "
+            'device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
 def make_functional_data(y_list, t_list, *, basis_degree, internal_knots,
                          boundary_knots, X=None, dtype=torch.float32,
                          device=None) -> ModelData:
     """Pad ragged functional observations and precompute design constants.
 
-    Each function i is observed at t_list[i] (n_i points).
+    Each function i is observed at t_list[i] (n_i points).  The tensors go
+    to ``device``: the CUDA card when None (see ``default_device``).
     """
+    device = default_device(device)
     N = len(y_list)
     lengths = [len(np.asarray(t)) for t in t_list]
     L = max(lengths)

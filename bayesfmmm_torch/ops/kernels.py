@@ -21,6 +21,12 @@ allocates nothing and returns cudaGetLastError().
 
 ``LAUNCHES`` counts kernel launches (one per launch, nowhere else), so a
 run can show that its main path went through the kernels.
+
+What surrounds the CUDA code is kept here, where the CPU tests reach it:
+``mean_rss_plan`` and ``weighted_gram_plan`` choose the tile sizes, the grid
+and the scratch shape that K2 and K3 are launched with, and ``kernel_bound``
+gives the bytes, the FLOP and the least time the card could take for a call
+of each kernel, from its shapes.
 """
 
 from __future__ import annotations
@@ -38,11 +44,19 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1 keeps
 # the whole (D, D) matrix and two D-vectors there.
 SMEM_PER_BLOCK = 232_448
+
+# One H100 SXM has 132 streaming multiprocessors; the plans want at least
+# one block on each.
+SM_COUNT = 132
+# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
+# device memory 3.35 TB/s; float32 outside the tensor cores 67 TFLOP/s.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
 
 LAUNCHES = {"chol_solve": 0, "mean_rss": 0, "weighted_gram": 0}
 
@@ -83,29 +97,59 @@ def _library_path():
     return _BUILD_DIR / f"libbfmmm_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build():
-    """Compile csrc/*.cu with nvcc unless the library for these sources
-    exists; returns its path.  Raises RuntimeError without nvcc."""
-    out = _library_path()
-    if out.exists():
-        return out
+def compile_library(sources, out):
+    """Compile each of ``sources`` with nvcc, all at once, and link them
+    into the shared library ``out``; what ptxas said of each kernel
+    (registers, spills) goes to ``out``'s ``.log``.  Raises RuntimeError
+    without nvcc or when a source does not compile."""
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
             "and PATH): the CUDA kernels of bayesfmmm_torch are built from "
             "bayesfmmm_torch/csrc at first use")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(_CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sources:
+        obj = out.with_name(f"{tag}.{src.stem}.o")
+        log = obj.with_suffix(".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as f:
+            jobs.append((cmd, obj, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        said = []
+        for cmd, _, log, proc in jobs:
+            rc = proc.wait()
+            said.append(log.read_text())
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n"
+                                   f"{said[-1]}")
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(said))
+        os.replace(tmp, out)
+    finally:
+        for _, obj, log, proc in jobs:
+            proc.wait()
+            obj.unlink(missing_ok=True)
+            log.unlink(missing_ok=True)
     return out
+
+
+def build():
+    """Compile csrc/*.cu unless the library for these sources exists;
+    returns its path.  Raises RuntimeError without nvcc."""
+    out = _library_path()
+    if out.exists():
+        return out
+    return compile_library(sorted(_CSRC.glob("*.cu")), out)
 
 
 def _library():
@@ -115,10 +159,12 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, p]
         lib.bfmmm_chol_solve.restype = i
-        lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
-        lib.bfmmm_weighted_gram.argtypes = [p, p, p, i, i, i, p]
+        lib.bfmmm_weighted_gram.argtypes = [p, p, p, i, i, i, i, p]
         lib.bfmmm_weighted_gram.restype = i
+        lib.bfmmm_empty.argtypes = [p]
+        lib.bfmmm_empty.restype = i
         _lib = lib
     return _lib
 
@@ -149,6 +195,54 @@ def _launched(name, rc):
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{torch.cuda.CudaError(rc)}")
     LAUNCHES[name] += 1
+
+
+def empty_launch(device):
+    """Launch the empty kernel on ``device``'s current stream: the launch
+    floor that kernel timings are read against.  Not part of the sampler
+    and not counted in ``LAUNCHES``."""
+    with torch.cuda.device(device):
+        rc = _library().bfmmm_empty(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: "
+                           f"{torch.cuda.CudaError(rc)}")
+
+
+def kernel_bound(name, **shape):
+    """Bytes, FLOP and the least time one H100 could take for one call.
+
+    Every input is read once and every output written once (float32; of
+    K1's symmetric A the one triangle that defines it); the bound is the
+    larger of bytes over ``PEAK_BYTES_PER_S`` and FLOP over
+    ``PEAK_F32_FLOP_PER_S``.  Shapes by keyword: ``chol_solve`` C, D;
+    ``mean_rss`` C, N, L, P and want_mu; ``weighted_gram`` R, N, P.
+    Returns {"bytes", "flop", "bound_ms", "bound_by"}.
+    """
+    if name == "chol_solve":
+        C, D = shape["C"], shape["D"]
+        # a triangle of A, b and z in; mean and noise out
+        floats = C * (D * (D + 1) // 2 + 4 * D)
+        # factor D^3/3; forward solve of b, back solves of w and z: 3 D^2
+        flop = C * (D ** 3 / 3 + 3 * D * D)
+    elif name == "mean_rss":
+        C, N, L, P = (shape[k] for k in "CNLP")
+        floats = N * L * P + N * L + C * N * P + C     # B, y, w in; rss out
+        if shape.get("want_mu", False):
+            floats += C * N * L
+        # per chain and point: P multiply-adds, the residual, its square
+        # and the sum
+        flop = C * N * L * (2 * P + 3)
+    elif name == "weighted_gram":
+        R, N, P = shape["R"], shape["N"], shape["P"]
+        floats = R * N + N * P * P + R * P * P         # W, G in; out
+        flop = 2 * R * N * P * P
+    else:
+        raise KeyError(name)
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S
+    t_flop = flop / PEAK_F32_FLOP_PER_S
+    return {"bytes": 4 * floats, "flop": flop,
+            "bound_ms": 1e3 * max(t_bytes, t_flop),
+            "bound_by": "bytes" if t_bytes >= t_flop else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +292,52 @@ def mean_rss_plain(B, y, w, want_mu=False):
     return (r * r).sum((1, 2)), (mu if want_mu else None)
 
 
+# A K2 block has 256 threads, each holding 4 points in registers at once.
+K2_TILE_POINTS = 1024
+# Shared memory a K2 block may fill with its tile of w: within the 48 KB a
+# block has without opting in, beside the reduction's few hundred bytes.
+K2_W_SMEM = 40 * 1024
+# Chains a K2 block may own, the instantiations of csrc/mean_rss.cu: the
+# tiles that the main path's C = 256 and 512 select, and a small one.
+K2_CHAIN_TILES = (8, 24, 40)
+# With mu a thread holds more, and the larger tiles would spill registers.
+K2_MU_CHAIN_TILE = 8
+
+
+def mean_rss_plan(C, N, L, P, want_mu=False):
+    """Tiles of K2 for w (C, N, P), B (N, L, P): a block owns ``TC`` chains
+    (one of ``K2_CHAIN_TILES``, one accumulator a thread each) and ``TN``
+    observations (about ``K2_TILE_POINTS`` points).  B is read once per
+    chain tile, and the card is fastest with one wave of blocks, so TC is
+    the smallest that keeps the grid within one block per SM, or the
+    largest there is; with mu it is ``K2_MU_CHAIN_TILE``.  The tile of w
+    stays within ``K2_W_SMEM``.  Returns
+    {"TC", "TN", "grid": (chain tiles, point tiles), "scratch": shape of
+    the per-tile partial sums, "smem": bytes}.
+    """
+    if min(C, N, L, P) < 1:
+        raise ValueError(f"mean_rss_plan: empty shape {(C, N, L, P)}")
+    TN = max(1, min(N, K2_TILE_POINTS // L))
+    one_wave = -(-C // max(1, SM_COUNT // -(-N // TN)))   # chains a block
+    fits = [TC for TC in K2_CHAIN_TILES if TC >= one_wave]
+    TC = fits[0] if fits else K2_CHAIN_TILES[-1]
+    if want_mu:
+        TC = K2_MU_CHAIN_TILE
+    while 4 * TC * TN * P > K2_W_SMEM:       # a wide P: fewer rows, chains
+        if TN > 1:
+            TN = -(-TN // 2)
+        elif TC > K2_CHAIN_TILES[0] and not want_mu:
+            TC = K2_CHAIN_TILES[K2_CHAIN_TILES.index(TC) - 1]
+        else:
+            raise NotImplementedError(
+                f"mean_rss: P={P} is too wide for one block's tile of w "
+                f"({4 * TC * P} bytes of shared memory a row, "
+                f"{K2_W_SMEM} allowed)")
+    grid = (-(-C // TC), -(-N // TN))
+    return {"TC": TC, "TN": TN, "grid": grid, "scratch": (grid[1], C),
+            "smem": 4 * TC * TN * P}
+
+
 def mean_rss(B, y, w, want_mu=False):
     """B (N, L, P) and y (N, L) shared, zeroed at padded points; w (C, N, P)
     per chain.  Returns (rss (C,), mu (C, N, L) or None)."""
@@ -206,15 +346,20 @@ def mean_rss(B, y, w, want_mu=False):
     N, L, P = B.shape
     C = w.shape[0]
     _check_cuda("mean_rss", (B, y, w), ((N, L, P), (N, L), (C, N, P)))
-    rss = torch.empty(C, dtype=w.dtype, device=w.device)
     mu = (torch.empty(C, N, L, dtype=w.dtype, device=w.device)
           if want_mu else None)
-    if C == 0:
-        return rss, mu
+    if min(C, N, L, P) == 0:                 # empty sums; nothing to launch
+        if want_mu:
+            mu.zero_()
+        return torch.zeros(C, dtype=w.dtype, device=w.device), mu
+    plan = mean_rss_plan(C, N, L, P, want_mu)
+    rss = torch.empty(C, dtype=w.dtype, device=w.device)
+    partial = torch.empty(plan["scratch"], dtype=w.dtype, device=w.device)
     with torch.cuda.device(w.device):
         rc = _library().bfmmm_mean_rss(
             B.data_ptr(), y.data_ptr(), w.data_ptr(), rss.data_ptr(),
-            mu.data_ptr() if want_mu else None, C, N, L, P,
+            mu.data_ptr() if want_mu else None, partial.data_ptr(), C, N, L,
+            P, plan["TC"], plan["TN"],
             torch.cuda.current_stream().cuda_stream)
     _launched("mean_rss", rc)
     return rss, mu
@@ -229,6 +374,41 @@ def weighted_gram_plain(W, G):
     return torch.einsum("rn,npq->rpq", W, G)
 
 
+# K3's tiled kernel: threads a block, each summing one row of W by four
+# (p, q) columns.
+K3_THREADS = 128
+# K3's chunked kernel: threads a block, and floats of shared memory (48 KB).
+K3_CHUNK_THREADS = 256
+K3_CHUNK_FLOATS = 48 * 1024 // 4
+
+
+def weighted_gram_plan(R, N, P):
+    """Tiles of K3 for W (R, N), G (N, P, P).  The tiled kernel serves
+    P <= 16 with P*P a multiple of 4 when G and a block's ``TR`` rows of W
+    fit one block's shared memory; a block then takes every (p, q) column.
+    Anything else goes to the chunked kernel: one output a thread, ``QT``
+    columns and ``TR`` rows a block, N staged ``NC`` at a time.  Returns
+    {"tiled", "threads", "TR", "QT", "NC", "grid": (row tiles, column
+    tiles), "smem": bytes}.
+    """
+    if min(R, N, P) < 1:
+        raise ValueError(f"weighted_gram_plan: empty shape {(R, N, P)}")
+    PP = P * P
+    if PP % 4 == 0 and P <= 16:
+        TR = K3_THREADS // (PP // 4)
+        smem = 4 * (N * PP + TR * N)
+        if smem <= SMEM_PER_BLOCK:
+            return {"tiled": True, "threads": K3_THREADS, "TR": TR,
+                    "QT": PP, "NC": N, "grid": (-(-R // TR), 1),
+                    "smem": smem}
+    threads = K3_CHUNK_THREADS
+    QT = min(PP, threads)
+    TR = threads // QT
+    NC = max(1, min(N, K3_CHUNK_FLOATS // (QT + TR)))
+    return {"tiled": False, "threads": threads, "TR": TR, "QT": QT, "NC": NC,
+            "grid": (-(-R // TR), -(-PP // QT)), "smem": 4 * NC * (QT + TR)}
+
+
 def weighted_gram(W, G):
     """W (R, N) row weights, G (N, P, P) shared -> (R, P, P), one sum per
     row."""
@@ -237,12 +417,13 @@ def weighted_gram(W, G):
     R, N = W.shape
     P = G.shape[-1]
     _check_cuda("weighted_gram", (W, G), ((R, N), (N, P, P)))
+    if min(R, N, P) == 0:
+        return torch.zeros(R, P, P, dtype=W.dtype, device=W.device)
     out = torch.empty(R, P, P, dtype=W.dtype, device=W.device)
-    if R == 0 or P == 0:
-        return out
+    plan = weighted_gram_plan(R, N, P)
     with torch.cuda.device(W.device):
         rc = _library().bfmmm_weighted_gram(
             W.data_ptr(), G.data_ptr(), out.data_ptr(), R, N, P,
-            torch.cuda.current_stream().cuda_stream)
+            int(plan["tiled"]), torch.cuda.current_stream().cuda_stream)
     _launched("weighted_gram", rc)
     return out

@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bayesfmmm_torch.models.state import STATE_FIELDS, make_functional_data
+from bayesfmmm_torch.models.state import (STATE_FIELDS, default_device,
+                                          make_functional_data)
 
 
 def _numpy_mu(B, X, truth):
@@ -50,10 +51,12 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
                         device=None):
     """Simulate functional MM data on [0, 1] with a cubic B-spline basis.
 
-    Returns (data, truth): data a ModelData on ``device``, truth a dict of
+    Returns (data, truth): data a ModelData on ``device`` (the CUDA card
+    when None; ``device="cpu"`` asks for the CPU), truth a dict of
     float32 NumPy arrays of one chain (``convert.state_from_numpy`` turns it
     into a state).  P = n_internal + 4 fixes the internal knot count.
     """
+    device = default_device(device)
     rng = np.random.default_rng(seed)
     degree = 3
     n_internal = P - degree - 1
@@ -70,7 +73,8 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
     # design first (float32, on the host), then the observations
     data0 = make_functional_data([np.zeros_like(t) for t in t_list], t_list,
                                  basis_degree=degree, internal_knots=internal,
-                                 boundary_knots=boundary, X=X, dtype=dtype)
+                                 boundary_knots=boundary, X=X, dtype=dtype,
+                                 device="cpu")
     truth = _truth_state(rng, N, K, P, M, D, nu_scale=nu_scale,
                          phi_scale=phi_scale, sigma2=sigma2,
                          with_eta=with_eta, with_xi=with_xi)

@@ -10,9 +10,10 @@ Phases, one line each, any failure exits non-zero:
      path's shape and two others;
   3. K2 mean_rss against its plain version (einsum + sum) at the main
      path's two shapes (C and the MGP-scale moves' 2C chain rows) and a
-     padded one;
+     padded one, with and without mu, the same bits from two calls;
   4. K3 weighted_gram against its plain version (einsum) at the main
-     path's shape, a ragged one and a wider P;
+     path's shape, a ragged one, a wider P and one with P > 16 (the
+     chunked kernel), the same bits from two calls;
   5. slice 1's path: phase_warm_start in the reference kernel census at the
      headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps with the
      first 200 annealed from beta 0.1, held against the JAX package's
@@ -22,9 +23,12 @@ Phases, one line each, any failure exits non-zero:
      MGP- and noise-scale interweaves, Phi MALA), same protocol, held
      against tests/data/torch_production_reference.json, launch counts
      read around it;
-  7. timings: chain-sweeps/s of both paths, and each kernel beside its
-     plain version at the main path's shapes: device time from
-     torch.profiler, host-paced time from CUDA events.
+  7. timings: chain-sweeps/s of both paths, and each kernel at the main
+     path's shapes (K2 at C and at 2C chain rows) beside its plain version,
+     the one PyTorch call for the same function where there is one (K3: a
+     matmul), the empty kernel and its bound (ops/kernels.py::kernel_bound,
+     published H100 SXM peaks): device time from torch.profiler, candidates
+     in turns, and host-paced time from CUDA events.
 
 It then prints the card's name and power limit, one JSON line of kernel
 numbers, and as its last line {"ok": true, "device": {...}}.  Where the
@@ -33,15 +37,12 @@ python3 -m bayesfmmm_torch.utils.profile_sweep.
 """
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from bayesfmmm_torch import ModelConfig, Priors
 from bayesfmmm_torch.convert import state_to_numpy
@@ -50,6 +51,10 @@ from bayesfmmm_torch.models.state import init_state
 from bayesfmmm_torch.ops import gibbs, kernels
 from bayesfmmm_torch.samplers import drivers
 from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
+from bayesfmmm_torch.utils.kernel_bench import (card_line, in_turns,
+                                                library_weighted_gram,
+                                                main_path_inputs, paced_ms,
+                                                spd)
 from bayesfmmm_torch.utils.simulate import simulate_functional
 
 ROOT = Path(__file__).resolve().parent
@@ -82,56 +87,6 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    check(bool(out), "nvidia-smi printed no card")
-    return out[0].strip()
-
-
-def device_ms(fn, reps=50, warmup=5):
-    """Device time per call: the profiler's summed durations of the card's
-    work over ``reps`` calls, so neither the host's pace nor a host sync
-    inside ``fn`` counts."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw no work on the card")
-    return us / reps / 1e3
-
-
-def paced_ms(fn, reps=50, warmup=5):
-    """ms per call between CUDA events around ``reps`` calls, each run as
-    the host issues it, so the host's pace shows."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def spd(g, C, D, dev, diag=50.0):
-    X = torch.randn(C, D, D, generator=g, device=dev)
-    A = X @ X.mT + diag * torch.eye(D, device=dev)
-    return (A.contiguous(), torch.randn(C, D, generator=g, device=dev),
-            torch.randn(C, D, generator=g, device=dev))
-
-
 def k1_phase(dev, g):
     worst = 0.0
     for C, D in ((CHAINS, 96), (3, 13), (2, kernels.chol_solve_max_dim())):
@@ -162,8 +117,11 @@ def k2_phase(dev, g):
             y[:, pad:] = 0.0
         w = torch.randn(C, N, P, generator=g, device=dev)
         rss, mu = kernels.mean_rss(B, y, w, want_mu=True)
+        rss2, none = kernels.mean_rss(B, y, w)
         rss_p, mu_p = kernels.mean_rss_plain(B, y, w, want_mu=True)
         torch.cuda.synchronize()
+        check(none is None and torch.equal(rss, rss2),
+              f"K2 gave other bits without mu, or on a second call, at C={C}")
         e_rel = ((rss - rss_p).abs() / rss_p.abs()).max().item()
         e_mu = (mu - mu_p).abs().max().item()
         mu_ok = bool(((mu - mu_p).abs()
@@ -180,12 +138,15 @@ def k2_phase(dev, g):
 def k3_phase(dev, g):
     worst = 0.0
     for R, N, P in ((CHAINS * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
-                    (5, 21, 8), (7, 130, 16)):
+                    (5, 21, 8), (7, 130, 16), (3, 40, 20)):
         G = torch.randn(N, P, P, generator=g, device=dev)
         W = torch.rand(R, N, generator=g, device=dev)
         out = kernels.weighted_gram(W, G)
+        out2 = kernels.weighted_gram(W, G)
         ref = kernels.weighted_gram_plain(W, G)
         torch.cuda.synchronize()
+        check(torch.equal(out, out2),
+              f"K3 gave other bits on a second call at R={R} N={N} P={P}")
         err = (out - ref).abs()
         atol = K3_TOL["atol_per_21"] * N / 21
         ok = bool((err <= atol + K3_TOL["rtol"] * ref.abs()).all())
@@ -299,24 +260,31 @@ def main():
     p_seconds, counts = path_phase(dev, "production")
     print("phase 6 slice 2 path (production census): ok")
 
-    A, b, z = spd(g, CHAINS, 96, dev)
-    B = torch.randn(100, 100, 8, generator=g, device=dev)
-    y = torch.randn(100, 100, generator=g, device=dev)
-    w = torch.randn(CHAINS, 100, 8, generator=g, device=dev)
-    G = torch.randn(100, 8, 8, generator=g, device=dev)
-    W = torch.rand(CHAINS * 3, 100, generator=g, device=dev)
-    calls = {  # kernel, plain version, each at the main path's shapes
-        "chol_solve": (lambda: kernels.chol_solve(A, b, z),
-                       lambda: kernels.chol_solve_plain(A, b, z)),
-        "mean_rss": (lambda: kernels.mean_rss(B, y, w),
-                     lambda: kernels.mean_rss_plain(B, y, w)),
-        "weighted_gram": (lambda: kernels.weighted_gram(W, G),
-                          lambda: kernels.weighted_gram_plain(W, G)),
+    x = main_path_inputs(dev)
+    C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
+    # name -> (shape, kernel, plain version, the one PyTorch call or None)
+    timed = {
+        "chol_solve": (dict(C=C, D=96), kernels.chol_solve,
+                       kernels.chol_solve_plain, None),
+        "mean_rss": (dict(C=C, N=N, L=100, P=P), kernels.mean_rss,
+                     kernels.mean_rss_plain, None),
+        "mean_rss_2c": (dict(C=2 * C, N=N, L=100, P=P), kernels.mean_rss,
+                        kernels.mean_rss_plain, None),
+        "weighted_gram": (dict(R=C * K, N=N, P=P), kernels.weighted_gram,
+                          kernels.weighted_gram_plain, library_weighted_gram),
     }
-    ms = {}   # name -> (kernel, plain) device ms; then host-paced ms
-    for name, (kern, plain) in calls.items():
-        ms[name] = (device_ms(kern), device_ms(plain),
-                    paced_ms(kern), paced_ms(plain))
+    ms = {}
+    for name, (shape, kern, plain, library) in timed.items():
+        cands = {"kernel": lambda: kern(*x[name]),
+                 "plain": lambda: plain(*x[name]),
+                 "empty": lambda: kernels.empty_launch(dev)}
+        if library is not None:
+            cands["library"] = lambda: library(*x[name])
+        t = {k: v["device_ms"] for k, v in in_turns(cands, rounds=3).items()}
+        t["paced"] = paced_ms(cands["kernel"])
+        t["paced_plain"] = paced_ms(cands["plain"])
+        t.update(kernels.kernel_bound(name.removesuffix("_2c"), **shape))
+        ms[name] = t
     n = PROTOCOL["sweeps"]
     print(f"phase 7 timings on {card}: slice 1 "
           f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
@@ -324,33 +292,38 @@ def main():
           f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
           f"({p_seconds / n * 1e3:.3f} ms per sweep), {CHAINS} chains, "
           f"loglik every sweep")
-    for name, shape in (("chol_solve", f"C={CHAINS} D=96"),
-                        ("mean_rss", f"C={CHAINS} N=100 L=100 P=8"),
-                        ("weighted_gram", f"R={CHAINS * 3} N=100 P=8")):
+    for name, (shape, *_) in timed.items():
         t = ms[name]
-        print(f"  {name} {shape}: device {t[0]:.4f} ms vs plain "
-              f"{t[1]:.4f} ms; host-paced {t[2]:.4f} ms vs plain "
-              f"{t[3]:.4f} ms")
+        lib_ms = f"{t['library']:.4f} ms" if "library" in t else "none"
+        print(f"  {name} {shape}: device {t['kernel']:.4f} ms vs plain "
+              f"{t['plain']:.4f} ms, one PyTorch call {lib_ms}, empty kernel "
+              f"{t['empty']:.4f} ms; bound {t['bound_ms']:.6f} ms by "
+              f"{t['bound_by']} ({t['bytes']} bytes, {t['flop']:.0f} FLOP; "
+              f"{100 * t['bound_ms'] / t['kernel']:.2f} % of it reached); "
+              f"host-paced {t['paced']:.4f} ms vs plain "
+              f"{t['paced_plain']:.4f} ms")
 
-    src = "bayesfmmm_tpu/ops/pallas_kernels.py"
+    def entry(name, source, line, err):
+        t = ms[name]
+        return {"name": name, "route": "cuda",
+                "source": f"bayesfmmm_torch/csrc/{source}",
+                "replaces": f"bayesfmmm_tpu/ops/pallas_kernels.py:{line}",
+                "launches": counts[name], "max_abs_err": err,
+                "ms": t["kernel"], "plain_ms": t["plain"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library"),
+                "launches_per_sweep": {
+                    path: per[name] for path, (_, _, per) in PATHS.items()},
+                "empty_ms": t["empty"]}
+
+    k2 = entry("mean_rss", "mean_rss.cu", 68, k2_err)
+    # the MGP-scale moves' 2C chain rows, 4 of the production sweep's 7
+    k2["at_2c_rows"] = {k: ms["mean_rss_2c"][k]
+                        for k in ("kernel", "plain", "bound_ms", "bound_by")}
     print(card)
     print(json.dumps({"kernels": [
-        {"name": "chol_solve", "route": "cuda",
-         "source": "bayesfmmm_torch/csrc/chol_solve.cu",
-         "replaces": f"{src}:228", "launches": counts["chol_solve"],
-         "max_abs_err": k1_err, "ms": ms["chol_solve"][0],
-         "plain_ms": ms["chol_solve"][1]},
-        {"name": "mean_rss", "route": "cuda",
-         "source": "bayesfmmm_torch/csrc/mean_rss.cu",
-         "replaces": f"{src}:68", "launches": counts["mean_rss"],
-         "max_abs_err": k2_err, "ms": ms["mean_rss"][0],
-         "plain_ms": ms["mean_rss"][1]},
-        {"name": "weighted_gram", "route": "cuda",
-         "source": "bayesfmmm_torch/csrc/weighted_gram.cu",
-         "replaces": f"{src}:122", "launches": counts["weighted_gram"],
-         "max_abs_err": k3_err, "ms": ms["weighted_gram"][0],
-         "plain_ms": ms["weighted_gram"][1]},
-    ]}))
+        entry("chol_solve", "chol_solve.cu", 228, k1_err), k2,
+        entry("weighted_gram", "weighted_gram.cu", 122, k3_err)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -52,8 +52,21 @@ def test_chol_solve_rejects_oversize_dimension(dev):
 
 @pytest.mark.parametrize("C,N,L,P,pad", [(256, 100, 100, 8, None),
                                          (512, 100, 100, 8, None),
-                                         (3, 13, 24, 6, 16)])
+                                         (3, 13, 24, 6, 16),
+                                         (1, 100, 100, 8, None),
+                                         (37, 7, 1500, 8, None),
+                                         (5, 300, 3, 5, None),
+                                         (20, 9, 11, 12, None),
+                                         (200, 100, 100, 8, None),
+                                         (400, 100, 100, 8, None),
+                                         (50, 100, 100, 6, None)])
 def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
+    """The main path's two shapes (C chains and the MGP-scale moves' 2C
+    rows), a padded one, one chain, tiles ragged in chains and points with
+    more points than a thread holds at once, widths other than 8 (the
+    general instantiation), and chain counts that take the 8-, 24- and
+    40-chain tiles; with mu (the 8-chain tile) and without, the same bits
+    each time."""
     g = torch.Generator(device=dev).manual_seed(N)
     B = torch.randn(N, L, P, generator=g, device=dev)
     y = torch.randn(N, L, generator=g, device=dev)
@@ -61,20 +74,42 @@ def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
         B[:, pad:] = 0.0
         y[:, pad:] = 0.0
     w = torch.randn(C, N, P, generator=g, device=dev)
+    before = kernels.LAUNCHES["mean_rss"]
     rss, mu = kernels.mean_rss(B, y, w, want_mu=True)
-    rss2, _ = kernels.mean_rss(B, y, w)
+    rss2, none = kernels.mean_rss(B, y, w)
     rss_p, mu_p = kernels.mean_rss_plain(B, y, w, want_mu=True)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mean_rss"] == before + 2
+    assert none is None
     assert torch.equal(rss, rss2)      # deterministic: same bits
     torch.testing.assert_close(rss, rss_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(mu, mu_p, rtol=2e-5, atol=2e-5)
 
 
+def test_mean_rss_kernel_takes_unaligned_views(dev):
+    """B and w that start 4 bytes off a 16-byte boundary take the 4-byte
+    loads and give the aligned call's bits."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    N, L, P, C = 10, 30, 8, 5
+    B = torch.randn(N * L * P + 1, generator=g, device=dev)
+    w = torch.randn(C * N * P + 1, generator=g, device=dev)
+    y = torch.randn(N, L, generator=g, device=dev)
+    Bv, wv = B[1:].view(N, L, P), w[1:].view(C, N, P)
+    assert Bv.data_ptr() % 16 != 0 and wv.data_ptr() % 16 != 0
+    rss, mu = kernels.mean_rss(Bv, y, wv, want_mu=True)
+    rss_a, mu_a = kernels.mean_rss(Bv.clone(), y, wv.clone(), want_mu=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rss, rss_a) and torch.equal(mu, mu_a)
+
+
 @pytest.mark.parametrize("R,N,P", [(768, 100, 8), (5, 21, 8), (7, 130, 16),
-                                   (1, 100, 8), (3, 40, 20)])
+                                   (1, 100, 8), (3, 40, 20), (50, 33, 6),
+                                   (9, 3000, 8), (4, 17, 5)])
 def test_weighted_gram_kernel_matches_plain(dev, R, N, P):
     """The main path's shape (R = 256 chains x 3 features), a ragged one,
-    a wider P, one row, and P*P above one block's 256 (p, q) columns."""
+    a wider P, one row, and P*P above one block's 256 (p, q) columns; rows
+    that are not 16-byte aligned (N odd), G beyond a block's shared memory
+    and P*P not a multiple of 4 (the chunked kernel)."""
     g = torch.Generator(device=dev).manual_seed(R + N)
     G = torch.randn(N, P, P, generator=g, device=dev)
     W = torch.rand(R, N, generator=g, device=dev)
@@ -86,6 +121,47 @@ def test_weighted_gram_kernel_matches_plain(dev, R, N, P):
     assert torch.equal(out, out2)      # deterministic: same bits
     torch.testing.assert_close(out, kernels.weighted_gram_plain(W, G),
                                rtol=2e-5, atol=2e-5 * N / 21)
+
+
+def test_weighted_gram_kernel_takes_unaligned_views(dev):
+    """W and G that start 4 bytes off a 16-byte boundary are staged with
+    4-byte copies and give the aligned call's bits."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    R, N, P = 40, 100, 8
+    W = torch.rand(R * N + 1, generator=g, device=dev)
+    G = torch.randn(N * P * P + 1, generator=g, device=dev)
+    Wv, Gv = W[1:].view(R, N), G[1:].view(N, P, P)
+    assert Wv.data_ptr() % 16 != 0 and Gv.data_ptr() % 16 != 0
+    out = kernels.weighted_gram(Wv, Gv)
+    out_a = kernels.weighted_gram(Wv.clone(), Gv.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_a)
+
+
+def test_empty_shapes_launch_nothing(dev):
+    """Empty inputs on the card give zeros on the card, with no launch and
+    no plain version."""
+    before = dict(kernels.LAUNCHES)
+    B, y = torch.zeros(4, 0, 3, device=dev), torch.zeros(4, 0, device=dev)
+    rss, mu = kernels.mean_rss(B, y, torch.ones(2, 4, 3, device=dev),
+                               want_mu=True)
+    assert rss.is_cuda and rss.tolist() == [0.0, 0.0]
+    assert mu.is_cuda and mu.shape == (2, 4, 0)
+    rss, mu = kernels.mean_rss(torch.zeros(4, 5, 3, device=dev),
+                               torch.zeros(4, 5, device=dev),
+                               torch.ones(0, 4, 3, device=dev))
+    assert rss.is_cuda and rss.shape == (0,) and mu is None
+    out = kernels.weighted_gram(torch.ones(2, 0, device=dev),
+                                torch.zeros(0, 3, 3, device=dev))
+    assert out.is_cuda and out.shape == (2, 3, 3) and not bool(out.any())
+    assert kernels.LAUNCHES == before
+
+
+def test_empty_kernel_launches(dev):
+    before = dict(kernels.LAUNCHES)
+    kernels.empty_launch(dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
 
 
 def test_weighted_gram_rejects_bad_inputs(dev):

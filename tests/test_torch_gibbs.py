@@ -99,9 +99,9 @@ def case():
         A=np.asarray([[1.5, 2.5], [2.0, 3.0]], np.float32),
         gamma=rng.uniform(0.5, 2.0, size=(2, 5, 2)).astype(np.float32))
     js = jax.tree.map(jnp.asarray, js)
-    return jdata, js, convert.data_from_jax(jdata), \
+    return jdata, js, convert.data_from_jax(jdata, device="cpu"), \
         convert.state_from_numpy(jax.tree.map(np.asarray, js),
-                                 chains=N_DRAWS)
+                                 chains=N_DRAWS, device="cpu")
 
 
 def _moments_agree(a, b, what):

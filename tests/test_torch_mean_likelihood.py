@@ -43,8 +43,8 @@ def case():
                             type(truth)(**{k: jnp.asarray(v)
                                            for k, v in leaves.items()}))
                for c in range(C)]
-    return jdata, jstates, convert.data_from_jax(jdata), \
-        convert.state_from_numpy(leaves, chains=C)
+    return jdata, jstates, convert.data_from_jax(jdata, device="cpu"), \
+        convert.state_from_numpy(leaves, chains=C, device="cpu")
 
 
 def _close(got, want, rtol=1e-5):

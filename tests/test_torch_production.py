@@ -63,9 +63,9 @@ def case():
         A=np.asarray([[1.5, 2.5], [2.0, 3.0]], np.float32),
         gamma=rng.uniform(0.5, 2.0, size=(2, 5, 2)).astype(np.float32))
     js = jax.tree.map(jnp.asarray, js)
-    return jdata, js, convert.data_from_jax(jdata), \
+    return jdata, js, convert.data_from_jax(jdata, device="cpu"), \
         convert.state_from_numpy(jax.tree.map(np.asarray, js),
-                                 chains=N_DRAWS)
+                                 chains=N_DRAWS, device="cpu")
 
 
 def _random_states(seed, C, N, K, P, M):
@@ -97,8 +97,8 @@ def chains():
     jdata, _ = simulate_functional(seed=3, N=10, K=3, P=5, M=3,
                                    n_time=(12, 16))
     d = _random_states(0, 5, 10, 3, 5, 3)
-    return jdata, convert.data_from_jax(jdata), d, \
-        convert.state_from_numpy(d, chains=5)
+    return jdata, convert.data_from_jax(jdata, device="cpu"), d, \
+        convert.state_from_numpy(d, chains=5, device="cpu")
 
 
 def _close(port, ref, what, rtol=F32_RTOL):
@@ -281,7 +281,8 @@ def test_gauge_maps_exact_mu_invariance():
     test_gauge_maps_exact_mu_invariance at D = 0 (the covariate terms are
     not ported), over 3 chains with one map parameter each."""
     K, P, M = 3, 8, 3
-    data, _ = tsimulate.simulate_functional(seed=3, N=12, K=K, P=P, M=M)
+    data, _ = tsimulate.simulate_functional(seed=3, N=12, K=K, P=P, M=M,
+                                            device="cpu")
     g = torch.Generator().manual_seed(0)
     st = init_state(g, TConfig(K=K, P=P, M=M), data, chains=3)
     mu0 = compute_mu(data, st)
@@ -321,7 +322,8 @@ def test_noise_scale_log_acc_matches_brute_force():
     K, P, M, N = 3, 6, 3, 15
     f64 = torch.float64
     data, _ = tsimulate.simulate_functional(seed=11, N=N, K=K, P=P, M=M,
-                                            n_time=(25, 30), dtype=f64)
+                                            n_time=(25, 30), dtype=f64,
+                                            device="cpu")
     g = torch.Generator().manual_seed(11)
     st = init_state(g, TConfig(K=K, P=P, M=M), data, chains=2, dtype=f64)
     st = st.replace(

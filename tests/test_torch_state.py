@@ -24,7 +24,8 @@ _SIM = dict(seed=3, N=12, K=3, P=7, M=2, n_time=(15, 22))
 
 @pytest.fixture(scope="module")
 def both():
-    return jsim.simulate_functional(**_SIM), tsim.simulate_functional(**_SIM)
+    return (jsim.simulate_functional(**_SIM),
+            tsim.simulate_functional(**_SIM, device="cpu"))
 
 
 @pytest.mark.parametrize("field", ["y", "mask", "B", "G", "u", "yy", "pen",
@@ -51,7 +52,7 @@ def test_make_functional_data_matches_jax():
     kw = dict(basis_degree=3, internal_knots=np.array([0.3, 0.6]),
               boundary_knots=np.array([0.0, 1.0]))
     jd = jstate.make_functional_data(y_list, t_list, **kw)
-    td = tstate.make_functional_data(y_list, t_list, **kw)
+    td = tstate.make_functional_data(y_list, t_list, device="cpu", **kw)
     for f in ("y", "mask", "B", "G", "u", "yy", "pen"):
         np.testing.assert_array_equal(getattr(td, f).numpy(),
                                       np.asarray(getattr(jd, f)))
@@ -105,23 +106,23 @@ def test_convert_roundtrip_is_exact(both):
     cfg = jconfig.ModelConfig(K=3, P=7, M=2)
     keys = jax.random.split(jax.random.PRNGKey(0), 5)
     jst = jax.vmap(lambda k: jstate.init_state(k, cfg, jdata))(keys)
-    st = convert.state_from_numpy(jst, chains=5)
+    st = convert.state_from_numpy(jst, chains=5, device="cpu")
     back = convert.state_to_numpy(st)
     for f in tstate.STATE_FIELDS:
         np.testing.assert_array_equal(back[f], np.asarray(getattr(jst, f)))
-    one = convert.state_from_numpy(jtruth, chains=4)
+    one = convert.state_from_numpy(jtruth, chains=4, device="cpu")
     assert one.Z.shape == (4, 12, 3) and one.alpha3.shape == (4,)
     np.testing.assert_array_equal(convert.state_to_numpy(one)["Phi"][3],
                                   np.asarray(jtruth.Phi))
     with pytest.raises(ValueError):
-        convert.state_from_numpy(jst, chains=4)
-    dd = convert.data_from_jax(jdata)
+        convert.state_from_numpy(jst, chains=4, device="cpu")
+    dd = convert.data_from_jax(jdata, device="cpu")
     for f in ("y", "mask", "B", "X", "G", "pen", "u", "yy"):
         assert torch.equal(getattr(dd, f), getattr(tdata, f))
     assert dd.n_obs == tdata.n_obs
     mv, _ = jsim.simulate_multivariate(seed=0, N=5, K=2, P=3, M=1)
     with pytest.raises(NotImplementedError, match="multivariate"):
-        convert.data_from_jax(mv)
+        convert.data_from_jax(mv, device="cpu")
 
 
 def test_init_state_shapes_and_support(both):

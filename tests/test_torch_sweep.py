@@ -77,8 +77,9 @@ def test_sweep_ensemble_matches_jax(census):
     jst, jll = jax.jit(jax.vmap(run))(
         jax.random.split(jax.random.PRNGKey(1), CHAINS), init_states)
 
-    tdata = convert.data_from_jax(data)
-    tst0 = convert.state_from_numpy(init_states, chains=CHAINS)
+    tdata = convert.data_from_jax(data, device="cpu")
+    tst0 = convert.state_from_numpy(init_states, chains=CHAINS,
+                                    device="cpu")
     g = torch.Generator().manual_seed(1)
     kernels.reset_launch_counts()
     res = drivers.phase_warm_start(g, tst0, tdata, TPriors(),
@@ -112,8 +113,9 @@ def test_driver_thinning_and_flags_outside_the_slice():
     from bayesfmmm_torch.ops.mean import build_cache
     from bayesfmmm_torch.utils.simulate import simulate_functional as tsim
 
-    data, truth = tsim(seed=1, N=6, K=2, P=5, M=2, n_time=(8, 10))
-    st = convert.state_from_numpy(truth, chains=3)
+    data, truth = tsim(seed=1, N=6, K=2, P=5, M=2, n_time=(8, 10),
+                       device="cpu")
+    st = convert.state_from_numpy(truth, chains=3, device="cpu")
     hp, c = TPriors(), torch.full((2,), 10.0)
     g = torch.Generator().manual_seed(0)
     res = drivers.run_chain(g, st, data, hp, c, sweep=tgibbs.sweep_full,
