@@ -23,10 +23,11 @@ allocates nothing and returns cudaGetLastError().
 run can show that its main path went through the kernels.
 
 What surrounds the CUDA code is kept here, where the CPU tests reach it:
-``mean_rss_plan`` and ``weighted_gram_plan`` choose the tile sizes, the grid
-and the scratch shape that K2 and K3 are launched with, and ``kernel_bound``
-gives the bytes, the FLOP and the least time the card could take for a call
-of each kernel, from its shapes.
+``chol_solve_plan`` chooses which of K1's two kernels serves a shape and
+its thread grid, ``mean_rss_plan`` and ``weighted_gram_plan`` choose the
+tile sizes, the grid and the scratch shape that K2 and K3 are launched
+with, and ``kernel_bound`` gives the bytes, the FLOP and the least time the
+card could take for a call of each kernel, from its shapes.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1 keeps
-# the whole (D, D) matrix and two D-vectors there.
+# Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1's
+# shared-memory kernel keeps the whole (D, D) matrix and two D-vectors there.
 SMEM_PER_BLOCK = 232_448
 
 # One H100 SXM has 132 streaming multiprocessors; the plans want at least
@@ -157,7 +158,8 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, p]
+        lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, ctypes.c_float,
+                                         i, p]
         lib.bfmmm_chol_solve.restype = i
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
@@ -249,8 +251,60 @@ def kernel_bound(name, **shape):
 # K1: Cholesky factor-and-solve
 # ---------------------------------------------------------------------------
 
-def chol_solve_plain(A, b, z):
-    """mean = A^-1 b and noise = chol(A)^-T z for A (C, D, D), b/z (C, D)."""
+# K1's register-tiled kernel: threads a side of the block's square grid,
+# and the tile sides csrc/chol_solve.cu is instantiated for.  A tile side TS
+# serves D <= K1_GRID * TS; the smallest that covers D is taken.
+K1_GRID = 16
+K1_TILES = (6, 8)
+K1_SHARED_THREADS = 256
+
+
+def chol_solve_plan(C, D):
+    """Which of K1's kernels serves A (C, D, D), and how it is launched.
+
+    ``"tiled"`` keeps the matrix in registers: ``threads`` (16, 16) a chain
+    in a cyclic layout, thread (r, c) owning the entries (i, k) with
+    i % 16 == r and k % 16 == c, a ``tile`` of (TS, TS); D below 16 * TS is
+    padded with the identity in registers.  ``"shared"`` keeps it in shared
+    memory, for every other D up to ``chol_solve_max_dim()``.  One chain a
+    block either way.  Returns {"kernel", "threads", "tile" (None for the
+    shared-memory kernel), "smem": bytes a block, "grid"}.
+    """
+    if min(C, D) < 1:
+        raise ValueError(f"chol_solve_plan: empty shape {(C, D)}")
+    if D > chol_solve_max_dim():
+        raise NotImplementedError(
+            f"chol_solve: D={D} exceeds {chol_solve_max_dim()}, the largest "
+            f"dimension whose matrix fits one block's shared memory; the "
+            f"large-D path is ROADMAP item 'K1 large-D'")
+    for TS in K1_TILES:
+        DP = K1_GRID * TS
+        if D <= DP:
+            # L with padded rows, two column buffers of 8-byte rows and w_j,
+            # 1 / L_jj and w, the warps' sums of the trace
+            buf = K1_GRID * (TS + TS % 2) + 4
+            floats = DP * (DP + 4) + 2 * buf + 2 * DP + K1_GRID ** 2 // 32
+            return {"kernel": "tiled", "threads": (K1_GRID, K1_GRID),
+                    "tile": (TS, TS), "smem": 4 * floats, "grid": C}
+    return {"kernel": "shared", "threads": (K1_SHARED_THREADS,),
+            "tile": None, "smem": 4 * (D * D + 2 * D), "grid": C}
+
+
+def add_jitter(A, jitter):
+    """A + jitter * (tr(A) / D + 1) * I, the contract of the JAX package's
+    ``mvn_from_precision_fused``, as a tensor of its own: what the plain
+    version factors, and what K1 forms on chip instead."""
+    D = A.shape[-1]
+    scale = A.diagonal(dim1=-2, dim2=-1).sum(-1) / D + 1.0
+    eye = torch.eye(D, dtype=A.dtype, device=A.device)
+    return A + (jitter * scale)[..., None, None] * eye
+
+
+def chol_solve_plain(A, b, z, jitter=0.0):
+    """mean = A^-1 b and noise = chol(A)^-T z for A (C, D, D), b/z (C, D);
+    with ``jitter`` A + jitter * (tr(A) / D + 1) * I takes A's place."""
+    if jitter != 0.0:
+        A = add_jitter(A, jitter)
     L = torch.linalg.cholesky_ex(A).L
     w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     rhs = torch.cat([w, z[..., None]], dim=-1)
@@ -258,25 +312,59 @@ def chol_solve_plain(A, b, z):
     return out[..., 0], out[..., 1]
 
 
-def chol_solve(A, b, z):
-    """(mean, noise) of the precision draw, per chain: A (C, D, D) SPD,
-    b and z (C, D) -> mean = A^-1 b, noise = chol(A)^-T z, both (C, D)."""
-    if not _route("chol_solve", A):
-        return chol_solve_plain(A, b, z)
+def chol_solve_tiled_plain(A, b, z, jitter=0.0):
+    """The tiled kernel's algorithm, step by step in float32: the jitter on
+    the diagonal, b carried as one more row of the matrix, right-looking
+    column steps with one reciprocal square root each (rows above the
+    diagonal published as zeros), then both back substitutions by
+    multiplication with the stored reciprocals.  Same function as
+    ``chol_solve_plain``; nothing on the main path calls it."""
     C, D = b.shape
-    if D > chol_solve_max_dim():
-        raise NotImplementedError(
-            f"chol_solve: D={D} exceeds {chol_solve_max_dim()}, the largest "
-            f"dimension whose matrix fits one block's shared memory; the "
-            f"large-D path is ROADMAP item 'K1 large-D'")
+    M = A.clone()
+    if jitter != 0.0:
+        diag = M.diagonal(dim1=-2, dim2=-1)
+        diag += (jitter * (diag.sum(-1) / D + 1.0))[:, None]
+    wb = b.clone()                       # the row b, turned into L^-1 b
+    L = torch.zeros_like(M)
+    rinv = torch.empty_like(b)
+    w = torch.empty_like(b)
+    for j in range(D):
+        inv = torch.rsqrt(M[:, j, j])
+        col = M[:, :, j] * inv[:, None]
+        col[:, :j] = 0.0
+        L[:, :, j] = col
+        rinv[:, j] = inv
+        w[:, j] = wb[:, j] * inv
+        M = torch.addcmul(M, col[:, :, None], col[:, None, :], value=-1.0)
+        wb = torch.addcmul(wb, w[:, j, None], col, value=-1.0)
+    u, v = w, z.clone()
+    for j in range(D - 1, -1, -1):
+        u[:, j] *= rinv[:, j]
+        v[:, j] *= rinv[:, j]
+        u[:, :j] -= L[:, j, :j] * u[:, j, None]
+        v[:, :j] -= L[:, j, :j] * v[:, j, None]
+    return u, v
+
+
+def chol_solve(A, b, z, jitter=0.0):
+    """(mean, noise) of the precision draw, per chain: A (C, D, D) SPD,
+    b and z (C, D) -> mean = A^-1 b, noise = chol(A)^-T z, both (C, D).
+    With ``jitter`` > 0 the kernel factors A + jitter * (tr(A) / D + 1) * I,
+    adding to the diagonal it holds on chip."""
+    if not _route("chol_solve", A):
+        return chol_solve_plain(A, b, z, jitter)
+    C, D = b.shape
     _check_cuda("chol_solve", (A, b, z), ((C, D, D), (C, D), (C, D)))
     mean, noise = torch.empty_like(b), torch.empty_like(b)
     if C == 0:
         return mean, noise
+    plan = chol_solve_plan(C, D)
     with torch.cuda.device(A.device):
         rc = _library().bfmmm_chol_solve(
             A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-            noise.data_ptr(), C, D, torch.cuda.current_stream().cuda_stream)
+            noise.data_ptr(), C, D, float(jitter),
+            plan["tile"][0] if plan["tile"] else 0,
+            torch.cuda.current_stream().cuda_stream)
     _launched("chol_solve", rc)
     return mean, noise
 

@@ -42,8 +42,10 @@ def small_chol_logdet(L):
     return 2.0 * torch.log(L.diagonal(dim1=-2, dim2=-1)).sum(-1)
 
 
-def precision_draw_pair(A, b, z):
-    """(mean, noise) with mean = A^-1 b and noise = chol(A)^-T z.
+def precision_draw_pair(A, b, z, jitter=0.0):
+    """(mean, noise) with mean = A^-1 b and noise = chol(A)^-T z; with
+    ``jitter`` > 0, A + jitter * (tr(A) / D + 1) * I takes A's place, formed
+    inside the kernel.
 
     A (..., D, D) SPD, b and z (..., D); the batch axes (the chain axis) are
     flattened into the kernel's one."""
@@ -51,19 +53,17 @@ def precision_draw_pair(A, b, z):
     batch = b.shape[:-1]
     mean, noise = kernels.chol_solve(A.reshape(-1, D, D).contiguous(),
                                      b.reshape(-1, D).contiguous(),
-                                     z.reshape(-1, D).contiguous())
+                                     z.reshape(-1, D).contiguous(), jitter)
     return mean.reshape(batch + (D,)), noise.reshape(batch + (D,))
 
 
 def mvn_from_precision_fused(generator, A, b, *, jitter=1e-6):
     """Sample N(A^-1 b, A^-1) with the jitter contract of
-    distributions.chol_precision (jitter added outside the kernel, as at
-    linalg.py:325-326 of the JAX package); returns (sample, mean)."""
-    D = A.shape[-1]
-    scale = A.diagonal(dim1=-2, dim2=-1).sum(-1) / D + 1.0
-    eye = torch.eye(D, dtype=A.dtype, device=A.device)
-    Aj = A + (jitter * scale)[..., None, None] * eye
+    distributions.chol_precision (A + jitter * (tr(A) / D + 1) * I, as at
+    linalg.py:325-326 of the JAX package; K1 adds it to the diagonal it
+    holds on chip, so no (..., D, D) tensor is built here); returns
+    (sample, mean)."""
     z = torch.randn(b.shape, generator=generator, dtype=b.dtype,
                     device=b.device)
-    mean, noise = precision_draw_pair(Aj, b, z)
+    mean, noise = precision_draw_pair(A, b, z, jitter)
     return mean + noise, mean

@@ -21,8 +21,11 @@ revision's ``bayesfmmm_torch`` directory (``git archive REV bayesfmmm_torch
 revision's ``csrc`` into DIR and binds it as that revision did, and times
 its three wrappers in the same turns: two revisions are compared only
 inside one run, on one card.  ``--sweep`` times K2 over other tile sizes
-than the plan's.  Prints the card's name and power limit and one JSON
-object.  Needs one card.
+than the plan's and every kernel of K1 that can serve D=96 (and, in
+groups of their own, D=32, 64 and 128) beside the plan's choice.  K1's
+group also times ``jitter_ops``, the PyTorch ops that built
+A + jitter * scale * I before K1 took the jitter inside.  Prints the
+card's name and power limit and one JSON object.  Needs one card.
 """
 
 from __future__ import annotations
@@ -55,12 +58,12 @@ def card_line():
     return out[0].strip()
 
 
-def device_ms_by_kernel(fn, reps=50, warmup=5, attempts=6):
-    """{name: ms per call} of every piece of the card's work that ``fn``
-    starts: the profiler's summed durations over ``reps`` calls, so neither
-    the host's pace nor a host sync inside ``fn`` counts.  The profiler now
-    and then loses records; a trace that does not hold each kernel once per
-    call (or a whole multiple) is taken again, ``attempts`` times at most."""
+def _device_events(fn, reps, warmup, attempts):
+    """[(name, launches a call, mean ms a launch)] of the card's work over
+    ``reps`` calls of ``fn``, from the profiler.  The profiler now and then
+    loses records: a kernel may miss up to a tenth of its launches (its
+    mean is then over those that were kept); a trace that misses more is
+    taken again, ``attempts`` times at most."""
     for _ in range(warmup):
         fn()
     for _ in range(attempts):
@@ -72,12 +75,28 @@ def device_ms_by_kernel(fn, reps=50, warmup=5, attempts=6):
             torch.cuda.synchronize()
         events = [ev for ev in prof.key_averages()
                   if ev.device_type == DeviceType.CUDA]
-        if events and all(ev.count % reps == 0 for ev in events):
-            return {ev.key: ev.self_device_time_total / reps / 1e3
-                    for ev in events}
+        per_call = [max(1, round(ev.count / reps)) for ev in events]
+        if events and all(0 <= n * reps - ev.count <= reps // 10
+                          for ev, n in zip(events, per_call)):
+            return [(ev.key, n, ev.self_device_time_total / ev.count / 1e3)
+                    for ev, n in zip(events, per_call)]
     raise RuntimeError(f"the profiler lost records of the card's work in "
                        f"{attempts} traces of {reps} calls; the last held "
                        f"{ {ev.key: ev.count for ev in events} }")
+
+
+def device_ms_by_kernel(fn, reps=50, warmup=5, attempts=6):
+    """{name: ms per call} of every piece of the card's work that ``fn``
+    starts: the profiler's durations, so neither the host's pace nor a host
+    sync inside ``fn`` counts."""
+    return {name: n * ms
+            for name, n, ms in _device_events(fn, reps, warmup, attempts)}
+
+
+def device_launches(fn, reps=50, warmup=5, attempts=6):
+    """Pieces of the card's work (kernels, copies) one call of ``fn``
+    starts."""
+    return sum(n for _, n, _ in _device_events(fn, reps, warmup, attempts))
 
 
 def device_ms(fn, reps=50, warmup=5):
@@ -173,6 +192,33 @@ def _k2_tiles(lib, B, y, w, TC, TN):
     return launch
 
 
+def _k1_tile(lib, A, b, z, tile):
+    """K1 through the C entry point with another kernel than the plan's:
+    ``tile`` 0 is the shared-memory kernel, otherwise the tile side of the
+    register-tiled one."""
+    C, D_ = b.shape
+    mean, noise = torch.empty_like(b), torch.empty_like(b)
+
+    def launch():
+        rc = lib.bfmmm_chol_solve(
+            A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
+            noise.data_ptr(), C, D_, 0.0, tile,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: {torch.cuda.CudaError(rc)}")
+    return launch
+
+
+def _k1_sweep(lib, x):
+    """{name: callable} of every kernel of K1 that serves x's D."""
+    D_ = x[1].shape[1]
+    cands = {"shared": _k1_tile(lib, *x, tile=0)}
+    for TS in kernels.K1_TILES:
+        if D_ <= kernels.K1_GRID * TS:
+            cands[f"tiled {TS}x{TS}"] = _k1_tile(lib, *x, tile=TS)
+    return cands
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -189,7 +235,9 @@ def main(argv=None):
     groups = {
         "chol_solve": {
             "kernel": lambda: kernels.chol_solve(*x["chol_solve"]),
-            "plain": lambda: kernels.chol_solve_plain(*x["chol_solve"])},
+            "plain": lambda: kernels.chol_solve_plain(*x["chol_solve"]),
+            "jitter_ops": lambda: kernels.add_jitter(x["chol_solve"][0],
+                                                     1e-6)},
         "mean_rss": {
             "kernel": lambda: kernels.mean_rss(*x["mean_rss"]),
             "plain": lambda: kernels.mean_rss_plain(*x["mean_rss"])},
@@ -214,6 +262,13 @@ def main(argv=None):
                 for TN in (5, 10, 20):
                     groups[name][f"TC={TC},TN={TN}"] = _k2_tiles(
                         lib, *x[name], TC=TC, TN=TN)
+        groups["chol_solve"].update(_k1_sweep(lib, x["chol_solve"]))
+        g = torch.Generator(device=dev).manual_seed(321)
+        for D_ in (32, 64, 128):
+            xd = spd(g, CHAINS, D_, dev)
+            groups[f"chol_solve_d{D_}"] = {
+                "kernel": lambda xd=xd: kernels.chol_solve(*xd),
+                **_k1_sweep(lib, xd)}
 
     result = {}
     for name, cands in groups.items():
@@ -225,8 +280,13 @@ def main(argv=None):
               "mean_rss": dict(C=CHAINS, N=N, L=L, P=P),
               "mean_rss_2c": dict(C=2 * CHAINS, N=N, L=L, P=P),
               "weighted_gram": dict(R=CHAINS * K, N=N, P=P)}
+    for name in result:
+        if name.startswith("chol_solve_d"):
+            shapes[name] = dict(C=CHAINS, D=int(name.removeprefix(
+                "chol_solve_d")))
     for name, shape in shapes.items():
-        bound = kernels.kernel_bound(name.removesuffix("_2c"), **shape)
+        bound = kernels.kernel_bound(name.split("_d")[0].removesuffix("_2c"),
+                                     **shape)
         result[name]["shape"] = shape
         result[name]["bound"] = bound
         result[name]["share_of_bound"] = (

@@ -29,17 +29,94 @@ def _spd(g, C, D, dev, diag=50.0):
             torch.randn(C, D, generator=g, device=dev))
 
 
-@pytest.mark.parametrize("C,D", [(256, 96), (3, 13), (2, 1), (5, 129)])
-def test_chol_solve_kernel_matches_plain(dev, C, D):
+@pytest.mark.parametrize("jitter", [0.0, 1e-6])
+@pytest.mark.parametrize("C,D", [(256, 96), (3, 13), (2, 240), (5, 129),
+                                 (4, 16), (2, 1), (7, 128), (257, 64),
+                                 (3, 97), (9, 93)])
+def test_chol_solve_kernel_matches_plain(dev, C, D, jitter):
+    """The main path's shape, shapes of both kernels (register-tiled up to
+    its reach, shared-memory above), ragged D that pads the tiles and
+    takes the 4-byte loads, an odd chain count; without and with the jitter;
+    the same bits from two calls, one launch counted a call."""
     g = torch.Generator(device=dev).manual_seed(D)
     A, b, z = _spd(g, C, D, dev)
     before = kernels.LAUNCHES["chol_solve"]
-    mean, noise = kernels.chol_solve(A, b, z)
+    mean, noise = kernels.chol_solve(A, b, z, jitter)
+    mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["chol_solve"] == before + 1
-    mean_p, noise_p = kernels.chol_solve_plain(A, b, z)
+    assert kernels.LAUNCHES["chol_solve"] == before + 2
+    assert torch.equal(mean, mean2) and torch.equal(noise, noise2)
+    mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
     torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
     torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
+
+
+def test_chol_solve_kernel_every_tiled_dimension(dev):
+    """Every D the register-tiled kernel serves, at a ragged chain count."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    for D in range(1, kernels.chol_solve_max_dim() + 1):
+        if kernels.chol_solve_plan(3, D)["kernel"] != "tiled":
+            continue
+        A, b, z = _spd(g, 3, D, dev)
+        mean, noise = kernels.chol_solve(A, b, z, 1e-6)
+        mean_p, noise_p = kernels.chol_solve_plain(A, b, z, 1e-6)
+        torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
+        torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
+
+
+def test_chol_solve_kernel_jitter_is_the_plain_one(dev):
+    """A jitter large enough to see moves the kernel's result as it moves
+    the plain version's; the default is no jitter."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    A, b, z = _spd(g, 8, 96, dev)
+    mean_0, _ = kernels.chol_solve(A, b, z)
+    mean_j, _ = kernels.chol_solve(A, b, z, 1e-2)
+    mean_p, _ = kernels.chol_solve_plain(A, b, z, 1e-2)
+    torch.testing.assert_close(mean_j, mean_p, rtol=0, atol=5e-5)
+    assert (mean_j - mean_0).abs().max().item() > 1e-4
+    assert torch.equal(mean_0, kernels.chol_solve(A, b, z, 0.0)[0])
+
+
+def test_chol_solve_kernel_takes_unaligned_views(dev):
+    """A that starts 4 bytes off a 16-byte boundary is staged with 4-byte
+    copies and gives the aligned call's bits."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    C, D = 5, 96
+    A, b, z = _spd(g, C, D, dev)
+    flat = torch.empty(C * D * D + 1, device=dev)
+    flat[1:] = A.reshape(-1)
+    Av = flat[1:].view(C, D, D)
+    assert Av.data_ptr() % 16 != 0
+    mean, noise = kernels.chol_solve(Av, b, z)
+    mean_a, noise_a = kernels.chol_solve(A.contiguous(), b, z)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, mean_a) and torch.equal(noise, noise_a)
+
+
+def test_precision_draw_launches_k1_and_no_matrix_sized_op(dev):
+    """mvn_from_precision_fused on the card: one K1 launch, and no other
+    kernel that touches a (C, D, D) tensor (none whose grid could: the
+    profiler's kernels besides K1 are the randn and the final add, both on
+    (C, D))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesfmmm_torch.ops import linalg
+    g = torch.Generator(device=dev).manual_seed(3)
+    A, b, _ = _spd(g, 64, 96, dev)
+    linalg.mvn_from_precision_fused(g, A, b)        # builds, warms
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["chol_solve"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        samp, mean = linalg.mvn_from_precision_fused(g, A, b)
+        torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chol_solve"] == before + 1
+    assert samp.shape == mean.shape == b.shape
+    # no (C, D, D) temporary was allocated: the peak stays below one A
+    assert torch.cuda.max_memory_allocated() - base < A.numel() * 4
+    names = [ev.key for ev in prof.key_averages()]
+    assert sum("chol_tiled_kernel" in n for n in names) == 1, names
 
 
 def test_chol_solve_rejects_oversize_dimension(dev):

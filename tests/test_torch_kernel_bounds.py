@@ -1,6 +1,6 @@
 """What surrounds the CUDA kernels and runs on the CPU: the bounds of K1, K2
-and K3 from their shapes, the tile plans K2 and K3 are launched with, and
-the port's device default.
+and K3 from their shapes, the kernel and thread layout K1 is launched with,
+the tile plans K2 and K3 are launched with, and the port's device default.
 
 The bounds are held against values worked out by hand for the main path's
 shapes (256 chains of the headline model).  The plans are held to covering
@@ -57,6 +57,83 @@ def test_kernel_bound_counts_mu_and_rejects_unknown():
     assert with_mu["flop"] == base["flop"]
     with pytest.raises(KeyError):
         kernels.kernel_bound("no_such_kernel", C=1)
+
+
+# ---------------------------------------------------------------------------
+# K1's routing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [1, 3, 256, 1000])
+def test_chol_solve_plan_owns_every_entry_once(C):
+    """Over D = 1..240: the tiled kernel's cyclic layout gives every entry
+    on or below the diagonal to exactly one (thread, register) pair, the
+    grid covers every chain, and shared memory fits one block."""
+    top = kernels.chol_solve_max_dim()
+    assert top == 240
+    for D in range(1, top + 1):
+        plan = kernels.chol_solve_plan(C, D)
+        assert plan["smem"] <= kernels.SMEM_PER_BLOCK
+        assert plan["grid"] == C                # one chain a block
+        if plan["kernel"] == "shared":
+            assert plan["tile"] is None
+            assert plan["smem"] == 4 * (D * D + 2 * D)
+            continue
+        assert plan["kernel"] == "tiled"
+        (TR, TC), (RT, CT) = plan["threads"], plan["tile"]
+        assert TR * RT == TC * CT >= D        # a square that covers A
+        assert RT in kernels.K1_TILES and TR == TC == kernels.K1_GRID
+        assert TR * TC <= 1024 and (TR * TC) % 32 == 0
+        i, k = np.tril_indices(D)
+        owner = ((i % TR) * TC + k % TC) * RT * CT + (i // TR) * CT + k // TC
+        assert len(np.unique(owner)) == len(i)  # one owner each
+        assert (i // TR < RT).all() and (k // TC < CT).all()
+
+
+def test_chol_solve_plan_main_path_and_limits():
+    """D = 96 takes the register-tiled kernel with 16 x 16 threads and 6 x 6
+    tiles, one chain a block, two blocks an SM; above the tiled kernel's
+    reach the shared-memory one; above 240 nothing."""
+    plan = kernels.chol_solve_plan(256, 96)
+    assert plan["kernel"] == "tiled" and plan["threads"] == (16, 16)
+    assert plan["tile"] == (6, 6) and plan["grid"] == 256
+    assert 2 * plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert plan["smem"] == 4 * (96 * 100 + 2 * 100 + 2 * 96 + 8)
+    for D in (1, 13, 48, 95):
+        assert kernels.chol_solve_plan(5, D)["tile"] == (6, 6)
+    for D in (97, 128):
+        assert kernels.chol_solve_plan(5, D)["tile"] == (8, 8)
+    for D in (129, 200, 240):
+        assert kernels.chol_solve_plan(5, D)["kernel"] == "shared"
+    with pytest.raises(NotImplementedError, match="K1 large-D"):
+        kernels.chol_solve_plan(2, 241)
+    with pytest.raises(ValueError):
+        kernels.chol_solve_plan(0, 96)
+
+
+def test_chol_solve_rejects_oversize_dimension_on_any_device():
+    """The wrapper's CPU route takes any D (the plain version); the plan,
+    which the CUDA route asks, names the queued large-D item."""
+    D = kernels.chol_solve_max_dim() + 1
+    A = torch.eye(D)[None] * 2.0
+    b = torch.ones(1, D)
+    mean, noise = kernels.chol_solve(A, b, b)
+    torch.testing.assert_close(mean, b / 2.0)
+    torch.testing.assert_close(noise, b / 2.0 ** 0.5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.chol_solve_plan(1, D)
+
+
+def test_k1_probe_patches_match_the_source():
+    """Each knock-out of utils/k1_probe.py patches csrc/chol_solve.cu in
+    exactly one place, and changes it."""
+    from bayesfmmm_torch.utils import k1_probe
+    text = (kernels._CSRC / "chol_solve.cu").read_text()
+    sources = k1_probe.patched_sources(text)
+    assert set(sources) == set(k1_probe.KNOCK_OUTS) and sources["whole"] == text
+    assert all(src != text for name, src in sources.items()
+               if name != "whole")
+    with pytest.raises(RuntimeError, match="not once"):
+        k1_probe.patched_sources(text.replace("rsqrtf(d)", "rsqrtf(d + 0)"))
 
 
 def _mean_rss_tiled(B, y, w, plan):

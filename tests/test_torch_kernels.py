@@ -2,6 +2,10 @@
 K3 (weighted_gram) against the JAX package's Pallas kernels, run in
 interpret mode on the CPU, on identical inputs made with numpy.
 
+K1's register-tiled kernel is held here through ``chol_solve_tiled_plain``,
+its algorithm step by step in PyTorch, so the algorithm is proved on the CPU
+before the card sees it.
+
 Tolerances: K1 5e-5 on the mean and 5e-4 on the noise, those of the JAX
 package's own kernel test (tests/test_linalg.py:118-121); K2 2e-5 on mu and
 1e-5 relative on the RSS (f32 rounding of one P-term matvec and one sum);
@@ -20,6 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from bayesfmmm_tpu.ops import pallas_kernels as pk  # noqa: E402
+from bayesfmmm_tpu.ops import linalg as jlinalg  # noqa: E402
 from bayesfmmm_tpu.ops.linalg import precision_draw_pair  # noqa: E402
 from bayesfmmm_torch.ops import kernels, linalg  # noqa: E402
 from bayesfmmm_torch.ops.gibbs import _weighted_gram  # noqa: E402
@@ -58,6 +63,119 @@ def test_chol_solve_plain_matches_pallas_kernel(C, D):
                                atol=5e-5)
     np.testing.assert_allclose(noise, np.moveaxis(np.asarray(noise_T), -1, 0),
                                atol=5e-4)
+
+
+def _tiled_k1(A, b, z, jitter=0.0):
+    mean, noise = kernels.chol_solve_tiled_plain(
+        *map(torch.from_numpy, (A, b, z)), jitter)
+    return mean.numpy(), noise.numpy()
+
+
+K1_SHAPES = [(128, 96), (128, 48), (5, 13), (3, 1)]
+
+
+@pytest.mark.parametrize("C,D", K1_SHAPES)
+def test_chol_solve_tiled_plain_matches_plain(C, D):
+    """The tiled kernel's algorithm leaves its inputs alone and computes
+    the plain version's function."""
+    A, b, z = _spd_problem(D + 1, C, D)
+    A0, b0, z0 = A.copy(), b.copy(), z.copy()
+    mean, noise = _tiled_k1(A, b, z)
+    assert (A == A0).all() and (b == b0).all() and (z == z0).all()
+    mean_p, noise_p = _plain_k1(A, b, z)
+    np.testing.assert_allclose(mean, mean_p, atol=5e-5)
+    np.testing.assert_allclose(noise, noise_p, atol=5e-4)
+
+
+@pytest.mark.parametrize("C,D", K1_SHAPES)
+def test_chol_solve_tiled_plain_matches_jax_precision_draw_pair(C, D):
+    A, b, z = _spd_problem(D + 2, C, D)
+    mean_j, noise_j = jax.jit(jax.vmap(precision_draw_pair))(A, b, z)
+    mean, noise = _tiled_k1(A, b, z)
+    np.testing.assert_allclose(mean, mean_j, atol=5e-5)
+    np.testing.assert_allclose(noise, noise_j, atol=5e-4)
+
+
+@pytest.mark.parametrize("C,D", [(128, 96), (128, 48)])
+def test_chol_solve_tiled_plain_matches_pallas_kernel(C, D):
+    """Against the Pallas kernel in interpret mode, at the shapes its gate
+    takes (D a multiple of 8, 128 chains on the lanes)."""
+    A, b, z = _spd_problem(D + 3, C, D)
+    mean_T, noise_T = pk.chol_solve_batch_minor(
+        jnp.moveaxis(A, 0, -1), jnp.moveaxis(b, 0, -1),
+        jnp.moveaxis(z, 0, -1))
+    mean, noise = _tiled_k1(A, b, z)
+    np.testing.assert_allclose(mean, np.moveaxis(np.asarray(mean_T), -1, 0),
+                               atol=5e-5)
+    np.testing.assert_allclose(noise, np.moveaxis(np.asarray(noise_T), -1, 0),
+                               atol=5e-4)
+
+
+def _jax_jittered(A, jitter):
+    """A + jitter * (tr(A) / D + 1) * I, the JAX package's formula
+    (ops/linalg.py:325-326), applied outside."""
+    D = A.shape[-1]
+    scale = jnp.trace(A, axis1=-2, axis2=-1) / D + 1.0
+    return A + (jitter * scale)[..., None, None] * jnp.eye(D, dtype=A.dtype)
+
+
+@pytest.mark.parametrize("C,D", K1_SHAPES)
+@pytest.mark.parametrize("which", ["tiled_plain", "plain", "wrapper"])
+def test_chol_solve_jitter_matches_jax_formula(which, C, D):
+    """jitter=1e-6 inside the port's K1 functions equals the JAX package's
+    jitter applied outside; a jitter large enough to see (1e-2) moves the
+    result as it moves JAX's."""
+    A, b, z = _spd_problem(D + 4, C, D)
+    fn = {"tiled_plain": kernels.chol_solve_tiled_plain,
+          "plain": kernels.chol_solve_plain,
+          "wrapper": kernels.chol_solve}[which]
+    for jitter in (1e-6, 1e-2):
+        Aj = _jax_jittered(jnp.asarray(A), jitter)
+        mean_j, noise_j = jax.jit(jax.vmap(precision_draw_pair))(Aj, b, z)
+        mean, noise = fn(*map(torch.from_numpy, (A, b, z)), jitter)
+        np.testing.assert_allclose(mean.numpy(), mean_j, atol=5e-5)
+        np.testing.assert_allclose(noise.numpy(), noise_j, atol=5e-4)
+    mean_0, _ = fn(*map(torch.from_numpy, (A, b, z)))
+    assert np.abs(mean.numpy() - mean_0.numpy()).max() > 1e-6
+
+
+def test_precision_draw_pair_keeps_batch_axes_and_default_jitter():
+    """The port's precision_draw_pair flattens leading axes into K1's chain
+    axis, and at the default jitter is the function it was."""
+    A, b, z = _spd_problem(9, 6, 12)
+    At, bt, zt = map(torch.from_numpy, (A, b, z))
+    mean, noise = linalg.precision_draw_pair(
+        At.reshape(2, 3, 12, 12), bt.reshape(2, 3, 12), zt.reshape(2, 3, 12))
+    assert mean.shape == noise.shape == (2, 3, 12)
+    mean_p, noise_p = kernels.chol_solve_plain(At, bt, zt)
+    assert torch.equal(mean.reshape(6, 12), mean_p)
+    assert torch.equal(noise.reshape(6, 12), noise_p)
+    mean_j, _ = linalg.precision_draw_pair(At, bt, zt, jitter=1e-2)
+    torch.testing.assert_close(
+        mean_j, kernels.chol_solve_plain(kernels.add_jitter(At, 1e-2), bt,
+                                         zt)[0], rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("C,D", [(7, 36), (3, 96)])
+def test_mvn_from_precision_fused_matches_jax(monkeypatch, C, D):
+    """The port's fused precision draw against the JAX one on the same A
+    and b with the same z injected into both generators."""
+    A, b, z = _spd_problem(D + 5, C, D)
+    monkeypatch.setattr(jlinalg.jax.random, "normal",
+                        lambda key, shape, dtype: jnp.asarray(z[0], dtype))
+    monkeypatch.setattr(linalg.torch, "randn",
+                        lambda shape, **kw: torch.from_numpy(z).clone())
+    samp, mean = linalg.mvn_from_precision_fused(
+        torch.Generator(), torch.from_numpy(A), torch.from_numpy(b))
+    assert samp.shape == mean.shape == (C, D)
+    for c in range(C):
+        monkeypatch.setattr(
+            jlinalg.jax.random, "normal",
+            lambda key, shape, dtype, c=c: jnp.asarray(z[c], dtype))
+        samp_j, mean_j = jlinalg.mvn_from_precision_fused(
+            jax.random.PRNGKey(0), jnp.asarray(A[c]), jnp.asarray(b[c]))
+        np.testing.assert_allclose(mean[c].numpy(), mean_j, atol=5e-5)
+        np.testing.assert_allclose(samp[c].numpy(), samp_j, atol=5e-4)
 
 
 def _mean_rss_case(seed, C, N, L, P, pad_from=None):
