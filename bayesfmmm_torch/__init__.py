@@ -10,28 +10,30 @@ PyTorch versions run instead.
 
 The package imports nothing of JAX or of ``bayesfmmm_tpu``, so it runs on a
 machine that has neither.  It runs on the CUDA card unless told otherwise:
-the entry points that build data or state (``simulate_functional``,
+the entry points that build data or state (``api.build_data``,
+``api.fit_nu_z``, ``api.fit``, ``simulate_functional``,
 ``make_functional_data``, ``convert.data_from_jax``,
 ``convert.state_from_numpy``) place their tensors there when no ``device``
 is given and raise without a card; ``device="cpu"`` asks for the CPU.
+``api.fit_theta`` and ``api.fit_warm_start`` (a resume from a checkpoint
+too) take the device from the data they are given.
 
-Quick start (the bench's production sweep; drop the flags for the
-reference kernel census)::
+Quick start (the three-phase fit with the bench's production sweep in
+phase 3; ``kernels="reference"`` for the reference kernel census)::
 
-    import torch
-    from bayesfmmm_torch import ModelConfig, Priors
-    from bayesfmmm_torch.models.state import init_state
-    from bayesfmmm_torch.samplers import drivers
+    from bayesfmmm_torch import api
     from bayesfmmm_torch.utils.simulate import simulate_functional
 
     data, _ = simulate_functional(seed=7, N=100, K=3, P=8, M=4,
                                   n_time=(100, 100))       # on the card
-    g = torch.Generator(device=data.device).manual_seed(0)
-    state = init_state(g, ModelConfig(K=3, P=8, M=4), data, chains=256)
-    res = drivers.phase_warm_start(
-        g, state, data, Priors(), torch.full((3,), 10.0, device=data.device),
-        n_iters=500, collapsed_z=True, gauge=True, p_indep=0.3,
-        phi_mala_steps=4, phi_mala_step=0.05)
+    res = api.fit(data=data, K=3, M=4, init="spectral", n_try=7,
+                  nu_z_iters=1000, theta_iters=1000, warm_iters=2000,
+                  n_chains=256, kernels="production", n_temp_trans=100,
+                  N_t=3, beta_N_t=0.5, checkpoint_to="ensemble.npz",
+                  directory="traces")
+    res.loglik, res.estimates(align=True), res.ensemble_state
+    more = api.fit_warm_start(resume_from="ensemble.npz", data=data,
+                              tot_mcmc_iters=1000, kernels="production")
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,476 @@
+"""User-facing fitting API mirroring the reference pipeline semantics.
+
+Port of ``bayesfmmm_tpu/api.py`` for the functional family without
+covariates.  Reference L4/L5: UserFunctions.cpp's fitting functions
+(BFMMM_{Nu_Z_multiple_try, Theta_est, warm_start}, :166, :684, :1341) with
+the same hyperparameter names/defaults (config.Priors) and validation
+conditions (:198-286).
+
+The reference's ``n_try`` restarts run serially (:302-325); here all
+restarts are the chain axis of one batched run on the device, and the best
+chain is still selected by mean log-likelihood of the last 100 draws
+(:320-323).
+
+Every function that makes tensors places them on the CUDA card unless
+``device="cpu"`` is passed (models/state.py::default_device) and raises
+where there is no card; ``fit_theta`` and ``fit_warm_start`` take the device
+from the data of the result they are given.  Traces and estimates are host
+NumPy arrays; states are tensors on the device with a leading chain axis.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from bayesfmmm_torch import validation
+from bayesfmmm_torch.config import ModelConfig, Priors
+from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
+                                          init_state, make_functional_data)
+from bayesfmmm_torch.samplers import drivers
+
+__all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
+           "fit_warm_start", "export_traces", "fit", "PRODUCTION_FLAGS"]
+
+# kernels="production": the bench's production census of ``sweep_full``.
+# All five are named because the port's ``sweep_full`` has MALA off by
+# default, where the JAX package's turns it on for every gauge caller.
+PRODUCTION_FLAGS = dict(collapsed_z=True, gauge=True, p_indep=0.3,
+                        phi_mala_steps=4, phi_mala_step=0.05)
+
+_ITEM_11 = "ROADMAP item 11 'covariate-adjusted models and the other families'"
+
+
+class FitResult:
+    """Traces + estimates of one fitting phase (best restart chain).
+
+    ``traces`` maps a field to host (n_saved, ...) draws of the best chain,
+    ``loglik`` is its (n_saved,) trace, ``final_state`` its last state as a
+    one-chain GibbsState on the device."""
+
+    def __init__(self, traces, loglik, final_state, chain_index=0):
+        self.traces = traces
+        self.loglik = loglik
+        self.final_state = final_state
+        self.chain_index = chain_index
+
+    def estimates(self, burnin_prop=0.8, align=False, _warn=True):
+        """Per-element posterior medians (UserFunctions.cpp:1557-1650).
+
+        align=True first permutation-aligns every draw to the final draw's
+        Z (post/label_switch.py) — recommended for K > 2, where the
+        reference's K=2-only "rescale" identifiability transform is
+        unavailable and label switching would corrupt element-wise medians.
+        (The pipeline's internal warm-start median extraction keeps the
+        reference's unaligned behavior — a single chain rarely switches
+        labels mid-run — and silences this advisory via ``_warn``.)
+        """
+        traces = self.traces
+        if _warn and not align and "Z" in traces \
+                and np.asarray(traces["Z"]).shape[-1] > 2:
+            warnings.warn(
+                "estimates(align=False) with K > 2: element-wise medians "
+                "across label-switching draws can be corrupted (the "
+                "reference's 'rescale' transform is K=2-only, "
+                "PostProcessing.cpp:165-169); pass align=True to "
+                "permutation-align draws first.", UserWarning, stacklevel=2)
+        if align:
+            from bayesfmmm_torch.post.label_switch import align_trace
+            traces = align_trace({k: np.asarray(v)
+                                  for k, v in traces.items()})
+        return drivers.posterior_median_state(traces, burnin_prop)
+
+
+def build_data(Y, time=None, *, family="functional", basis_degree=3,
+               internal_knots=None, boundary_knots=None, X=None,
+               basis_degrees=None, internal_knots_list=None, device=None):
+    """Construct the padded device data container (functional family; the
+    hd and multivariate families are not ported yet)."""
+    if family == "functional":
+        if Y is None or len(Y) < 1:
+            raise ValueError("'n_funct' must be an integer greater than or "
+                             "equal to 1")
+        validation.validate_fit_args(basis_degree=basis_degree)
+        validation.validate_knots(internal_knots, boundary_knots)
+        return make_functional_data(Y, time, basis_degree=basis_degree,
+                                    internal_knots=internal_knots,
+                                    boundary_knots=boundary_knots, X=X,
+                                    device=device)
+    if family in ("hd", "multivariate"):
+        raise NotImplementedError(f"family {family!r}: {_ITEM_11}")
+    raise ValueError(f"unknown family {family!r}")
+
+
+def _generator(data, seed):
+    return torch.Generator(device=data.device).manual_seed(seed)
+
+
+def _c_tensor(hp, K, data):
+    return torch.as_tensor(hp.c_vector(K), dtype=data.y.dtype,
+                           device=data.device)
+
+
+def _pinned(state, est, fields):
+    """``state`` with ``fields`` set to the host estimates, broadcast over
+    the chain axis on the state's device."""
+    C = state.Z.shape[0]
+
+    def dev(f):
+        t = torch.as_tensor(np.asarray(est[f]), dtype=state.Z.dtype,
+                            device=state.Z.device)
+        return t.expand((C,) + t.shape).contiguous()
+
+    return state.replace(**{f: dev(f) for f in fields})
+
+
+def _one_chain(state, i):
+    return GibbsState(**{f: getattr(state, f)[i:i + 1]
+                         for f in STATE_FIELDS})
+
+
+def _run_restarts(generator, data, cfg, c, phase_fn, n_chains, n_iters,
+                  select_window=100, init="random"):
+    """Restart batch + best-chain selection (UserFunctions.cpp:302-325).
+
+    init='spectral' seeds every restart from the moment-based archetypal
+    initializer (utils/init_strategies.py) with per-chain jitter — a
+    deterministic replacement for the reference's blind random restarts.
+    """
+    states = init_state(generator, cfg, data, chains=n_chains, c=c)
+    if init == "spectral":
+        from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
+        states = spectral_ensemble(generator, states, data, cfg.K, cfg.M,
+                                   z_jitter=0.02)
+    res = phase_fn(generator, states)
+    loglik = res.loglik.cpu().numpy()
+    best = drivers.best_chain(loglik, window=min(select_window, n_iters))
+    traces = {k: v[best].cpu().numpy() for k, v in res.traces.items()}
+    return FitResult(traces, loglik[best], _one_chain(res.final_state, best),
+                     best)
+
+
+def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
+             n_try=1, X=None, c=None, priors: Priors | None = None,
+             family="functional", basis_degree=3, internal_knots=None,
+             boundary_knots=None, basis_degrees=None,
+             internal_knots_list=None, M=1, seed=0, init="random",
+             device=None):
+    """Phase 1 — find likely mean/allocation structure (multiple tries).
+
+    Mirrors BFMMM_Nu_Z_multiple_try (UserFunctions.cpp:166); ``n_try + 1``
+    chains run at once.  The data is built on ``device`` (the card when
+    None) unless ``data`` is given.
+    """
+    validation.validate_fit_args(tot_mcmc_iters=tot_mcmc_iters, n_try=n_try,
+                                 K=K, n_eigen=M)
+    hp = (priors or Priors()).validate()
+    validation.validate_c(hp.c_vector(K), K)
+    if data is None:
+        data = build_data(Y, time, family=family, basis_degree=basis_degree,
+                          internal_knots=internal_knots,
+                          boundary_knots=boundary_knots, X=X,
+                          basis_degrees=basis_degrees,
+                          internal_knots_list=internal_knots_list,
+                          device=device)
+    if data.D > 0:
+        raise NotImplementedError(f"covariates (D > 0): {_ITEM_11}")
+    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=0, family="functional")
+    c_vec = _c_tensor(hp, K, data)
+
+    def phase(g, st):
+        return drivers.phase_nu_z(g, st, data, hp, c_vec,
+                                  n_iters=tot_mcmc_iters)
+
+    res = _run_restarts(_generator(data, seed), data, cfg, c_vec, phase,
+                        n_try + 1, tot_mcmc_iters, init=init)
+    res.data = data
+    res.config = cfg
+    return res
+
+
+def fit_theta(nu_z_result: FitResult, *, tot_mcmc_iters=1000, n_try=1,
+              M=None, covariate_cov=False, priors: Priors | None = None,
+              burnin_prop=0.8, seed=1):
+    """Phase 2 — covariance structure given pinned (Z, nu) medians.
+
+    Mirrors BFMMM_Theta_est (UserFunctions.cpp:684): point estimates are
+    per-element posterior medians of the phase-1 chain with Z re-normalized;
+    ``n_try`` chains run at once.
+    """
+    validation.validate_fit_args(tot_mcmc_iters=tot_mcmc_iters, n_try=n_try,
+                                 burnin_prop=burnin_prop,
+                                 n_eigen=M if M is not None else None)
+    hp = (priors or Priors()).validate()
+    data = nu_z_result.data
+    cfg = nu_z_result.config
+    if covariate_cov and cfg.D > 0:
+        raise NotImplementedError(f"covariate_cov: {_ITEM_11}")
+    if M is not None and M != cfg.M:
+        cfg = ModelConfig(K=cfg.K, P=cfg.P, M=M, D=cfg.D, family=cfg.family)
+    est = nu_z_result.estimates(burnin_prop, _warn=False)
+    c_vec = _c_tensor(hp, cfg.K, data)
+
+    def phase(g, st):
+        # pin Z, nu (and eta) to the phase-1 medians (BFMMM.h:1244-1250)
+        st = _pinned(st, est, ("Z", "nu", "eta", "pi", "alpha3", "tau"))
+        return drivers.phase_theta(g, st, data, hp, c_vec,
+                                   n_iters=tot_mcmc_iters)
+
+    res = _run_restarts(_generator(data, seed), data, cfg, c_vec, phase,
+                        n_try, tot_mcmc_iters)
+    res.data = data
+    res.config = cfg
+    return res
+
+
+def chunk_sizes(tot_mcmc_iters, thinning_num, progress_every):
+    """Balanced chunk sizes in sweeps, each a multiple of ``thinning_num``
+    and at most two distinct: ``progress_every`` sweeps a chunk, or as near
+    below as splits the run evenly."""
+    n_units = max(1, tot_mcmc_iters // thinning_num)
+    per_chunk = max(1, progress_every // thinning_num)
+    n_chunks = -(-n_units // per_chunk)
+    base, extra = divmod(n_units, n_chunks)
+    return ([(base + 1) * thinning_num] * extra
+            + [base * thinning_num] * (n_chunks - extra))
+
+
+_WARM_FROM_PHASE_1 = ("Z", "pi", "alpha3", "nu", "tau", "eta", "tau_eta")
+_WARM_FROM_PHASE_2 = ("Phi", "gamma", "delta", "A", "sigma2", "chi", "xi",
+                      "gamma_xi", "delta_xi", "A_xi")
+
+
+def fit_warm_start(nu_z_result: FitResult | None = None,
+                   theta_result: FitResult | None = None, *,
+                   tot_mcmc_iters=2000, thinning_num=1, burnin_prop=0.8,
+                   n_temp_trans=0, beta_N_t=1.0, N_t=1, n_chains=1,
+                   priors: Priors | None = None, directory=None,
+                   r_stored_iters=None, seed=2, kernels="reference",
+                   progress=True, progress_every=100,
+                   resume_from=None, checkpoint_to=None, data=None):
+    """Phase 3 — production sampler warm-started from phase-1/2 medians.
+
+    Mirrors BFMMM_warm_start (UserFunctions.cpp:1341): per-element posterior
+    medians of both phases seed every chain (:1557-1650), which then differ
+    by their noise only; tempered-transition excursions run every
+    n_temp_trans iterations; traces optionally export to `directory` using
+    the reference's file contract.
+
+    kernels: "reference" reproduces the reference kernel census exactly;
+    "production" runs ``PRODUCTION_FLAGS`` (the collapsed (Z, chi) block,
+    gauge moves, interweaves and Phi MALA of ops/gibbs.py) — same posterior.
+
+    progress: True (the default, matching the reference's unconditional
+    progress prints) or a ProgressStream prints rolling log-likelihood
+    every ``progress_every`` iterations (BFMMM.h:870-875 analog); pass
+    False for a silent run.  The run executes in ``progress_every``-sweep
+    chunks either way; after each chunk its draws move to the host, so
+    device memory holds one chunk's traces, and Ctrl-C lands at a chunk
+    boundary (Rcpp::checkUserInterrupt analog, BFMMM.h:203).  The draws are
+    a function of (seed or checkpoint, tot_mcmc_iters, thinning_num, the
+    sampler's flags) and not of ``progress`` or ``progress_every``: the
+    ensemble has one generator, whose stream knows nothing of chunks.
+
+    Warm-ensemble protocol (beyond the reference, whose warm start is
+    point-estimate-only, BFMMM.h:205-271): ``checkpoint_to`` saves the FULL
+    final chain ensemble, the generator's state and the configuration with
+    the exact-state checkpoint (io/checkpoint.py); ``resume_from``
+    continues from such a checkpoint — n_chains, the chain states and the
+    configuration come from the file, the phase-1/2 results are not needed
+    (pass ``data`` instead when resuming in a fresh process), and the
+    continuation is a deterministic function of the checkpoint alone: two
+    resumes from the same file give the same bits, and a run split at a
+    checkpoint gives the bits of the unbroken run, excursion schedule
+    included.  ``seed`` serves a checkpoint that holds no generator state.
+    """
+    validation.validate_fit_args(tot_mcmc_iters=tot_mcmc_iters,
+                                 burnin_prop=burnin_prop)
+    validation.validate_warm_start_args(
+        thinning_num=thinning_num, beta_N_t=beta_N_t, N_t=N_t,
+        r_stored_iters=r_stored_iters, n_temp_trans=n_temp_trans,
+        tot_mcmc_iters=tot_mcmc_iters, directory=directory)
+    hp = (priors or Priors()).validate()
+    resume = resume_from is not None
+    if not resume and (nu_z_result is None or theta_result is None):
+        raise ValueError("fit_warm_start needs (nu_z_result, theta_result) "
+                         "unless resume_from is given")
+    if kernels not in ("reference", "production"):
+        raise ValueError("kernels must be 'reference' or 'production'")
+    flags = PRODUCTION_FLAGS if kernels == "production" else {}
+    batched = r_stored_iters is not None and directory is not None
+    if resume and batched:
+        raise ValueError("resume_from continues an ensemble; a batched run "
+                         "resumes through samplers.batched.resume_batched")
+    if resume:
+        from bayesfmmm_torch.io.checkpoint import load_checkpoint
+        if data is None:
+            if theta_result is None:
+                raise ValueError("resume_from in a fresh process needs "
+                                 "data=...")
+            data = theta_result.data
+        states, generator, it0, cfg = load_checkpoint(
+            resume_from, data.device, seed=seed)
+        if cfg is None:
+            # a file without a configuration says nothing of covariates,
+            # and the shape of xi does not either
+            cfg = ModelConfig(K=states.K, P=int(data.P), M=states.M,
+                              D=int(data.D), family="functional",
+                              covariate_mean=int(data.D) > 0)
+        n_chains = int(states.Z.shape[0])
+    else:
+        data = theta_result.data
+        cfg = theta_result.config
+        it0 = 0
+        generator = _generator(data, seed)
+        est1 = nu_z_result.estimates(burnin_prop, _warn=False)
+        est2 = theta_result.estimates(burnin_prop, _warn=False)
+    c_vec = _c_tensor(hp, cfg.K, data)
+
+    def seed_state(st):
+        return _pinned(_pinned(st, est1, _WARM_FROM_PHASE_1), est2,
+                       _WARM_FROM_PHASE_2)
+
+    if batched:
+        # reference batch/ring persistence path (BFMMM.h:205-271) with the
+        # async native writer overlapping IO and compute; one chain
+        from bayesfmmm_torch.io import armaio
+        from bayesfmmm_torch.samplers.batched import run_batched
+        st0 = seed_state(init_state(generator, cfg, data, chains=1, c=c_vec))
+        final, ll, _ = run_batched(
+            generator, st0, data, hp, c_vec, directory=directory,
+            tot_mcmc_iters=tot_mcmc_iters, r_stored_iters=r_stored_iters,
+            config=cfg, thinning_num=thinning_num, n_temp_trans=n_temp_trans,
+            beta_N_t=beta_N_t, N_t=N_t, progress=progress or None,
+            covariate_mean=cfg.covariate_mean,
+            covariate_cov=cfg.covariate_cov, **flags)
+        disk = armaio.load_trace_dir(directory)
+        stems = {stem: f for f, stem in _EXPORT_STEMS.items()}
+        traces = {stems[k]: v for k, v in disk.items() if k in stems}
+        res = FitResult(traces, ll, final)
+        res.data = data
+        res.config = cfg
+        return res
+
+    from bayesfmmm_torch.utils.observability import ProgressStream
+    if hasattr(progress, "update"):
+        stream = progress
+    elif progress:
+        stream = ProgressStream(every=1)
+    else:
+        stream = None
+    if not resume:
+        states = seed_state(init_state(generator, cfg, data,
+                                       chains=n_chains, c=c_vec))
+
+    done, t_parts, ll_parts, tt_parts = 0, [], [], []
+    for n in chunk_sizes(tot_mcmc_iters, thinning_num, progress_every):
+        res = drivers.phase_warm_start(
+            generator, states, data, hp, c_vec, n_iters=n, thin=thinning_num,
+            n_temp_trans=n_temp_trans, beta_N_t=beta_N_t, N_t=N_t,
+            start_iter=it0 + done, covariate_mean=cfg.covariate_mean,
+            covariate_cov=cfg.covariate_cov, **flags)
+        states = res.final_state
+        ll_parts.append(res.loglik.cpu().numpy())
+        t_parts.append({k: v.cpu().numpy() for k, v in res.traces.items()})
+        if res.tt_accept is not None:
+            tt_parts.append(res.tt_accept.cpu().numpy())
+        done += n
+        if stream is not None:
+            stream.update(done - 1, ll_parts[-1].mean(axis=0))
+    loglik = np.concatenate(ll_parts, axis=1)
+    best = drivers.best_chain(loglik, window=min(100, loglik.shape[1]))
+    traces = {k: np.concatenate([p[k][best] for p in t_parts], axis=0)
+              for k in t_parts[0]}
+    if checkpoint_to is not None:
+        from bayesfmmm_torch.io.checkpoint import save_checkpoint
+        save_checkpoint(checkpoint_to, states, generator,
+                        iteration=it0 + done, config=cfg)
+    res = FitResult(traces, loglik[best], _one_chain(states, best), best)
+    res.all_chain_loglik = loglik
+    res.ensemble_state = states
+    # (n_chains, n_excursions) bool: which chains accepted each excursion
+    res.tt_accept = (np.concatenate(tt_parts, axis=1) if tt_parts
+                     else np.zeros((n_chains, 0), dtype=bool))
+    res.data = data
+    res.config = cfg
+    if directory is not None:
+        export_traces(directory, res.traces, cfg)
+    return res
+
+
+# trace field -> reference file stem (BFMMM.h:1720-1730)
+_EXPORT_STEMS = {
+    "nu": "Nu", "chi": "Chi", "pi": "Pi", "alpha3": "alpha_3", "A": "A",
+    "delta": "Delta", "sigma2": "Sigma", "tau": "Tau", "gamma": "Gamma",
+    "Phi": "Phi", "Z": "Z", "eta": "Eta", "tau_eta": "Tau_Eta", "xi": "Xi",
+    "gamma_xi": "Gamma_Xi", "delta_xi": "Delta_Xi", "A_xi": "A_Xi",
+}
+_COV_MEAN_FIELDS = ("eta", "tau_eta")
+_COV_COV_FIELDS = ("xi", "gamma_xi", "delta_xi", "A_xi")
+
+
+def export_layout(traces, cfg):
+    """One chain's traces keyed by the reference's file stems, the
+    covariate files only where the configuration has them.
+
+    For the multivariate family the stored Tau is the variance (reciprocal
+    of the internal precision scale; UpdateTau.h:58)."""
+    out = {}
+    for f, stem in _EXPORT_STEMS.items():
+        if f in _COV_MEAN_FIELDS and not (cfg.covariate_mean and cfg.D > 0):
+            continue
+        if f in _COV_COV_FIELDS and not (cfg.covariate_cov and cfg.D > 0):
+            continue
+        arr = np.asarray(traces[f])
+        if f in ("tau", "tau_eta") and cfg.family == "multivariate":
+            arr = 1.0 / arr
+        out[stem] = arr
+    return out
+
+
+def export_traces(directory, traces, cfg, batch=0):
+    """Write traces with the reference file contract (BFMMM.h:1720-1730)."""
+    from bayesfmmm_torch.io import armaio
+    armaio.save_trace_dir(directory, export_layout(traces, cfg), batch=batch)
+
+
+# extra fit() kwargs, routed to the phase that consumes them; anything not
+# listed raises immediately instead of being silently swallowed
+_FIT_PHASE1_KW = frozenset({"basis_degree", "internal_knots",
+                            "boundary_knots", "basis_degrees",
+                            "internal_knots_list", "init", "device"})
+_FIT_PHASE2_KW = frozenset({"burnin_prop"})
+_FIT_PHASE3_KW = frozenset({"thinning_num", "n_temp_trans", "beta_N_t",
+                            "N_t", "n_chains", "r_stored_iters",
+                            "burnin_prop", "kernels", "progress",
+                            "progress_every", "checkpoint_to"})
+
+
+def fit(Y=None, time=None, *, K, M, data=None, X=None, family="functional",
+        nu_z_iters=1000, theta_iters=1000, warm_iters=2000, n_try=1,
+        covariate_cov=False, priors=None, directory=None, seed=0, **kw):
+    """Convenience wrapper running the full 3-phase pipeline.
+
+    Extra keyword arguments are routed to the phase that accepts them
+    (basis/init/device args -> fit_nu_z; burnin_prop -> fit_theta and
+    fit_warm_start; thinning/tempering/storage/checkpoint args ->
+    fit_warm_start); unknown names raise TypeError up front rather than
+    passing silently.
+    """
+    unknown = set(kw) - _FIT_PHASE1_KW - _FIT_PHASE2_KW - _FIT_PHASE3_KW
+    if unknown:
+        raise TypeError(f"fit() got unexpected keyword arguments: "
+                        f"{sorted(unknown)}")
+    kw1 = {k: v for k, v in kw.items() if k in _FIT_PHASE1_KW}
+    kw2 = {k: v for k, v in kw.items() if k in _FIT_PHASE2_KW}
+    kw3 = {k: v for k, v in kw.items() if k in _FIT_PHASE3_KW}
+    r1 = fit_nu_z(Y, time, data=data, K=K, M=M, X=X, family=family,
+                  tot_mcmc_iters=nu_z_iters, n_try=n_try, priors=priors,
+                  seed=seed, **kw1)
+    r2 = fit_theta(r1, tot_mcmc_iters=theta_iters, n_try=max(n_try, 1),
+                   covariate_cov=covariate_cov, priors=priors, seed=seed + 1,
+                   **kw2)
+    return fit_warm_start(r1, r2, tot_mcmc_iters=warm_iters, priors=priors,
+                          directory=directory, seed=seed + 2, **kw3)

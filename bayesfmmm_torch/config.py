@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 
 @dataclass(frozen=True)
 class Priors:
@@ -33,6 +35,29 @@ class Priors:
     alpha_0: float = 1.0           # sigma^2 ~ IG(alpha_0, beta_0)
     beta_0: float = 1.0
     c: tuple | None = None         # Dirichlet prior on pi; default 10*1_K
+
+    def c_vector(self, K: int):
+        """The Dirichlet prior vector on pi as a host array of K entries
+        (UserFunctions.cpp:272-288)."""
+        if self.c is None:
+            return np.full(K, 10.0)
+        c = np.asarray(self.c, dtype=float)
+        if c.shape != (K,):
+            raise ValueError("number of elements of the vector 'c' must be "
+                             "equal to K")
+        if np.any(c <= 0):
+            raise ValueError("all elements of 'c' must be positive")
+        return c
+
+    def validate(self) -> "Priors":
+        for name in ("b", "nu_1", "alpha1l", "alpha2l", "beta1l", "beta2l",
+                     "a_Z_PM", "a_pi_PM", "var_alpha3", "var_epsilon1",
+                     "var_epsilon2", "alpha_nu", "beta_nu", "alpha_eta",
+                     "beta_eta", "alpha_0", "beta_0"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be positive "
+                                 f"(reference: UserFunctions.cpp:198-286)")
+        return self
 
 
 @dataclass(frozen=True)

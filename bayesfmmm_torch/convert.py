@@ -63,3 +63,31 @@ def state_to_numpy(state: GibbsState) -> dict:
     """Dict of (C, ...) NumPy arrays, one per state field."""
     return {f: getattr(state, f).detach().cpu().numpy()
             for f in STATE_FIELDS}
+
+
+def fit_result_from_jax(jres, data, device=None):
+    """The port's ``FitResult`` holding a JAX ``FitResult``'s traces, loglik
+    and final state (as NumPy), so that the port's ``fit_theta`` and
+    ``fit_warm_start`` can continue from a phase the JAX package ran.
+    ``data`` is the port's ModelData of the same observations."""
+    from bayesfmmm_torch.api import FitResult
+    from bayesfmmm_torch.config import ModelConfig
+
+    res = FitResult({k: np.asarray(v) for k, v in jres.traces.items()},
+                    np.asarray(jres.loglik),
+                    state_from_numpy(jres.final_state, chains=1,
+                                     device=device or data.device),
+                    int(jres.chain_index))
+    res.data = data
+    res.config = ModelConfig(**{f: getattr(jres.config, f) for f in (
+        "K", "P", "M", "D", "family", "covariate_mean", "covariate_cov")})
+    return res
+
+
+def fit_result_to_numpy(res, burnin_prop=0.8) -> dict:
+    """A ``FitResult`` of either package as host arrays: its traces, loglik
+    and per-element posterior medians."""
+    return {"traces": {k: np.asarray(v) for k, v in res.traces.items()},
+            "loglik": np.asarray(res.loglik),
+            "estimates": {k: np.asarray(v) for k, v in
+                          res.estimates(burnin_prop, _warn=False).items()}}

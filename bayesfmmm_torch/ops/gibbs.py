@@ -403,7 +403,7 @@ def _where_rows(ok, new, old):
                        new, old)
 
 
-def _select(ok, new, old):
+def select_state(ok, new, old):
     """Per-chain MH accept of a whole state: every field that ``new`` holds
     as another tensor than ``old`` is taken where ok (C,) is True."""
     changes = {}
@@ -662,7 +662,7 @@ def update_gauge(generator, state, data, hp):
         lp_new = _gauge_logprior(prop, data, hp)
         ok = _mh_accept(lp_new - lp + log_jac,
                         _uniform(generator, lp, lp.shape))
-        return _select(ok, prop, st), torch.where(ok, lp_new, lp)
+        return select_state(ok, prop, st), torch.where(ok, lp_new, lp)
 
     lp = _gauge_logprior(state, data, hp)
     a, b = _ordered_pair(generator, (C,), K, dev)
@@ -855,8 +855,50 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
 
 
 # ---------------------------------------------------------------------------
-# The phase-3 sweep (JAX gibbs.py:1796-1866)
+# The sweeps of the three phases (JAX gibbs.py:1754-1866; BFMMM.h:1073-1100
+# phase 1, :1253-1298 phase 2, :1500-1554 phase 3)
 # ---------------------------------------------------------------------------
+
+def _no_covariate_kernels(covariate_mean, covariate_cov=False):
+    if covariate_mean or covariate_cov:
+        raise NotImplementedError(
+            "covariate-adjusted kernels: ROADMAP item 11 'covariate-adjusted "
+            "models and the other families'")
+
+
+def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
+               beta=1.0):
+    """One phase-1 sweep of every chain: Z, pi, alpha3, nu, tau, sigma.
+
+    Phi is held at zero in this phase (BFMMM.h:1063), so the likelihood is
+    chi-free by construction; Phi, chi and the Phi tower are not touched."""
+    _no_covariate_kernels(covariate_mean)
+    use_full_f32()
+    cache = build_cache(data, state)
+    state, cache = update_z(generator, state, data, hp, cache, beta)
+    state = update_pi(generator, state, hp, c)
+    state = update_alpha3(generator, state, hp)
+    state, cache = update_nu(generator, state, data, hp, cache, beta)
+    state = update_tau(generator, state, data, hp)
+    return update_sigma(generator, state, data, hp, cache, beta)
+
+
+def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
+                covariate_cov=False, beta=1.0):
+    """One phase-2 sweep of every chain: Phi, delta, A, gamma, tau, sigma,
+    chi, with (Z, nu, pi, alpha3) pinned."""
+    _no_covariate_kernels(covariate_mean, covariate_cov)
+    use_full_f32()
+    cache = build_cache(data, state)
+    state, cache = update_phi(generator, state, data, hp, cache, beta)
+    state = update_delta(generator, state, hp)
+    state = update_a(generator, state, hp)
+    state = update_gamma(generator, state, hp)
+    state = update_tau(generator, state, data, hp)
+    state = update_sigma(generator, state, data, hp, cache, beta)
+    state, cache = update_chi(generator, state, data, hp, cache, beta)
+    return state
+
 
 def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                covariate_cov=False, beta=1.0, collapsed_z=False,
@@ -876,10 +918,7 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
 
     ``beta`` < 1 tempers the data-likelihood kernels, as in the JAX
     package.  The flags of kernels not ported yet raise."""
-    if covariate_mean or covariate_cov:
-        raise NotImplementedError(
-            "covariate-adjusted kernels: ROADMAP item 11 'covariate-adjusted "
-            "models and the other families'")
+    _no_covariate_kernels(covariate_mean, covariate_cov)
     for flag, on in (("z_anchor", z_anchor), ("phi_chi_moves", phi_chi_moves),
                      ("hmc_steps", hmc_steps)):
         if on:

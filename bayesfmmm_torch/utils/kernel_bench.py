@@ -153,6 +153,12 @@ def main_path_inputs(dev, seed=123):
                                           device=dev)),
         "weighted_gram": (torch.rand(CHAINS * K, N, generator=g, device=dev),
                           torch.randn(N, P, P, generator=g, device=dev)),
+        # the restart phases of the fit pipeline at n_try=7: 8 chains in
+        # phase 1 (K2, K3), 7 in phase 2 (K1, K2)
+        "chol_solve_c7": spd(g, 7, D, dev),
+        "mean_rss_c8": (B, y, torch.randn(8, N, P, generator=g, device=dev)),
+        "weighted_gram_r24": (torch.rand(8 * K, N, generator=g, device=dev),
+                              torch.randn(N, P, P, generator=g, device=dev)),
     }
 
 

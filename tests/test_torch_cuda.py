@@ -250,3 +250,85 @@ def test_weighted_gram_rejects_bad_inputs(dev):
         kernels.weighted_gram(torch.rand(10, 4, device=dev).mT, G)
     with pytest.raises(ValueError, match="shape"):
         kernels.weighted_gram(W, G[:9])
+
+
+# ---------------------------------------------------------------------------
+# The fit pipeline on the card
+# ---------------------------------------------------------------------------
+
+def test_two_resumes_from_one_checkpoint_give_the_same_bits(dev, tmp_path):
+    """The warm-ensemble protocol on the card: 16 chains of the production
+    census with a tempered excursion, checkpointed, resumed twice (equal
+    bits), and split against unbroken (equal bits)."""
+    import numpy as np
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.io.checkpoint import load_checkpoint
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=5, N=20, K=2, P=6, M=2,
+                                  n_time=(20, 24))
+    assert data.device.type == "cuda"
+    r1 = api.fit_nu_z(data=data, K=2, M=2, tot_mcmc_iters=100, n_try=2)
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100, n_try=2)
+    assert r1.final_state.Z.device.type == "cuda"
+    ck = str(tmp_path / "ens.npz")
+    kw = dict(kernels="production", n_temp_trans=60, N_t=2, beta_N_t=0.5,
+              progress=False)
+    whole = api.fit_warm_start(r1, r2, tot_mcmc_iters=200, n_chains=16,
+                               seed=3, **kw)
+    first = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, n_chains=16,
+                               seed=3, checkpoint_to=ck, **kw)
+    a = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
+                           **kw)
+    b = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
+                           progress_every=30, **kw)
+    assert load_checkpoint(ck, dev)[1].device.type == "cuda"
+    with pytest.raises(ValueError, match="'cuda' generator.*'cpu'"):
+        load_checkpoint(ck, "cpu")
+    np.testing.assert_array_equal(a.all_chain_loglik, b.all_chain_loglik)
+    np.testing.assert_array_equal(
+        np.concatenate([first.all_chain_loglik, a.all_chain_loglik], 1),
+        whole.all_chain_loglik)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(a.ensemble_state, f),
+                           getattr(b.ensemble_state, f)), f
+        assert torch.equal(getattr(a.ensemble_state, f),
+                           getattr(whole.ensemble_state, f)), f
+    for f in a.traces:
+        np.testing.assert_array_equal(a.traces[f], b.traces[f])
+    assert float((a.ensemble_state.nu - first.ensemble_state.nu)
+                 .abs().max()) > 1e-6
+
+
+def test_excursion_on_the_card_matches_the_cpu(dev):
+    """The same excursion with a stub sweep on the card (pz_unit through K2)
+    and on the CPU (through its plain version): logA to rtol 2e-4 / atol
+    2e-3 (a sum of large terms that cancel), 2 N_t + 1 K2 launches."""
+    from bayesfmmm_torch import convert
+    from bayesfmmm_torch.config import Priors
+    from bayesfmmm_torch.samplers import drivers
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    def stub(generator, st, data, hp, c, beta=1.0):
+        return st.replace(nu=st.nu * 1.05 + 0.2 * beta,
+                          sigma2=st.sigma2 * (1.0 + 0.1 * beta))
+
+    out = {}
+    for d in ("cpu", dev):
+        data, truth = simulate_functional(seed=7, N=12, K=2, P=5, M=2,
+                                          n_time=(8, 12), sigma2=0.5,
+                                          device=d)
+        st = convert.state_from_numpy(truth, chains=5, device=d)
+        st = st.replace(sigma2=st.sigma2 * torch.linspace(0.5, 2.0, 5,
+                                                          device=d))
+        kernels.reset_launch_counts()
+        new, acc, logA = drivers.tempered_excursion(
+            torch.Generator(device=d).manual_seed(0), st, data, Priors(),
+            None, drivers.make_temperature_ladder(0.25, 3), sweep_fn=stub)
+        out[str(d)] = (new, acc, logA, kernels.LAUNCHES["mean_rss"])
+    assert out["cpu"][3] == 0 and out[str(dev)][3] == 7
+    assert out[str(dev)][2].device.type == "cuda"
+    torch.testing.assert_close(out[str(dev)][2].cpu(), out["cpu"][2],
+                               rtol=2e-4, atol=2e-3)

@@ -123,10 +123,13 @@ def test_driver_thinning_and_flags_outside_the_slice():
     assert res.loglik.shape == (3, 2) and res.traces["Z"].shape == (3, 2, 6, 2)
     assert torch.equal(res.traces["sigma2"][:, -1], res.final_state.sigma2)
     for kw in (dict(z_anchor=True), dict(phi_chi_moves=1),
-               dict(hmc_steps=1), dict(covariate_mean=True),
-               dict(n_temp_trans=5)):
+               dict(hmc_steps=1), dict(covariate_mean=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
             drivers.phase_warm_start(g, st, data, hp, c, n_iters=1, **kw)
+    # tempered transitions run: one excursion, at iteration 2 of 0..3
+    tt = drivers.phase_warm_start(g, st, data, hp, c, n_iters=4,
+                                  n_temp_trans=2, N_t=2, beta_N_t=0.5)
+    assert tt.tt_accept.shape == (3, 1) and tt.loglik.shape == (3, 4)
     with pytest.raises(ValueError, match="betas"):
         drivers.phase_warm_start(g, st, data, hp, c, n_iters=2, betas=[0.5])
     wide = st.replace(Phi=torch.zeros(3, 2, 5, 410))   # K*M*P = 4100
