@@ -1,7 +1,8 @@
 """bayesfmmm-torch: the BayesFMMM mixed-membership sampler in PyTorch.
 
-A port of ``bayesfmmm_tpu`` (JAX) to PyTorch and CUDA.  Every state tensor
-carries a leading chain axis C, every updater takes an explicit
+A port of ``bayesfmmm_tpu`` (JAX) to PyTorch and CUDA: the functional, hd
+(tensor-product basis) and multivariate (identity basis) families, plain
+and covariate-adjusted.  Every state tensor carries a leading chain axis C, every updater takes an explicit
 ``torch.Generator``, and data (B, G, u, y, pen) is shared across chains.
 The sweep's three kernels (Cholesky factor-and-solve, mean/RSS, weighted
 Gram sums) are hand-written CUDA (``bayesfmmm_torch/csrc``), built with
@@ -11,8 +12,8 @@ PyTorch versions run instead.
 The package imports nothing of JAX or of ``bayesfmmm_tpu``, so it runs on a
 machine that has neither.  It runs on the CUDA card unless told otherwise:
 the entry points that build data or state (``api.build_data``,
-``api.fit_nu_z``, ``api.fit``, ``simulate_functional``,
-``make_functional_data``, ``convert.data_from_jax``,
+``api.fit_nu_z``, ``api.fit``, the simulators of ``utils/simulate.py``, the
+data makers of ``models/state.py``, ``convert.data_from_jax``,
 ``convert.state_from_numpy``) place their tensors there when no ``device``
 is given and raise without a card; ``device="cpu"`` asks for the CPU.
 ``api.fit_theta`` and ``api.fit_warm_start`` (a resume from a checkpoint

@@ -1,10 +1,12 @@
 """User-facing fitting API mirroring the reference pipeline semantics.
 
-Port of ``bayesfmmm_tpu/api.py`` for the functional family without
-covariates.  Reference L4/L5: UserFunctions.cpp's fitting functions
-(BFMMM_{Nu_Z_multiple_try, Theta_est, warm_start}, :166, :684, :1341) with
-the same hyperparameter names/defaults (config.Priors) and validation
-conditions (:198-286).
+Port of ``bayesfmmm_tpu/api.py``.  Reference L4/L5: UserFunctions.cpp's
+nine fitting functions (B{F,HDF,MV}MMM_{Nu_Z_multiple_try, Theta_est,
+warm_start}, :166, :684, :1341, :2519, :3030, :3676, :4579, :4995, :5540)
+collapse into three that dispatch on the data's family, with the same
+hyperparameter names/defaults (config.Priors) and validation conditions
+(:198-286).  Covariate adjustment of the mean (eta) is on when covariates
+X are given, that of the covariance (xi) with ``covariate_cov=True``.
 
 The reference's ``n_try`` restarts run serially (:302-325); here all
 restarts are the chain axis of one batched run on the device, and the best
@@ -28,7 +30,9 @@ import torch
 from bayesfmmm_torch import validation
 from bayesfmmm_torch.config import ModelConfig, Priors
 from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
-                                          init_state, make_functional_data)
+                                          init_state, make_functional_data,
+                                          make_hd_functional_data,
+                                          make_multivariate_data)
 from bayesfmmm_torch.samplers import drivers
 
 __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
@@ -39,8 +43,6 @@ __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
 # default, where the JAX package's turns it on for every gauge caller.
 PRODUCTION_FLAGS = dict(collapsed_z=True, gauge=True, p_indep=0.3,
                         phi_mala_steps=4, phi_mala_step=0.05)
-
-_ITEM_11 = "ROADMAP item 11 'covariate-adjusted models and the other families'"
 
 
 class FitResult:
@@ -86,8 +88,7 @@ class FitResult:
 def build_data(Y, time=None, *, family="functional", basis_degree=3,
                internal_knots=None, boundary_knots=None, X=None,
                basis_degrees=None, internal_knots_list=None, device=None):
-    """Construct the padded device data container (functional family; the
-    hd and multivariate families are not ported yet)."""
+    """Construct the padded device data container for any model family."""
     if family == "functional":
         if Y is None or len(Y) < 1:
             raise ValueError("'n_funct' must be an integer greater than or "
@@ -98,8 +99,22 @@ def build_data(Y, time=None, *, family="functional", basis_degree=3,
                                     internal_knots=internal_knots,
                                     boundary_knots=boundary_knots, X=X,
                                     device=device)
-    if family in ("hd", "multivariate"):
-        raise NotImplementedError(f"family {family!r}: {_ITEM_11}")
+    if family == "hd":
+        if Y is None or len(Y) < 1:
+            raise ValueError("'n_funct' must be an integer greater than or "
+                             "equal to 1")
+        validation.validate_hd_knots(basis_degrees, internal_knots_list,
+                                     boundary_knots)
+        return make_hd_functional_data(
+            Y, time, basis_degrees=basis_degrees,
+            internal_knots_list=internal_knots_list,
+            boundary_knots=boundary_knots, X=X, device=device)
+    if family == "multivariate":
+        Y = np.asarray(Y)
+        if Y.ndim != 2 or Y.shape[0] < 1:
+            raise ValueError("'Y' must be a matrix with at least one row "
+                             "for the multivariate family")
+        return make_multivariate_data(Y, X=X, device=device)
     raise ValueError(f"unknown family {family!r}")
 
 
@@ -138,7 +153,8 @@ def _run_restarts(generator, data, cfg, c, phase_fn, n_chains, n_iters,
     initializer (utils/init_strategies.py) with per-chain jitter — a
     deterministic replacement for the reference's blind random restarts.
     """
-    states = init_state(generator, cfg, data, chains=n_chains, c=c)
+    states = init_state(generator, cfg, data, chains=n_chains, c=c,
+                        dtype=data.y.dtype)
     if init == "spectral":
         from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
         states = spectral_ensemble(generator, states, data, cfg.K, cfg.M,
@@ -159,9 +175,10 @@ def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
              device=None):
     """Phase 1 — find likely mean/allocation structure (multiple tries).
 
-    Mirrors BFMMM_Nu_Z_multiple_try (UserFunctions.cpp:166); ``n_try + 1``
-    chains run at once.  The data is built on ``device`` (the card when
-    None) unless ``data`` is given.
+    Mirrors BFMMM_Nu_Z_multiple_try (UserFunctions.cpp:166) and its MV
+    and HD variants; ``n_try + 1`` chains run at once, and the mean's
+    covariate adjustment is on when X is given.  The data is built on
+    ``device`` (the card when None) unless ``data`` is given.
     """
     validation.validate_fit_args(tot_mcmc_iters=tot_mcmc_iters, n_try=n_try,
                                  K=K, n_eigen=M)
@@ -174,14 +191,15 @@ def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
                           basis_degrees=basis_degrees,
                           internal_knots_list=internal_knots_list,
                           device=device)
-    if data.D > 0:
-        raise NotImplementedError(f"covariates (D > 0): {_ITEM_11}")
-    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=0, family="functional")
+    covm = data.D > 0
+    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=int(data.D),
+                      family=data.family, covariate_mean=covm)
     c_vec = _c_tensor(hp, K, data)
 
     def phase(g, st):
         return drivers.phase_nu_z(g, st, data, hp, c_vec,
-                                  n_iters=tot_mcmc_iters)
+                                  n_iters=tot_mcmc_iters,
+                                  covariate_mean=covm)
 
     res = _run_restarts(_generator(data, seed), data, cfg, c_vec, phase,
                         n_try + 1, tot_mcmc_iters, init=init)
@@ -193,7 +211,7 @@ def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
 def fit_theta(nu_z_result: FitResult, *, tot_mcmc_iters=1000, n_try=1,
               M=None, covariate_cov=False, priors: Priors | None = None,
               burnin_prop=0.8, seed=1):
-    """Phase 2 — covariance structure given pinned (Z, nu) medians.
+    """Phase 2 — covariance structure given pinned (Z, nu[, eta]) medians.
 
     Mirrors BFMMM_Theta_est (UserFunctions.cpp:684): point estimates are
     per-element posterior medians of the phase-1 chain with Z re-normalized;
@@ -205,10 +223,13 @@ def fit_theta(nu_z_result: FitResult, *, tot_mcmc_iters=1000, n_try=1,
     hp = (priors or Priors()).validate()
     data = nu_z_result.data
     cfg = nu_z_result.config
-    if covariate_cov and cfg.D > 0:
-        raise NotImplementedError(f"covariate_cov: {_ITEM_11}")
-    if M is not None and M != cfg.M:
-        cfg = ModelConfig(K=cfg.K, P=cfg.P, M=M, D=cfg.D, family=cfg.family)
+    new_M = M if M is not None else cfg.M
+    covc = bool(covariate_cov) and cfg.D > 0
+    if new_M != cfg.M or covc != cfg.covariate_cov:
+        cfg = ModelConfig(K=cfg.K, P=cfg.P, M=new_M, D=cfg.D,
+                          family=cfg.family,
+                          covariate_mean=cfg.covariate_mean,
+                          covariate_cov=covc)
     est = nu_z_result.estimates(burnin_prop, _warn=False)
     c_vec = _c_tensor(hp, cfg.K, data)
 
@@ -216,7 +237,9 @@ def fit_theta(nu_z_result: FitResult, *, tot_mcmc_iters=1000, n_try=1,
         # pin Z, nu (and eta) to the phase-1 medians (BFMMM.h:1244-1250)
         st = _pinned(st, est, ("Z", "nu", "eta", "pi", "alpha3", "tau"))
         return drivers.phase_theta(g, st, data, hp, c_vec,
-                                   n_iters=tot_mcmc_iters)
+                                   n_iters=tot_mcmc_iters,
+                                   covariate_mean=cfg.covariate_mean,
+                                   covariate_cov=cfg.covariate_cov)
 
     res = _run_restarts(_generator(data, seed), data, cfg, c_vec, phase,
                         n_try, tot_mcmc_iters)
@@ -316,7 +339,7 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
             # a file without a configuration says nothing of covariates,
             # and the shape of xi does not either
             cfg = ModelConfig(K=states.K, P=int(data.P), M=states.M,
-                              D=int(data.D), family="functional",
+                              D=int(data.D), family=data.family,
                               covariate_mean=int(data.D) > 0)
         n_chains = int(states.Z.shape[0])
     else:
@@ -337,7 +360,8 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
         # async native writer overlapping IO and compute; one chain
         from bayesfmmm_torch.io import armaio
         from bayesfmmm_torch.samplers.batched import run_batched
-        st0 = seed_state(init_state(generator, cfg, data, chains=1, c=c_vec))
+        st0 = seed_state(init_state(generator, cfg, data, chains=1, c=c_vec,
+                                    dtype=data.y.dtype))
         final, ll, _ = run_batched(
             generator, st0, data, hp, c_vec, directory=directory,
             tot_mcmc_iters=tot_mcmc_iters, r_stored_iters=r_stored_iters,
@@ -362,7 +386,8 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
         stream = None
     if not resume:
         states = seed_state(init_state(generator, cfg, data,
-                                       chains=n_chains, c=c_vec))
+                                       chains=n_chains, c=c_vec,
+                                       dtype=data.y.dtype))
 
     done, t_parts, ll_parts, tt_parts = 0, [], [], []
     for n in chunk_sizes(tot_mcmc_iters, thinning_num, progress_every):

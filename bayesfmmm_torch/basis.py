@@ -1,17 +1,18 @@
-"""B-spline basis and RW(1) penalty for 1-D functional data (host, NumPy f64).
+"""B-spline bases and penalties (host, NumPy f64): the 1-D basis and RW(1)
+penalty of the functional family, the tensor-product basis and its graph
+penalty of the hd family.
 
-The functions of ``bayesfmmm_tpu.basis`` that the functional family needs,
-restated so that the port loads nothing of the JAX package;
-``tests/test_torch_state.py`` holds them equal to the originals.  The
-tensor-domain bases arrive with the hd family (ROADMAP item
-'covariate-adjusted models and the other families').
+The functions of ``bayesfmmm_tpu.basis``, restated so that the port loads
+nothing of the JAX package; ``tests/test_torch_state.py`` and
+``tests/test_torch_families.py`` hold them equal to the originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["bspline_basis", "rw1_penalty"]
+__all__ = ["bspline_basis", "rw1_penalty", "mixed_radix_indices",
+           "tensor_bspline_basis", "tensor_penalty"]
 
 
 def _knot_vector(internal_knots, degree, boundary_knots):
@@ -66,3 +67,52 @@ def rw1_penalty(P):
     M = 2.0 * np.eye(P) - np.eye(P, k=1) - np.eye(P, k=-1)
     M[0, 0] = M[P - 1, P - 1] = 1.0
     return M
+
+
+def mixed_radix_indices(sizes):
+    """Multi-indices of the tensor-basis columns, last dimension fastest
+    (the mixed-radix walk of BSplines.h:38-59): column i has the
+    per-dimension basis indices (i // stride_l) % sizes[l] with
+    stride_l = prod(sizes[l+1:]).  Returns a (P, dim) int array."""
+    sizes = list(sizes)
+    P = int(np.prod(sizes))
+    strides = np.ones(len(sizes), dtype=np.int64)
+    for i in range(len(sizes) - 2, -1, -1):
+        strides[i] = strides[i + 1] * sizes[i + 1]
+    cols = np.arange(P, dtype=np.int64)
+    return np.stack([(cols // strides[l]) % sizes[l]
+                     for l in range(len(sizes))], axis=1)
+
+
+def tensor_bspline_basis(t, degrees, internal_knots_list, boundary_knots):
+    """Tensor-product B-spline basis at the points t (n, dim)
+    (TensorBSpline, BSplines.h:18-62): each column is a product over the
+    dimensions of 1-D basis functions, in mixed-radix order.
+    ``boundary_knots`` is (dim, 2).  Returns (n, prod(P_l)) float64."""
+    t = np.asarray(t, dtype=np.float64)
+    if t.ndim == 1:
+        t = t[:, None]
+    bases = [bspline_basis(t[:, l], int(degrees[l]), internal_knots_list[l],
+                           np.asarray(boundary_knots)[l])
+             for l in range(t.shape[1])]
+    idx = mixed_radix_indices([b.shape[1] for b in bases])
+    B = np.ones((t.shape[0], idx.shape[0]), dtype=np.float64)
+    for l, b in enumerate(bases):
+        B *= b[:, idx[:, l]]
+    return B
+
+
+def tensor_penalty(degrees, internal_knots_list):
+    """Graph-difference penalty C'C of a tensor-product basis (GetP,
+    BSplines.h:70-120): C has one row e_i - e_j for every pair of columns
+    whose multi-indices differ by +1 in exactly one dimension."""
+    sizes = [len(np.asarray(internal_knots_list[l]).ravel())
+             + int(degrees[l]) + 1 for l in range(len(degrees))]
+    idx = mixed_radix_indices(sizes)
+    P = idx.shape[0]
+    diff = idx[None, :, :] - idx[:, None, :]          # [i, j] = idx_j - idx_i
+    i, j = np.nonzero((diff.sum(-1) == 1) & (np.abs(diff).sum(-1) == 1))
+    C = np.zeros((len(i), P), dtype=np.float64)
+    C[np.arange(len(i)), i] = 1.0
+    C[np.arange(len(i)), j] = -1.0
+    return C.T @ C

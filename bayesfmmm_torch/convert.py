@@ -15,27 +15,25 @@ from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState, ModelData,
                                           default_device)
 
 
-def data_from_jax(jdata, device=None) -> ModelData:
-    """Port ModelData holding the same arrays as a JAX ``ModelData`` of the
-    functional or hd family (the identity-basis multivariate family is not
-    ported yet), on ``device``: the CUDA card when None."""
+def data_from_jax(jdata, device=None, dtype=torch.float32) -> ModelData:
+    """Port ModelData holding the same arrays as a JAX ``ModelData`` of any
+    family (the identity-basis flag and the family's name come along), on
+    ``device``: the CUDA card when None."""
     device = default_device(device)
-    if jdata.identity_basis:
-        raise NotImplementedError(
-            "multivariate family: ROADMAP item 'covariate-adjusted models "
-            "and the other families'")
 
     def dev(name):
-        return torch.tensor(np.asarray(getattr(jdata, name)),
-                            dtype=torch.float32, device=device)
+        return torch.tensor(np.asarray(getattr(jdata, name)), dtype=dtype,
+                            device=device)
 
     return ModelData(
         y=dev("y"), mask=dev("mask"), B=dev("B"), X=dev("X"), G=dev("G"),
         pen=dev("pen"), u=dev("u"), yy=dev("yy"),
-        n_obs=float(np.sum(np.asarray(jdata.mask, dtype=np.float64))))
+        n_obs=float(np.sum(np.asarray(jdata.mask, dtype=np.float64))),
+        identity_basis=bool(jdata.identity_basis), family=str(jdata.family))
 
 
-def state_from_numpy(leaves, chains=None, device=None) -> GibbsState:
+def state_from_numpy(leaves, chains=None, device=None,
+                     dtype=torch.float32) -> GibbsState:
     """GibbsState from the leaves of a JAX ``GibbsState`` (or a dict).
 
     A leaf with the per-chain shape is broadcast over ``chains`` chains
@@ -55,7 +53,7 @@ def state_from_numpy(leaves, chains=None, device=None) -> GibbsState:
                                     and a.shape[0] != chains):
             raise ValueError(f"{f}: shape {a.shape} is neither one chain's "
                              f"({ndim} axes) nor {chains} chains'")
-        out[f] = torch.tensor(a, dtype=torch.float32, device=device)
+        out[f] = torch.tensor(a, dtype=dtype, device=device)
     return GibbsState(**out)
 
 
@@ -81,6 +79,30 @@ def fit_result_from_jax(jres, data, device=None):
     res.data = data
     res.config = ModelConfig(**{f: getattr(jres.config, f) for f in (
         "K", "P", "M", "D", "family", "covariate_mean", "covariate_cov")})
+    return res
+
+
+def fit_result_from_estimates(est, data, config):
+    """A ``FitResult`` whose ``estimates()`` are ``est``: a dict of one
+    chain's point estimates by state field (arrays or nested lists, say the
+    posterior medians another run stored), as a one-draw trace.  It can
+    stand for both phase results that ``api.fit_warm_start`` takes, so a
+    phase 3 can start from exactly the point another package's did."""
+    from bayesfmmm_torch.api import FitResult
+
+    N, K, P, M, D = data.N, config.K, config.P, config.M, config.D
+    shapes = dict(
+        Z=(N, K), pi=(K,), alpha3=(), nu=(K, P), tau=(K,), sigma2=(),
+        chi=(N, M), Phi=(K, P, M), gamma=(K, P, M), delta=(K, M), A=(K, 2),
+        eta=(K, P, D), tau_eta=(K, D), xi=(K, P, D, M),
+        gamma_xi=(K, P, D, M), delta_xi=(K, M, D), A_xi=(K, 2, D))
+    # nested lists lose the axes after an empty one (D = 0): reshape
+    host = {f: np.asarray(est[f], dtype=np.float32).reshape(shapes[f])
+            for f in STATE_FIELDS}
+    res = FitResult({f: v[None] for f, v in host.items()}, np.zeros(1),
+                    state_from_numpy(host, chains=1, device=data.device))
+    res.data = data
+    res.config = config
     return res
 
 

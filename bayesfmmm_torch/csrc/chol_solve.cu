@@ -65,10 +65,55 @@
 //   is 10 us of a call, the back substitutions 3, the staging of A 2.  A
 //   step is latency: barrier, shared-memory read, multiply-adds, shuffle,
 //   rsqrtf, shared-memory write.
-// The shared-memory kernel (every other D up to 240, the largest whose
-// D*D + 2*D floats fit one block's 227 KB) keeps the matrix in shared
-// memory: right-looking, two barriers a column, finished columns mirrored
-// along rows, the three substitutions in one warp.
+// The packed kernel (128 < D <= 334; config shapes D = K*M*P = 256 of the
+// covariate-adjusted xi draw and of the hd family's Phi draw).  A square
+// 256 x 256 float matrix is 256 KB and does not fit a block's 227 KB, and
+// the designs that would hold it elsewhere cost more than they give at this
+// size: panels streamed from global memory pay a round trip to L2 in every
+// one of the D dependent column steps, and a cluster sharing the factor
+// through distributed shared memory pays a cluster barrier there.  The
+// factor only ever touches the lower triangle, and D (D + 1) / 2 floats are
+// 128.5 KB at D = 256: so the triangle is kept packed in one block's shared
+// memory, row by row, every row padded to 16 bytes (131 KB at D = 256),
+// which serves every D up to 334 with the chain still one block and no
+// global traffic inside the loop.  What it does about the cost of a column
+// step:
+//   * ONE barrier a column.  Row i belongs to warp i mod 16 for the whole
+//     factorization.  The owner of a row updates it, hands the entry of the
+//     next column to a buffer of D + 1 raw (unscaled) values, and stores
+//     L[i][j]; after the barrier every warp reads the raw column, takes the
+//     one reciprocal square root of its diagonal itself and scales what it
+//     needs.  Two buffers in turn, as in the tiled kernel.  The hand-over is
+//     done by every lane with the same values after a __syncwarp.  What the
+//     card chose at 16 chains of D = 256 (utils/k1_probe.py --kernel
+//     packed): stores under a one-lane branch in the inner loop cost 0.17 of
+//     0.60 ms; a shuffle from the lane that holds the entry in place of the
+//     read-back, 0.15 ms more; two rows of a warp at a time, 0.13 ms more;
+//     1,024 threads the same, 256 threads 0.2 ms more.
+//   * A lane keeps its scaled column values l_k in registers, four
+//     neighbouring columns a chunk, for all the rows of its warp, so the
+//     inner step is one 16-byte shared-memory load, four multiply-adds and
+//     one 16-byte store; rows are contiguous and aligned, so the loads are
+//     conflict-free.  l_k is 0 at the finished columns, which makes the
+//     update a no-op there, and the last four entries of a row may reach
+//     into the row's own pad: no store needs a mask.  (One entry a lane
+//     with a predicate each, the first version, took 1,056 us at 16 chains:
+//     ten instructions a multiply-add.)
+//   * b is row D of the matrix, so w = L^-1 b rides along, and 1 / L_jj is
+//     kept in the diagonal's place: the back substitutions (one warp, both
+//     right-hand sides in registers, along contiguous rows of L, as in the
+//     tiled kernel) multiply by it.
+//   * The jitter goes onto the diagonal in shared memory, the trace summed
+//     by one warp in a fixed order.
+// 128.5 KB a block is one block an SM: 132 chains run at once, and 256
+// chains take two waves.  ops/kernels.py::chol_solve_packed_plain repeats
+// this arithmetic on the same storage in PyTorch.  It also serves
+// 128 < D <= 240, where a kernel that kept the matrix in shared memory as a
+// square (two barriers a column) stood before: the card gave the packed
+// kernel 129, 266 and 366 us at 16 chains of D = 129, 200 and 240 against
+// the square's 224, 514 and 756, and 255, 536 and 745 against 241, 1,042
+// and 1,537 at 256 chains (utils/kernel_bench.py --sweep, one call), so the
+// square went.
 // No batch-minor transpose and no 128-lane padding: the TPU kernel needed
 // both to put chains on vector lanes; here chains are blocks.
 
@@ -315,104 +360,179 @@ cudaError_t launch_tiled(const float* A, const float* b, const float* z,
 }
 
 // ---------------------------------------------------------------------------
-// The shared-memory kernel: any D up to 240
+// The packed kernel: the lower triangle in shared memory, D up to 334
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kPackedThreads = 512;
+constexpr int kPackedWarps = kPackedThreads / 32;
+constexpr int kPackedChunks = 3;        // 128-column chunks of a row: D <= 384
+constexpr int kPackedSolveValues = 11;  // values a lane of the solve: D <= 352
 
-__global__ void __launch_bounds__(kThreads)
-chol_shared_kernel(const float* __restrict__ A, const float* __restrict__ b,
+// Offset of row i of the packed triangle.  Row i holds its i + 1 entries and
+// is padded to a multiple of 4 floats, so every row starts on 16 bytes: four
+// rows of 4 floats, four of 8, and so on.
+__host__ __device__ __forceinline__ int packed_row(int i) {
+  const int g = i >> 2, r = i & 3;
+  return 4 * (g + 1) * (2 * g + r);
+}
+
+__global__ void __launch_bounds__(kPackedThreads, 1)
+chol_packed_kernel(const float* __restrict__ A, const float* __restrict__ b,
                    const float* __restrict__ z, float* __restrict__ mean,
                    float* __restrict__ noise, int D, float jitter) {
+  constexpr int T = kPackedThreads, W = kPackedWarps, NC = kPackedChunks;
   extern __shared__ __align__(16) float smem[];
-  float* a = smem;          // D*D: lower triangle -> L, upper -> L^T
-  float* u = a + D * D;     // b -> L^-1 b -> mean
-  float* v = u + D;         // z -> noise
+  const int CB = (D + 4) & ~3;              // a raw column: D + 1, padded
+  float* a = smem;                          // rows 0..D; row D is b
+  float* colbuf = a + packed_row(D + 1);    // two raw columns
+  float* v = colbuf + 2 * CB;               // z -> noise
+  float* u = a + packed_row(D);             // row D: b -> L^-1 b -> mean
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t off_a = (size_t)blockIdx.x * D * D;
+  const float* Ag = A + (size_t)blockIdx.x * D * D;
   const size_t off_v = (size_t)blockIdx.x * D;
 
-  for (int i = tid; i < D * D; i += kThreads) a[i] = A[off_a + i];
-  for (int i = tid; i < D; i += kThreads) {
-    u[i] = b[off_v + i];
-    v[i] = z[off_v + i];
+  for (int i = warp; i < D; i += W) {
+    const float* src = Ag + (size_t)i * D;
+    float* dst = a + packed_row(i);
+    for (int k = lane; k <= i; k += 32) dst[k] = src[k];
+  }
+  for (int k = tid; k < D; k += T) {
+    u[k] = b[off_v + k];
+    v[k] = z[off_v + k];
   }
   __syncthreads();
   if (jitter != 0.0f) {
     if (warp == 0) {        // the trace, summed in a fixed order
       float s = 0.0f;
-      for (int i = lane; i < D; i += 32) s += a[i * D + i];
+      for (int i = lane; i < D; i += 32) s += a[packed_row(i) + i];
       const float eps = jitter * (warp_sum(s) / (float)D + 1.0f);
-      for (int i = lane; i < D; i += 32) a[i * D + i] += eps;
+      for (int i = lane; i < D; i += 32) a[packed_row(i) + i] += eps;
     }
     __syncthreads();
   }
+  for (int i = tid; i < 2 * CB; i += T)      // column 0, raw; the pads 0
+    colbuf[i] = i <= D ? a[packed_row(i)] : 0.0f;
 
   for (int j = 0; j < D; ++j) {
-    const float ljj = sqrtf(a[j * D + j]);
-    const float inv = 1.0f / ljj;
-    for (int i = j + 1 + tid; i < D; i += kThreads) {
-      const float l = a[i * D + j] * inv;
-      a[i * D + j] = l;   // L[i][j]
-      a[j * D + i] = l;   // the same value, along row j
-    }
     __syncthreads();
-    if (tid == 0) a[j * D + j] = ljj;
-    // trailing update: A[i][k] -= L[i][j] * L[k][j] for j < k <= i
-    for (int i = j + 1 + warp; i < D; i += kWarps) {
-      const float lij = a[j * D + i];
-      for (int k = j + 1 + lane; k <= i; k += 32)
-        a[i * D + k] -= lij * a[j * D + k];
+    const float* cur = colbuf + (j & 1) * CB;
+    float* nxt = colbuf + ((j + 1) & 1) * CB;
+    const float inv = rsqrtf(cur[j]);
+    if (tid == 0) a[packed_row(j) + j] = inv;
+    const int jn = j + 1;
+    // this lane's scaled column values l_k, four columns a chunk; 0 at the
+    // finished columns k <= j, whose entries the update then leaves alone
+    float4 lk[NC];
+#pragma unroll
+    for (int m = 0; m < NC; ++m) {
+      const int k0 = 4 * (lane + 32 * m);
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (k0 < CB) c = *reinterpret_cast<const float4*>(cur + k0);
+      lk[m].x = (k0 > j && k0 < D) ? c.x * inv : 0.0f;
+      lk[m].y = (k0 + 1 > j && k0 + 1 < D) ? c.y * inv : 0.0f;
+      lk[m].z = (k0 + 2 > j && k0 + 2 < D) ? c.z * inv : 0.0f;
+      lk[m].w = (k0 + 3 > j && k0 + 3 < D) ? c.w * inv : 0.0f;
     }
-    __syncthreads();
-  }
-
-  if (warp == 0) {
-    // forward: u <- L^-1 u, column by column (L[i][j] = a[j*D + i])
-    for (int j = 0; j < D; ++j) {
-      __syncwarp();
-      const float wj = u[j] / a[j * D + j];
-      __syncwarp();
-      if (lane == 0) u[j] = wj;
-      for (int i = j + 1 + lane; i < D; i += 32) u[i] -= a[j * D + i] * wj;
-    }
-    // backward on both right-hand sides: x <- L^-T x (L[j][i] = a[j*D + i])
-    for (int j = D - 1; j >= 0; --j) {
-      __syncwarp();
-      const float d = a[j * D + j];
-      const float xu = u[j] / d, xv = v[j] / d;
-      __syncwarp();
-      if (lane == 0) {
-        u[j] = xu;
-        v[j] = xv;
+    // the rows below j of this warp: i = warp (mod W), row D included.  A
+    // lane updates four entries of a row at once, all of a row's loads
+    // before its stores; the last four of a row may reach into the row's
+    // own pad, which nothing reads.
+    const int first = jn + ((warp - jn) % W + W) % W;
+    for (int i = first; i <= D; i += W) {
+      const float li = cur[i] * inv;
+      float* row = a + packed_row(i);
+      const int kmax = min(i, D - 1);
+      float4 x[NC];
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const int k0 = 4 * (lane + 32 * m);
+        if (k0 <= kmax && k0 + 3 >= j)
+          x[m] = *reinterpret_cast<const float4*>(row + k0);
       }
-      for (int i = lane; i < j; i += 32) {
-        const float l = a[j * D + i];
-        u[i] -= l * xu;
-        v[i] -= l * xv;
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        const int k0 = 4 * (lane + 32 * m);
+        if (k0 <= kmax && k0 + 3 >= j) {
+          x[m].x = fmaf(-li, lk[m].x, x[m].x);
+          x[m].y = fmaf(-li, lk[m].y, x[m].y);
+          x[m].z = fmaf(-li, lk[m].z, x[m].z);
+          x[m].w = fmaf(-li, lk[m].w, x[m].w);
+          *reinterpret_cast<float4*>(row + k0) = x[m];
+        }
       }
+      // the raw entry of the next column goes to its buffer and L[i][j] (in
+      // row D, w_j) into the place of the entry it was made from: every
+      // lane stores the same values, so nothing branches
+      __syncwarp();
+      nxt[i] = row[jn];
+      row[j] = li;
     }
   }
   __syncthreads();
-  for (int i = tid; i < D; i += kThreads) {
-    mean[off_v + i] = u[i];
-    noise[off_v + i] = v[i];
+
+  if (warp == 0) {
+    // backward on both right-hand sides along the rows of L, x <- L^-T x,
+    // as in the tiled kernel: u and v in registers, x_j handed round by
+    // shuffle, one row of L read a step, no barrier
+    constexpr int NV = kPackedSolveValues;
+    float uu[NV], vv[NV];
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      const int i = lane + 32 * m;
+      uu[m] = i < D ? u[i] : 0.0f;
+      vv[m] = i < D ? v[i] : 0.0f;
+    }
+#pragma unroll
+    for (int mb = NV - 1; mb >= 0; --mb) {
+      for (int l = min(31, D - 1 - 32 * mb); l >= 0; --l) {
+        const int j = 32 * mb + l;
+        const float* row = a + packed_row(j);
+        const float ri = row[j];
+        float lrow[NV];
+#pragma unroll
+        for (int m = 0; m <= mb; ++m) {
+          const int i = lane + 32 * m;
+          lrow[m] = i < j ? row[i] : 0.0f;
+        }
+        const float xu = __shfl_sync(kFullWarp, uu[mb], l) * ri;
+        const float xv = __shfl_sync(kFullWarp, vv[mb], l) * ri;
+        if (lane == l) {
+          uu[mb] = xu;
+          vv[mb] = xv;
+        }
+#pragma unroll
+        for (int m = 0; m <= mb; ++m) {
+          uu[m] = fmaf(-lrow[m], xu, uu[m]);
+          vv[m] = fmaf(-lrow[m], xv, vv[m]);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < NV; ++m) {
+      const int i = lane + 32 * m;
+      if (i < D) {
+        mean[off_v + i] = uu[m];
+        noise[off_v + i] = vv[m];
+      }
+    }
   }
 }
 
-cudaError_t launch_shared(const float* A, const float* b, const float* z,
+cudaError_t launch_packed(const float* A, const float* b, const float* z,
                           float* mean, float* noise, int C, int D,
                           float jitter, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)D * D + 2 * (size_t)D);
+  if (D > 128 * kPackedChunks || D > 32 * kPackedSolveValues)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * ((size_t)packed_row(D + 1) +
+                                       2 * (size_t)((D + 4) & ~3) + (size_t)D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chol_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chol_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  chol_shared_kernel<<<C, kThreads, smem, stream>>>(A, b, z, mean, noise, D,
-                                                    jitter);
+  chol_packed_kernel<<<C, kPackedThreads, smem, stream>>>(A, b, z, mean, noise,
+                                                          D, jitter);
   return cudaGetLastError();
 }
 
@@ -420,7 +540,7 @@ cudaError_t launch_shared(const float* A, const float* b, const float* z,
 
 // A (C, D, D), b, z, mean and noise (C, D), all contiguous float32.  `tile`
 // names the kernel, as ops/kernels.py::chol_solve_plan chooses it: 0 the
-// shared-memory kernel, otherwise the side of a thread's tile in the
+// packed kernel, otherwise the side of a thread's tile in the
 // register-tiled one (6 or 8), which needs D <= 16 * tile.
 extern "C" int bfmmm_chol_solve(const float* A, const float* b,
                                 const float* z, float* mean, float* noise,
@@ -428,7 +548,7 @@ extern "C" int bfmmm_chol_solve(const float* A, const float* b,
                                 void* stream_) {
   cudaStream_t s = (cudaStream_t)stream_;
   switch (tile) {
-    case 0: return (int)launch_shared(A, b, z, mean, noise, C, D, jitter, s);
+    case 0: return (int)launch_packed(A, b, z, mean, noise, C, D, jitter, s);
     case 6: return (int)launch_tiled<6>(A, b, z, mean, noise, C, D, jitter, s);
     case 8: return (int)launch_tiled<8>(A, b, z, mean, noise, C, D, jitter, s);
     default: return (int)cudaErrorInvalidValue;

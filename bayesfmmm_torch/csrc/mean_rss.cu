@@ -38,10 +38,13 @@
 //     read is a broadcast), the P-term dot product runs in the order
 //     p = 0..P-1, and the squared residual goes to one accumulator per
 //     chain, in registers.  One integer division per point, none per chain.
-//   * P = 8 with 16-byte aligned B and w keeps B in registers; any other P
-//     or alignment takes the general instantiation, which takes one point
-//     a thread at a time and re-reads its B[n, l, :] per chain (from L1)
-//     with 4-byte loads.
+//   * P = 8 or 16 with 16-byte aligned B and w keeps B in registers (four
+//     points a thread at P = 8, two at P = 16: the hd family's tensor
+//     basis); any other P or alignment takes the general instantiation,
+//     which takes one point a thread at a time and re-reads its B[n, l, :]
+//     per chain (from L1) with 4-byte loads.  At P = 16 the general
+//     instantiation took 41.5 us at 64 chains where the plain version takes
+//     14.1, which is why P = 16 has one of its own.
 //   * The block's TC sums are reduced by a shuffle tree per warp and an
 //     in-order pass over the warps, and go to partial[point tile, chain].
 //     A second kernel adds the point tiles in index order.  No atomics of
@@ -58,7 +61,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPts = 4;   // points a thread holds in registers at once (P = 8)
+constexpr int kPtFloats = 32;  // floats of B a thread holds in registers
 constexpr int kMuTile = 8;  // chains a block when mu is written as well
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -66,8 +69,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// TC chains a block; PV = 8: P == 8, 16-byte loads, B in registers; PV = 0:
-// any P, 4-byte loads; MU: also write mu.
+// TC chains a block; PV = 8 or 16: P == PV, 16-byte loads, B in registers;
+// PV = 0: any P, 4-byte loads; MU: also write mu.
 template <int TC, int PV, bool MU>
 __global__ void __launch_bounds__(kThreads)
 mean_rss_tile_kernel(const float* __restrict__ B, const float* __restrict__ y,
@@ -85,7 +88,8 @@ mean_rss_tile_kernel(const float* __restrict__ B, const float* __restrict__ y,
   const float* yt = y + (size_t)n0 * L;
 
   constexpr int E = PV ? 4 : 1;                  // floats per copy
-  constexpr int PT = PV ? kPts : 1;              // points a thread at once
+  constexpr int PT = PV ? kPtFloats / PV : 1;    // points a thread at once
+  constexpr int NQ = PV ? PV / 4 : 1;            // 16-byte loads a point
   const int per = run / E;
   for (int i = tid; i < tc * per; i += kThreads) {
     const int c = i / per, j = (i - c * per) * E;
@@ -102,7 +106,7 @@ mean_rss_tile_kernel(const float* __restrict__ B, const float* __restrict__ y,
   for (int c = 0; c < TC; ++c) acc[c] = 0.0f;
 
   for (int base = 0; base < npts; base += PT * kThreads) {
-    float4 b0[PT], b1[PT];
+    float4 bq[PT][NQ];
     float yv[PT];
     int idx[PT], off[PT];
 #pragma unroll
@@ -113,9 +117,10 @@ mean_rss_tile_kernel(const float* __restrict__ B, const float* __restrict__ y,
       off[j] = ok ? (idx[j] / L) * P : 0;
       yv[j] = ok ? yt[idx[j]] : 0.0f;
       if (PV) {
-        const float4* Bp = reinterpret_cast<const float4*>(Bt) + 2 * idx[j];
-        b0[j] = ok ? Bp[0] : make_float4(0.f, 0.f, 0.f, 0.f);
-        b1[j] = ok ? Bp[1] : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4* Bp = reinterpret_cast<const float4*>(Bt) + NQ * idx[j];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q)
+          bq[j][q] = ok ? Bp[q] : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
     if (base == 0) {            // uniform: every thread runs this iteration
@@ -130,16 +135,14 @@ mean_rss_tile_kernel(const float* __restrict__ B, const float* __restrict__ y,
         const float* wp = ws + c * run + off[j];
         float m = 0.0f;
         if (PV) {
-          const float4 w0 = *reinterpret_cast<const float4*>(wp);
-          const float4 w1 = *reinterpret_cast<const float4*>(wp + 4);
-          m = fmaf(b0[j].x, w0.x, m);
-          m = fmaf(b0[j].y, w0.y, m);
-          m = fmaf(b0[j].z, w0.z, m);
-          m = fmaf(b0[j].w, w0.w, m);
-          m = fmaf(b1[j].x, w1.x, m);
-          m = fmaf(b1[j].y, w1.y, m);
-          m = fmaf(b1[j].z, w1.z, m);
-          m = fmaf(b1[j].w, w1.w, m);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const float4 wq = *reinterpret_cast<const float4*>(wp + 4 * q);
+            m = fmaf(bq[j][q].x, wq.x, m);
+            m = fmaf(bq[j][q].y, wq.y, m);
+            m = fmaf(bq[j][q].z, wq.z, m);
+            m = fmaf(bq[j][q].w, wq.w, m);
+          }
         } else if (ok) {
           const float* Bp = Bt + (size_t)idx[j] * P;
           for (int p = 0; p < P; ++p) m = fmaf(__ldg(Bp + p), wp[p], m);
@@ -178,17 +181,20 @@ mean_rss_sum_kernel(const float* __restrict__ partial, float* __restrict__ rss,
   rss[c] = s;
 }
 
-// One chain tile size, rss only: 16-byte loads when `vec`, else any P.
-template <int TC>
-void launch_rss(bool vec, const float* B, const float* y, const float* w,
-                float* partial, int C, int N, int L, int P, int TN, dim3 grid,
-                size_t smem, cudaStream_t stream) {
-  if (vec)
-    mean_rss_tile_kernel<TC, 8, false><<<grid, kThreads, smem, stream>>>(
-        B, y, w, partial, nullptr, C, N, L, P, TN);
+// One chain tile size: 16-byte loads at P = `pv` (8 or 16), else (0) any P.
+template <int TC, bool MU>
+void launch_tile(int pv, const float* B, const float* y, const float* w,
+                 float* partial, float* mu, int C, int N, int L, int P, int TN,
+                 dim3 grid, size_t smem, cudaStream_t stream) {
+  if (pv == 8)
+    mean_rss_tile_kernel<TC, 8, MU><<<grid, kThreads, smem, stream>>>(
+        B, y, w, partial, mu, C, N, L, P, TN);
+  else if (pv == 16)
+    mean_rss_tile_kernel<TC, 16, MU><<<grid, kThreads, smem, stream>>>(
+        B, y, w, partial, mu, C, N, L, P, TN);
   else
-    mean_rss_tile_kernel<TC, 0, false><<<grid, kThreads, smem, stream>>>(
-        B, y, w, partial, nullptr, C, N, L, P, TN);
+    mean_rss_tile_kernel<TC, 0, MU><<<grid, kThreads, smem, stream>>>(
+        B, y, w, partial, mu, C, N, L, P, TN);
 }
 
 }  // namespace
@@ -208,30 +214,26 @@ extern "C" int bfmmm_mean_rss(const float* B, const float* y, const float* w,
   const int T = (N + TN - 1) / TN;
   const dim3 grid((C + TC - 1) / TC, T);
   const size_t smem = (size_t)TC * TN * P * sizeof(float);
-  const bool vec = P == 8
+  const int pv = (P == 8 || P == 16)
       && reinterpret_cast<std::uintptr_t>(B) % 16 == 0
-      && reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+      && reinterpret_cast<std::uintptr_t>(w) % 16 == 0 ? P : 0;
   if (mu) {
     if (TC != kMuTile) return (int)cudaErrorInvalidValue;
-    if (vec)
-      mean_rss_tile_kernel<kMuTile, 8, true><<<grid, kThreads, smem, stream>>>(
-          B, y, w, partial, mu, C, N, L, P, TN);
-    else
-      mean_rss_tile_kernel<kMuTile, 0, true><<<grid, kThreads, smem, stream>>>(
-          B, y, w, partial, mu, C, N, L, P, TN);
+    launch_tile<kMuTile, true>(pv, B, y, w, partial, mu, C, N, L, P, TN, grid,
+                               smem, stream);
   } else {
     switch (TC) {
       case 8:
-        launch_rss<8>(vec, B, y, w, partial, C, N, L, P, TN, grid, smem,
-                      stream);
+        launch_tile<8, false>(pv, B, y, w, partial, nullptr, C, N, L, P, TN,
+                              grid, smem, stream);
         break;
       case 24:
-        launch_rss<24>(vec, B, y, w, partial, C, N, L, P, TN, grid, smem,
-                       stream);
+        launch_tile<24, false>(pv, B, y, w, partial, nullptr, C, N, L, P, TN,
+                               grid, smem, stream);
         break;
       case 40:
-        launch_rss<40>(vec, B, y, w, partial, C, N, L, P, TN, grid, smem,
-                       stream);
+        launch_tile<40, false>(pv, B, y, w, partial, nullptr, C, N, L, P, TN,
+                               grid, smem, stream);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -22,8 +22,11 @@ from bayesfmmm_torch.ops.distributions import rdirichlet
 
 @dataclasses.dataclass(frozen=True)
 class ModelData:
-    """Observation data and design constants, on one device (functional
-    family: B-spline basis, RW(1) penalty).
+    """Observation data and design constants, on one device.  The family
+    is carried by the design: functional (B-spline basis, RW(1) penalty),
+    hd (tensor basis, graph penalty), multivariate (identity basis and
+    penalty; the stored tau is then a precision whose reciprocal is
+    exported, UpdateTau.h:47-63).  Covariate adjustment is D > 0.
 
     Shapes: N observations, L padded points/obs, P basis dim, D covariates.
     """
@@ -37,6 +40,8 @@ class ModelData:
     yy: torch.Tensor      # (N,) ||y_i||^2
     n_obs: float          # number of observed points, kept on the host so
                           # the sigma2 shape needs no device read
+    identity_basis: bool = False   # B_n = I: the updaters skip B and G
+    family: str = "functional"
 
     @property
     def N(self):
@@ -147,7 +152,49 @@ def make_functional_data(y_list, t_list, *, basis_degree, internal_knots,
     return _finalize_data(y, mask, B, X, pen, dtype, device)
 
 
-def _finalize_data(y, mask, B, X, pen, dtype, device) -> ModelData:
+def make_hd_functional_data(y_list, t_list, *, basis_degrees,
+                            internal_knots_list, boundary_knots, X=None,
+                            dtype=torch.float32, device=None) -> ModelData:
+    """Functional data on a multi-dimensional domain (surfaces, volumes):
+    observation i is seen at the points t_list[i] (n_i, dim).  Tensor basis
+    via TensorBSpline (BSplines.h:18-62), graph penalty via GetP
+    (BSplines.h:70-120)."""
+    device = default_device(device)
+    N = len(y_list)
+    lengths = [np.asarray(t).shape[0] for t in t_list]
+    L = max(lengths)
+    Bs = [basis_mod.tensor_bspline_basis(np.asarray(t), basis_degrees,
+                                         internal_knots_list, boundary_knots)
+          for t in t_list]
+    P = Bs[0].shape[1]
+    y = np.zeros((N, L))
+    mask = np.zeros((N, L))
+    B = np.zeros((N, L, P))
+    for i, (yi, Bi) in enumerate(zip(y_list, Bs)):
+        ni = lengths[i]
+        y[i, :ni] = np.asarray(yi).ravel()
+        mask[i, :ni] = 1.0
+        B[i, :ni] = Bi
+    pen = basis_mod.tensor_penalty(basis_degrees, internal_knots_list)
+    return _finalize_data(y, mask, B, X, pen, dtype, device, family="hd")
+
+
+def make_multivariate_data(y, X=None, dtype=torch.float32,
+                           device=None) -> ModelData:
+    """Multivariate observations y (N, P): identity basis, identity
+    penalty (BMVMMM, BFMMM.h:2183).  The family's inverse-Gamma tau
+    (UpdateTau.h:47-63) is the functional Gamma update on the precision
+    scale with pen = I."""
+    device = default_device(device)
+    y = np.asarray(y, dtype=np.float64)
+    N, P = y.shape
+    B = np.broadcast_to(np.eye(P), (N, P, P)).copy()
+    return _finalize_data(y, np.ones((N, P)), B, X, np.eye(P), dtype, device,
+                          identity_basis=True, family="multivariate")
+
+
+def _finalize_data(y, mask, B, X, pen, dtype, device, identity_basis=False,
+                   family="functional") -> ModelData:
     N = y.shape[0]
     X = np.zeros((N, 0)) if X is None else np.asarray(X, dtype=np.float64)
     if X.ndim == 1:
@@ -165,7 +212,8 @@ def _finalize_data(y, mask, B, X, pen, dtype, device) -> ModelData:
 
     return ModelData(y=dev(y), mask=dev(mask), B=dev(Bm), X=dev(X), G=dev(G),
                      pen=dev(pen), u=dev(u), yy=dev(yy),
-                     n_obs=float(mask.sum()))
+                     n_obs=float(mask.sum()), identity_basis=identity_basis,
+                     family=family)
 
 
 def init_state(generator, cfg: ModelConfig, data: ModelData, chains: int,

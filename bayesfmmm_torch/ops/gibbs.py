@@ -25,8 +25,9 @@ uniform) is a (C,) draw here, and its "which feature / which column" picks
 are gathers and one-hot masks per chain; an MH accept is a per-chain
 ``torch.where`` over every state field it moved.
 
-The covariate-adjusted kernels and the identity-basis (multivariate)
-shortcuts are later slices of the port and raise NotImplementedError.
+Covariate terms (eta in the mean, xi in the eigen directions) vanish at
+D = 0; with the identity basis of the multivariate family G_n = I, so the
+Gram sums need neither kernel K3 nor K2 and skip them.
 """
 
 from __future__ import annotations
@@ -55,15 +56,18 @@ from bayesfmmm_torch.ops.linalg import (
 )
 from bayesfmmm_torch.ops.mean import (
     SweepCache,
+    apply_basis,
     build_cache,
     eigen_directions,
     feature_offsets,
+    gram_dirs,
+    gram_vec,
     rss_from_coeffs,
 )
 
-# Joint draw of a whole blocked family (all K*M blocks of Phi) up to this
-# dimension, as in the JAX package; the sequential blocked scan above it
-# is not ported yet.
+# Joint draw of a whole blocked family (all K*M(*D) blocks of Phi or xi) up
+# to this dimension, as in the JAX package; above it the dense joint
+# precision outgrows its use and the blocks are drawn one after another.
 _JOINT_MAX_DIM = 4096
 
 
@@ -87,14 +91,18 @@ def _mh_accept(log_acc, u):
 
 def _gram_bvec(data, wt, w_excl):
     """sum_n wt[c, n] (u_n - G_n w_excl[c, n]) -> (C, P)."""
-    Gw = torch.einsum("npq,cnq->cnp", data.G, w_excl)
-    return torch.einsum("cn,cnp->cp", wt, data.u - Gw)
+    return torch.einsum("cn,cnp->cp", wt, data.u - gram_vec(data, w_excl))
 
 
 def _weighted_gram(data, W):
     """sum_n W[..., n] G_n -> (..., P, P); the leading axes of W are
-    flattened into the rows of kernel K3 (ops/kernels.py::weighted_gram)."""
+    flattened into the rows of kernel K3 (ops/kernels.py::weighted_gram).
+    With the identity basis every G_n is I and the sum is sum_n W_n times
+    I: no kernel."""
     N, P = data.G.shape[0], data.G.shape[-1]
+    if data.identity_basis:
+        return W.sum(-1)[..., None, None] * torch.eye(
+            P, dtype=W.dtype, device=W.device)
     out = kernels.weighted_gram(W.reshape(-1, N).contiguous(), data.G)
     return out.reshape(W.shape[:-1] + (P, P))
 
@@ -115,8 +123,12 @@ def _joint_blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
     C, Bn, N = W.shape
     P = blocks_cur.shape[2]
     w_excl = w - torch.einsum("cbn,cbp->cnp", W, blocks_cur)
-    resid = data.u - torch.einsum("npq,cnq->cnp", data.G, w_excl)
-    A = torch.einsum("can,cbn,npq->capbq", W, W, data.G)
+    resid = data.u - gram_vec(data, w_excl)
+    if data.identity_basis:                     # A = (W W') kron I
+        A = torch.einsum("can,cbn->cab", W, W)[:, :, None, :, None] \
+            * torch.eye(P, dtype=W.dtype, device=W.device)[:, None, :]
+    else:
+        A = torch.einsum("can,cbn,npq->capbq", W, W, data.G)
     bvec = s[:, None] * torch.einsum("cbn,cnp->cbp", W,
                                      resid).reshape(C, Bn * P)
     A = s[:, None, None] * A.reshape(C, Bn * P, Bn * P) \
@@ -140,7 +152,7 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
     Z_new = rdirichlet(generator, hp.a_Z_PM * state.Z)
     Z2 = torch.stack([state.Z, Z_new])                        # (2, C, N, K)
     w2 = torch.einsum("ecnk,cnkp->ecnp", Z2, T)
-    r = data.y - torch.einsum("nlp,ecnp->ecnl", data.B, w2)
+    r = data.y - apply_basis(data, w2)
     ll = -beta * (r * r).sum(-1) / (2.0 * state.sigma2[:, None])
     lpr = ((state.alpha3[:, None] * state.pi - 1.0)[:, None, :]
            * torch.log(Z2)).sum(-1)
@@ -237,6 +249,67 @@ def update_nu(generator, state, data, hp, cache: SweepCache, beta=1.0):
     return state.replace(nu=torch.stack(rows, 1)), cache.replace(w=w)
 
 
+def _sequential_blocked_draw(generator, data, s, W, prior_diag, blocks_cur,
+                             w):
+    """The blocks of one family drawn one after another, each from its
+    conditional given the rest (the reference's order, UpdatePhi.h:23-89,
+    UpdateXi.h:26-93): the path above ``_JOINT_MAX_DIM``.  Same arguments
+    and returns as ``_joint_blocked_draw``.  Every block's precision
+    s sum_n W_bn^2 G_n + diag(prior) depends on no block, so all are summed
+    by one K3 launch and factored in one batched Cholesky; the loop keeps
+    the linear term and two P-dimensional solves a block."""
+    prec = s[:, None, None, None] * _weighted_gram(data, W * W) \
+        + torch.diag_embed(prior_diag)
+    Lc = chol_precision(prec)                                 # (C, B, P, P)
+    new = []
+    for b in range(W.shape[1]):
+        wt = W[:, b]                                          # (C, N)
+        w_excl = w - wt[..., None] * blocks_cur[:, None, b]
+        bvec = s[:, None] * _gram_bvec(data, wt, w_excl)
+        blk, _ = mvn_from_chol(generator, Lc[:, b], bvec)
+        w = w_excl + wt[..., None] * blk[:, None]
+        new.append(blk)
+    return torch.stack(new, 1), w
+
+
+def _blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
+    """Joint draw of all blocks up to ``_JOINT_MAX_DIM``, else the
+    sequential scan."""
+    joint = W.shape[1] * blocks_cur.shape[2] <= _JOINT_MAX_DIM
+    draw = _joint_blocked_draw if joint else _sequential_blocked_draw
+    return draw(generator, data, s, W, prior_diag, blocks_cur, w)
+
+
+# ---------------------------------------------------------------------------
+# eta — covariate-adjusted mean coordinates (blocked Gibbs over (d, j))
+# Reference: updateEta (UpdateEta.h:28-94); loop order d outer, j inner.
+# All D*K precisions come from one K3 launch (R = C*D*K rows) and one
+# batched Cholesky; the draws use the generator in loop order.
+# ---------------------------------------------------------------------------
+
+def update_eta(generator, state, data, hp, cache: SweepCache, beta=1.0):
+    K, D = state.K, data.D
+    if D == 0:
+        return state, cache
+    s = beta / state.sigma2
+    Z2X2 = torch.einsum("nd,cnj->cdjn", data.X * data.X, state.Z * state.Z)
+    prec = s[:, None, None, None, None] * _weighted_gram(data, Z2X2) \
+        + state.tau_eta.transpose(1, 2)[..., None, None] * data.pen
+    Lc = chol_precision(prec)                                 # (C, D, K, P, P)
+    w = cache.w
+    cols = [[None] * D for _ in range(K)]
+    for d in range(D):
+        for j in range(K):
+            wt = state.Z[:, :, j] * data.X[:, d]              # (C, N)
+            w_excl = w - wt[..., None] * state.eta[:, None, j, :, d]
+            bvec = s[:, None] * _gram_bvec(data, wt, w_excl)
+            new, _ = mvn_from_chol(generator, Lc[:, d, j], bvec)
+            w = w_excl + wt[..., None] * new[:, None]
+            cols[j][d] = new
+    eta = torch.stack([torch.stack(c, -1) for c in cols], 1)  # (C, K, P, D)
+    return state.replace(eta=eta), cache.replace(w=w)
+
+
 # ---------------------------------------------------------------------------
 # Phi — pseudo-eigenfunction coordinates: one joint draw of all (j, m)
 # blocks.  Reference: updatePhi (UpdatePhi.h:23-89); prior precision
@@ -245,22 +318,43 @@ def update_nu(generator, state, data, hp, cache: SweepCache, beta=1.0):
 
 def update_phi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     C, K, P, M = state.Phi.shape
-    if K * M * P > _JOINT_MAX_DIM:
-        raise NotImplementedError(
-            f"update_phi: K*M*P = {K * M * P} > {_JOINT_MAX_DIM} needs the "
-            f"sequential blocked Phi scan (ROADMAP: covariate-adjusted "
-            f"models and the other families)")
     tilde_tau = torch.cumprod(state.delta, dim=2)             # (C, K, M)
     s = beta / state.sigma2
     prior_diag = tilde_tau[..., None] * state.gamma.transpose(2, 3)
     W = torch.einsum("cnj,cnm->cjmn", state.Z, state.chi).reshape(
         C, K * M, -1)
     blocks = state.Phi.transpose(2, 3).reshape(C, K * M, P)
-    new, w = _joint_blocked_draw(generator, data, s, W,
-                                 prior_diag.reshape(C, K * M, P), blocks,
-                                 cache.w)
+    new, w = _blocked_draw(generator, data, s, W,
+                           prior_diag.reshape(C, K * M, P), blocks, cache.w)
     Phi = new.reshape(C, K, M, P).transpose(2, 3)
     return state.replace(Phi=Phi), cache.replace(w=w)
+
+
+# ---------------------------------------------------------------------------
+# xi — covariate-adjusted eigen coordinates: one joint draw of all
+# (j, m, d) blocks.  Reference: updateXiCovariateAdj (UpdateXi.h:26-93);
+# prior precision tilde_tau_xi(j,m,d) * gamma_xi(j,:,d,m).  Blocks are
+# ordered (j, m, d), so xi (C, K, P, D, M) is read and written through the
+# transpose (0, 1, 4, 3, 2).
+# ---------------------------------------------------------------------------
+
+def update_xi(generator, state, data, hp, cache: SweepCache, beta=1.0):
+    D = data.D
+    if D == 0:
+        return state, cache
+    C, K, P, _, M = state.xi.shape
+    tilde_tau_xi = torch.cumprod(state.delta_xi, dim=2)       # (C, K, M, D)
+    s = beta / state.sigma2
+    prior_diag = tilde_tau_xi[..., None] \
+        * state.gamma_xi.permute(0, 1, 4, 3, 2)               # (C, K, M, D, P)
+    B = K * M * D
+    W = torch.einsum("cnj,cnm,nd->cjmdn", state.Z, state.chi,
+                     data.X).reshape(C, B, -1)
+    blocks = state.xi.permute(0, 1, 4, 3, 2).reshape(C, B, P)
+    new, w = _blocked_draw(generator, data, s, W,
+                           prior_diag.reshape(C, B, P), blocks, cache.w)
+    xi = new.reshape(C, K, M, D, P).permute(0, 1, 4, 3, 2)
+    return state.replace(xi=xi), cache.replace(w=w)
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +365,7 @@ def update_phi(generator, state, data, hp, cache: SweepCache, beta=1.0):
 def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     s = (beta / state.sigma2)[:, None]                        # (C, 1)
     U = eigen_directions(state, data.X)                       # (C, N, P, M)
-    GU = torch.einsum("npq,cnqm->cnpm", data.G, U)
+    GU = gram_dirs(data, U)
     Wden = 1.0 + s[..., None] * (U * GU).sum(2)               # (C, N, M)
     uU = torch.einsum("np,cnpm->cnm", data.u, U)
     w = cache.w
@@ -314,6 +408,18 @@ def update_tau(generator, state, data, hp):
     return state.replace(tau=g / rate)
 
 
+def update_tau_eta(generator, state, data, hp):
+    """Reference: updateTauEta (UpdateTau.h:75-95) / MV (:106-124)."""
+    if data.D == 0:
+        return state
+    P = state.eta.shape[2]
+    quad = torch.einsum("ckpd,pq,ckqd->ckd", state.eta, data.pen, state.eta)
+    rate = hp.beta_eta + 0.5 * quad
+    g = standard_gamma(generator,
+                       torch.full_like(quad, hp.alpha_eta + P / 2))
+    return state.replace(tau_eta=g / rate)
+
+
 # ---------------------------------------------------------------------------
 # delta — MGP column multipliers (UpdateDelta.h:17-64):
 #   shape_i = a(k, i==0 ? 0 : 1) + P*(M-i)/2
@@ -323,22 +429,43 @@ def update_tau(generator, state, data, hp):
 # prefix (new) x suffix (old) split of the product.
 # ---------------------------------------------------------------------------
 
-def update_delta(generator, state, hp):
-    C, K, P, M = state.Phi.shape
-    S = (state.gamma * state.Phi ** 2).sum(2)                 # (C, K, M)
-    m_idx = torch.arange(M, device=S.device)
-    shapes = torch.where(m_idx == 0, state.A[..., :1], state.A[..., 1:2]) \
+def _mgp_delta_draw(generator, S, delta, a1, a2, P):
+    """The delta tower for S, delta (C, K, M, ...) with the column axis at
+    2 and a1, a2 (C, K, ...): returns the new delta."""
+    M = S.shape[2]
+    tail = (1,) * (S.dim() - 3)
+    m_idx = torch.arange(M, device=S.device).view((M,) + tail)
+    shapes = torch.where(m_idx == 0, a1[:, :, None], a2[:, :, None]) \
         + P * (M - m_idx) / 2.0
     G = standard_gamma(generator, shapes)
-    O = torch.cumprod(state.delta, dim=2)
+    O = torch.cumprod(delta, dim=2)
     T = torch.flip(torch.cumsum(torch.flip(S * O, [2]), 2), [2])
-    pref = torch.ones_like(S[..., 0])
+    pref = torch.ones_like(S[:, :, 0])
     cols = []
     for i in range(M):
-        d_i = G[..., i] / (1.0 + 0.5 * pref * T[..., i] / O[..., i])
+        d_i = G[:, :, i] / (1.0 + 0.5 * pref * T[:, :, i] / O[:, :, i])
         cols.append(d_i)
         pref = pref * d_i
-    return state.replace(delta=torch.stack(cols, -1))
+    return torch.stack(cols, 2)
+
+
+def update_delta(generator, state, hp):
+    P = state.Phi.shape[2]
+    S = (state.gamma * state.Phi ** 2).sum(2)                 # (C, K, M)
+    return state.replace(delta=_mgp_delta_draw(
+        generator, S, state.delta, state.A[..., 0], state.A[..., 1], P))
+
+
+def update_delta_xi(generator, state, hp):
+    """Reference: updateDeltaXi (UpdateDelta.h:76-125): one MGP tower per
+    covariate, the same shapes and rates as ``update_delta``."""
+    if state.delta_xi.shape[3] == 0:
+        return state
+    P = state.xi.shape[2]
+    S = (state.gamma_xi * state.xi ** 2).sum(2).transpose(2, 3)  # (C,K,M,D)
+    return state.replace(delta_xi=_mgp_delta_draw(
+        generator, S, state.delta_xi, state.A_xi[:, :, 0],
+        state.A_xi[:, :, 1], P))
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +479,17 @@ def update_gamma(generator, state, hp):
     g = standard_gamma(generator, torch.full_like(rate,
                                                   (hp.nu_1 + 1.0) / 2.0))
     return state.replace(gamma=g / rate)
+
+
+def update_gamma_xi(generator, state, hp):
+    """Reference: updateGammaXi (UpdateGamma.h:48-73)."""
+    if state.gamma_xi.shape[3] == 0:
+        return state
+    tilde = torch.cumprod(state.delta_xi, dim=2).transpose(2, 3)  # (C,K,D,M)
+    rate = (hp.nu_1 + tilde[:, :, None] * state.xi ** 2) / 2.0
+    g = standard_gamma(generator, torch.full_like(rate,
+                                                  (hp.nu_1 + 1.0) / 2.0))
+    return state.replace(gamma_xi=g / rate)
 
 
 # ---------------------------------------------------------------------------
@@ -386,15 +524,50 @@ def update_a(generator, state, hp):
     return state.replace(A=torch.stack([a1, a2], -1))
 
 
+def update_a_xi(generator, state, hp):
+    """Reference: updateAXi (UpdateA.h:137-205), over (K, D) at once."""
+    if state.A_xi.shape[3] == 0:
+        return state
+    M = state.delta_xi.shape[2]
+    a1 = _mh_truncnorm(generator, state.A_xi[:, :, 0],
+                       hp.var_epsilon1 / hp.beta1l,
+                       lambda a: _lpdf_a1(a, state.delta_xi[:, :, 0], hp))
+    tail = torch.log(state.delta_xi[:, :, 1:]).sum(2)         # (C, K, D)
+    a2 = _mh_truncnorm(generator, state.A_xi[:, :, 1],
+                       hp.var_epsilon2 / hp.beta2l,
+                       lambda a: _lpdf_a2(a, tail, M - 1.0, hp))
+    return state.replace(A_xi=torch.stack([a1, a2], 2))
+
+
 # ---------------------------------------------------------------------------
 # Production census: shared pieces
 # ---------------------------------------------------------------------------
 
-def _no_covariates(data, what):
-    if data.D > 0:
-        raise NotImplementedError(
-            f"{what} with covariates (D > 0): ROADMAP item 11 "
-            f"'covariate-adjusted models and the other families'")
+def _mean_only_offsets(state, X):
+    """T[c, n, k, p] = nu_k + eta_k x_n: the features' mean coefficients
+    without the chi terms (the chi-marginal kernels' mean structure)."""
+    T = state.nu[:, None].expand(-1, X.shape[0], -1, -1)
+    if X.shape[1] > 0:
+        T = T + torch.einsum("ckpd,nd->cnkp", state.eta, X)
+    return T
+
+
+def _feature_eigendirs(state, X):
+    """V[c, n, k, p, m] = Phi_k + xi_k x_n: each feature's eigen directions
+    as observation n sees them (Z-independent)."""
+    V = state.Phi[:, None].expand(-1, X.shape[0], -1, -1, -1)
+    if X.shape[1] > 0:
+        V = V + torch.einsum("ckpdm,nd->cnkpm", state.xi, X)
+    return V
+
+
+def _mean_only_coeffs(state, X):
+    """a[c, n, p] = sum_k Z_nk (nu_k + eta_k x_n): the mean coefficients
+    without the chi terms."""
+    a = torch.einsum("cnk,ckp->cnp", state.Z, state.nu)
+    if X.shape[1] > 0:
+        a = a + torch.einsum("cnk,ckpd,nd->cnp", state.Z, state.eta, X)
+    return a
 
 
 def _where_rows(ok, new, old):
@@ -459,13 +632,18 @@ def _row_stats(state, data, Z2, s):
 
     rr is a per-row RSS in residual space (f32-stable), so it stays plain
     PyTorch: kernel K2 sums per chain only."""
-    a = torch.einsum("ecnk,ckp->ecnp", Z2, state.nu)
-    U = torch.einsum("ecnk,ckpm->ecnpm", Z2, state.Phi)
-    GU = torch.einsum("npq,ecnqm->ecnpm", data.G, U)
-    L = _chi_factor(U, GU, s)
-    ur = data.u - torch.einsum("npq,ecnq->ecnp", data.G, a)
+    if data.D > 0:
+        a = torch.einsum("ecnk,cnkp->ecnp", Z2,
+                         _mean_only_offsets(state, data.X))
+        U = torch.einsum("ecnk,cnkpm->ecnpm", Z2,
+                         _feature_eigendirs(state, data.X))
+    else:
+        a = torch.einsum("ecnk,ckp->ecnp", Z2, state.nu)
+        U = torch.einsum("ecnk,ckpm->ecnpm", Z2, state.Phi)
+    L = _chi_factor(U, gram_dirs(data, U), s)
+    ur = data.u - gram_vec(data, a)
     Fr = torch.einsum("ecnpm,ecnp->ecnm", U, ur)
-    r = data.y - torch.einsum("nlp,ecnp->ecnl", data.B, a)
+    r = data.y - apply_basis(data, a)
     return a, U, L, Fr, (r * r).sum(-1)
 
 
@@ -495,7 +673,6 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
         raise NotImplementedError(
             "update_z_chi(anchor_prop=True): ROADMAP item 13 'gradient "
             "samplers and default-off kernels'")
-    _no_covariates(data, "update_z_chi")
     s = beta / state.sigma2
     Z = state.Z
     C, N, K = Z.shape
@@ -557,8 +734,8 @@ def _redraw_chi(generator, data, s, U, a):
     """Exact joint chi | rest draw for eigen directions U (C, N, P, M) and
     chi-free coefficients a (C, N, P): precision I + s U'GU and linear term
     s U'(u - G a) per row.  Returns (chi, w = a + U chi)."""
-    L = _chi_factor(U, torch.einsum("npq,cnqm->cnpm", data.G, U), s)
-    ur = data.u - torch.einsum("npq,cnq->cnp", data.G, a)
+    L = _chi_factor(U, gram_dirs(data, U), s)
+    ur = data.u - gram_vec(data, a)
     chi = _chi_draw(generator, L, s[:, None, None]
                     * torch.einsum("cnpm,cnp->cnm", U, ur))
     return chi, a + torch.einsum("cnpm,cnm->cnp", U, chi)
@@ -585,19 +762,25 @@ def update_chi_joint(generator, state, data, hp, cache: SweepCache,
 
 def _gauge_logprior(state, data, hp):
     """Prior terms that gauge maps can change, per chain (C,)."""
-    _no_covariates(data, "gauge moves")
     lp = _row_lprior(state, state.Z).sum(-1)
     quad_nu = torch.einsum("ckp,pq,ckq->ck", state.nu, data.pen, state.nu)
     lp = lp - 0.5 * (state.tau * quad_nu).sum(-1)
     tilde = torch.cumprod(state.delta, dim=2)                 # (C, K, M)
     lp = lp - 0.5 * (tilde[:, :, None, :] * state.gamma
                      * state.Phi ** 2).sum((1, 2, 3))
-    return lp - 0.5 * (state.chi ** 2).sum((1, 2))
+    lp = lp - 0.5 * (state.chi ** 2).sum((1, 2))
+    if data.D > 0:
+        quad_eta = torch.einsum("ckpd,pq,ckqd->ckd", state.eta, data.pen,
+                                state.eta)
+        lp = lp - 0.5 * (state.tau_eta * quad_eta).sum((1, 2))
+        pri = torch.cumprod(state.delta_xi, dim=2).transpose(2, 3)
+        lp = lp - 0.5 * (pri[:, :, None] * state.gamma_xi
+                         * state.xi ** 2).sum((1, 2, 3, 4))
+    return lp
 
 
 def _mix_features(state, data, ea, eb, eps):
     """The feature-mixing map per chain: ea, eb (C, K) one-hot, eps (C,)."""
-    _no_covariates(data, "gauge moves")
     c = 1.0 - torch.exp(-eps)
     cp = 1.0 - torch.exp(eps)
 
@@ -610,22 +793,26 @@ def _mix_features(state, data, ea, eb, eps):
 
     za = torch.einsum("cnk,ck->cn", state.Z, ea)
     Z = state.Z + cp[:, None, None] * za[..., None] * (eb - ea)[:, None, :]
-    return state.replace(Z=Z, nu=rowmap(state.nu), Phi=rowmap(state.Phi))
+    new = dict(Z=Z, nu=rowmap(state.nu), Phi=rowmap(state.Phi))
+    if data.D > 0:
+        new.update(eta=rowmap(state.eta), xi=rowmap(state.xi))
+    return state.replace(**new)
 
 
 def _rescale_eigen(state, data, em, log_s):
     """The eigen-rescale map per chain: em (C, M) component mask, log_s
     (C,)."""
-    _no_covariates(data, "gauge moves")
     scale_m = 1.0 + (torch.exp(log_s) - 1.0)[:, None] * em    # (C, M)
-    return state.replace(chi=state.chi / scale_m[:, None, :],
-                         Phi=state.Phi * scale_m[:, None, None, :])
+    new = dict(chi=state.chi / scale_m[:, None, :],
+               Phi=state.Phi * scale_m[:, None, None, :])
+    if data.D > 0:
+        new["xi"] = state.xi * scale_m[:, None, None, None, :]
+    return state.replace(**new)
 
 
 def _rotate_eigen(state, data, m1, m2, theta):
     """The Givens rotation of eigen columns (m1, m2) by theta, per chain:
     m1, m2 (C,) indices, theta (C,)."""
-    _no_covariates(data, "gauge moves")
     M = state.M
     dt = state.chi.dtype
     c = (torch.cos(theta) - 1.0)[:, None, None]
@@ -639,8 +826,11 @@ def _rotate_eigen(state, data, m1, m2, theta):
     R = (torch.eye(M, dtype=dt, device=theta.device)
          + c * (outer(e1, e1) + outer(e2, e2))
          + s * (outer(e2, e1) - outer(e1, e2)))               # (C, M, M)
-    return state.replace(chi=torch.einsum("cnm,cml->cnl", state.chi, R),
-                         Phi=torch.einsum("ckpm,cml->ckpl", state.Phi, R))
+    new = dict(chi=torch.einsum("cnm,cml->cnl", state.chi, R),
+               Phi=torch.einsum("ckpm,cml->ckpl", state.Phi, R))
+    if data.D > 0:
+        new["xi"] = torch.einsum("ckpdm,cml->ckpdl", state.xi, R)
+    return state.replace(**new)
 
 
 def update_gauge(generator, state, data, hp):
@@ -650,8 +840,9 @@ def update_gauge(generator, state, data, hp):
     C, K, M = state.Z.shape[0], state.K, state.M
     P = state.nu.shape[2]
     dt, dev = state.nu.dtype, state.nu.device
-    jac_mix = data.N - P * (1.0 + M)
-    jac_scale = K * P - data.N
+    D = data.D
+    jac_mix = data.N - P * (1.0 + M + D + D * M)
+    jac_scale = K * P * (1.0 + D) - data.N
     eyeK = torch.eye(K, dtype=dt, device=dev)
     eyeM = torch.eye(M, dtype=dt, device=dev)
 
@@ -757,19 +948,22 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
                        beta=1.0):
     """Eight chained joint (sigma2, MGP/eigen-scale) slide moves of step
     0.015 (the JAX package's defaults)."""
-    _no_covariates(data, "update_noise_scale")
     dt = state.Phi.dtype
     C = state.Phi.shape[0]
     U = eigen_directions(state, data.X)                       # (C, N, P, M)
     ec = torch.einsum("cnpm,cnm->cnp", U, state.chi)
     ac = cache.w - ec
-    r0 = data.y - torch.einsum("nlp,cnp->cnl", data.B, ac)
-    e = torch.einsum("nlp,cnp->cnl", data.B, ec)
+    r0 = data.y - apply_basis(data, ac)
+    e = apply_basis(data, ec)
     coeffs = ((r0 * r0).sum((1, 2)), (r0 * e).sum((1, 2)),
               (e * e).sum((1, 2)))
     sumA = state.A[:, :, 0].sum(-1)
     d0 = state.delta[:, :, 0].sum(-1)
-    d0xi = torch.zeros_like(d0)
+    if data.D > 0:
+        sumA = sumA + state.A_xi[:, :, 0].sum((1, 2))
+        d0xi = state.delta_xi[:, :, 0].sum((1, 2))
+    else:
+        d0xi = torch.zeros_like(d0)
     s = torch.ones_like(d0)
     sig2 = state.sigma2
     for _ in range(8):
@@ -779,12 +973,18 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
                                        data.n_obs, sumA, hp, beta)
         ok = _mh_accept(log_acc, _uniform(generator, eps, (C,)))
         gr = torch.where(ok, torch.exp(eps), 1.0)
-        s, sig2, d0 = s * torch.sqrt(gr), sig2 * gr, d0 / gr
+        s, sig2, d0, d0xi = s * torch.sqrt(gr), sig2 * gr, d0 / gr, d0xi / gr
+    inv_s2 = 1.0 / (s * s)
     delta = state.delta.clone()
-    delta[:, :, 0] = delta[:, :, 0] * (1.0 / (s * s))[:, None]
-    new = state.replace(sigma2=sig2, Phi=state.Phi * s[:, None, None, None],
-                        delta=delta)
-    return new, cache.replace(w=ac + s[:, None, None] * ec)
+    delta[:, :, 0] = delta[:, :, 0] * inv_s2[:, None]
+    new = dict(sigma2=sig2, Phi=state.Phi * s[:, None, None, None],
+               delta=delta)
+    if data.D > 0:
+        delta_xi = state.delta_xi.clone()
+        delta_xi[:, :, 0] = delta_xi[:, :, 0] * inv_s2[:, None, None]
+        new.update(xi=state.xi * s[:, None, None, None, None],
+                   delta_xi=delta_xi)
+    return state.replace(**new), cache.replace(w=ac + s[:, None, None] * ec)
 
 
 # ---------------------------------------------------------------------------
@@ -796,13 +996,15 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
 # gradient of their sum is each chain's own).
 # ---------------------------------------------------------------------------
 
-def _mala_potential(Phi, Z, data, s, ur, sum_rr0, pri):
+def _mala_potential(Phi, Z, data, s, ur, sum_rr0, pri, U_xi=None):
     """-(beta-tempered chi-marginal loglik + MGP log prior of Phi) per
     chain (C,); ur = u - G a and sum_rr0 = ||y - B a||^2 for the mean-only
-    coefficients a."""
+    coefficients a, U_xi the covariate part sum_k Z_nk xi_k x_n of the
+    eigen directions (a constant of the move; None at D = 0)."""
     U = torch.einsum("cnk,ckpm->cnpm", Z, Phi)
-    GU = torch.einsum("npq,cnqm->cnpm", data.G, U)
-    L = _chi_factor(U, GU, s)
+    if U_xi is not None:
+        U = U + U_xi
+    L = _chi_factor(U, gram_dirs(data, U), s)
     v = small_solve_lower(L, torch.einsum("cnpm,cnp->cnm", U, ur))
     ll = -0.5 * (small_chol_logdet(L).sum(-1) + s * sum_rr0
                  - s * s * (v * v).sum((1, 2)))
@@ -813,19 +1015,23 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
                     *, step=0.05, n_steps=4):
     """``n_steps`` preconditioned MALA steps on Phi, then the joint chi
     redraw.  Nothing leaves this function attached to a graph."""
-    _no_covariates(data, "update_phi_mala")
     C, K, P, M = state.Phi.shape
     dt, dev = state.Phi.dtype, state.Phi.device
     s = beta / state.sigma2
     pri = torch.cumprod(state.delta, dim=2)[:, :, None, :] * state.gamma
-    a = torch.einsum("cnk,ckp->cnp", state.Z, state.nu)
-    ur = data.u - torch.einsum("npq,cnq->cnp", data.G, a)
+    a = _mean_only_coeffs(state, data.X)
+    ur = data.u - gram_vec(data, a)
     sum_rr0 = rss_from_coeffs(data, a)                        # kernel K2
+    # xi is held fixed by the move: its part of U enters the potential as a
+    # constant that carries no graph
+    U_xi = (torch.einsum("cnk,ckpdm,nd->cnpm", state.Z, state.xi,
+                         data.X).detach() if data.D > 0 else None)
 
     def pot_grad(x):
         x = x.detach().requires_grad_()
         with torch.enable_grad():
-            pot = _mala_potential(x, state.Z, data, s, ur, sum_rr0, pri)
+            pot = _mala_potential(x, state.Z, data, s, ur, sum_rr0, pri,
+                                  U_xi)
             grad, = torch.autograd.grad(pot.sum(), x)
         return pot.detach(), grad
 
@@ -849,8 +1055,10 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
         pot = torch.where(ok, pot_new, pot)
         grad = _where_rows(ok, grad_new, grad)
 
-    chi, w = _redraw_chi(generator, data, s,
-                         torch.einsum("cnk,ckpm->cnpm", state.Z, x), a)
+    U = torch.einsum("cnk,ckpm->cnpm", state.Z, x)
+    if U_xi is not None:
+        U = U + U_xi
+    chi, w = _redraw_chi(generator, data, s, U, a)
     return state.replace(Phi=x, chi=chi), cache.replace(w=w)
 
 
@@ -859,20 +1067,31 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
 # phase 1, :1253-1298 phase 2, :1500-1554 phase 3)
 # ---------------------------------------------------------------------------
 
-def _no_covariate_kernels(covariate_mean, covariate_cov=False):
-    if covariate_mean or covariate_cov:
-        raise NotImplementedError(
-            "covariate-adjusted kernels: ROADMAP item 11 'covariate-adjusted "
-            "models and the other families'")
+def _covariate_tail(generator, state, data, hp, cache, beta, covariate_mean,
+                    covariate_cov, *, eta=True):
+    """The covariate-adjusted updaters that close a sweep, in the JAX
+    package's order (BFMMM.h:4810-4893): eta, tau_eta, then xi and its MGP
+    tower.  ``eta=False`` keeps eta pinned (phase 2)."""
+    if covariate_mean:
+        if eta:
+            state, cache = update_eta(generator, state, data, hp, cache,
+                                      beta)
+        state = update_tau_eta(generator, state, data, hp)
+    if covariate_cov:
+        state, cache = update_xi(generator, state, data, hp, cache, beta)
+        state = update_delta_xi(generator, state, hp)
+        state = update_a_xi(generator, state, hp)
+        state = update_gamma_xi(generator, state, hp)
+    return state, cache
 
 
 def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
                beta=1.0):
-    """One phase-1 sweep of every chain: Z, pi, alpha3, nu, tau, sigma.
+    """One phase-1 sweep of every chain: Z, pi, alpha3, nu, tau, sigma
+    [, eta, tau_eta].
 
     Phi is held at zero in this phase (BFMMM.h:1063), so the likelihood is
     chi-free by construction; Phi, chi and the Phi tower are not touched."""
-    _no_covariate_kernels(covariate_mean)
     use_full_f32()
     cache = build_cache(data, state)
     state, cache = update_z(generator, state, data, hp, cache, beta)
@@ -880,14 +1099,16 @@ def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
     state = update_alpha3(generator, state, hp)
     state, cache = update_nu(generator, state, data, hp, cache, beta)
     state = update_tau(generator, state, data, hp)
-    return update_sigma(generator, state, data, hp, cache, beta)
+    state = update_sigma(generator, state, data, hp, cache, beta)
+    return _covariate_tail(generator, state, data, hp, cache, beta,
+                           covariate_mean, False)[0]
 
 
 def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
                 covariate_cov=False, beta=1.0):
     """One phase-2 sweep of every chain: Phi, delta, A, gamma, tau, sigma,
-    chi, with (Z, nu, pi, alpha3) pinned."""
-    _no_covariate_kernels(covariate_mean, covariate_cov)
+    chi [, tau_eta, xi and its tower], with (Z, nu, eta, pi, alpha3)
+    pinned."""
     use_full_f32()
     cache = build_cache(data, state)
     state, cache = update_phi(generator, state, data, hp, cache, beta)
@@ -897,7 +1118,8 @@ def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
     state = update_tau(generator, state, data, hp)
     state = update_sigma(generator, state, data, hp, cache, beta)
     state, cache = update_chi(generator, state, data, hp, cache, beta)
-    return state
+    return _covariate_tail(generator, state, data, hp, cache, beta,
+                           covariate_mean, covariate_cov, eta=False)[0]
 
 
 def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
@@ -908,7 +1130,8 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
     """One phase-3 sweep of every chain.
 
     Reference order (BFMMM.h:1500-1554): Z, pi, alpha3, Phi, delta, A,
-    gamma, nu, tau, sigma, chi.  ``collapsed_z`` swaps Z for the collapsed
+    gamma, nu, tau, sigma, chi; the covariate-adjusted models append eta,
+    tau_eta, xi, delta_xi, A_xi, gamma_xi.  ``collapsed_z`` swaps Z for the collapsed
     (Z, chi) block and chi for its joint draw; ``gauge`` appends the gauge
     moves and the MGP- and noise-scale interweaves, and with
     ``phi_mala_steps`` > 0 the Phi MALA.  The bench's production sweep is
@@ -918,7 +1141,6 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
 
     ``beta`` < 1 tempers the data-likelihood kernels, as in the JAX
     package.  The flags of kernels not ported yet raise."""
-    _no_covariate_kernels(covariate_mean, covariate_cov)
     for flag, on in (("z_anchor", z_anchor), ("phi_chi_moves", phi_chi_moves),
                      ("hmc_steps", hmc_steps)):
         if on:
@@ -946,6 +1168,8 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                                         beta)
     else:
         state, cache = update_chi(generator, state, data, hp, cache, beta)
+    state, cache = _covariate_tail(generator, state, data, hp, cache, beta,
+                                   covariate_mean, covariate_cov)
     if gauge:
         state = update_gauge(generator, state, data, hp)
         # the gauge moves change Z, nu, Phi and chi without a cache

@@ -13,8 +13,11 @@ Counterpart of ``bayesfmmm_tpu/ops/pallas_kernels.py``:
     ``weighted_gram``).  Source: csrc/weighted_gram.cu.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
-for CUDA tensors launches its kernel or raises: there is no fallback.  The
-kernels are compiled by nvcc for sm_90a at first use, from the sources in
+for CUDA tensors launches its kernel or raises: nothing gives way to the
+plain version on the card, whether a kernel failed to build or to launch or
+no kernel serves the shape (K1 above ``chol_solve_max_dim()``, K2 at a P too
+wide for a block's tile of w: both raise NotImplementedError).  The kernels
+are compiled by nvcc for sm_90a at first use, from the sources in
 ``csrc/``, into ``_build/`` (keyed by a hash of sources and flags), and
 bound with ctypes; each C entry point launches on PyTorch's current stream,
 allocates nothing and returns cudaGetLastError().
@@ -48,7 +51,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1's
-# shared-memory kernel keeps the whole (D, D) matrix and two D-vectors there.
+# packed kernel keeps the lower triangle of the (D, D) matrix there.
 SMEM_PER_BLOCK = 232_448
 
 # One H100 SXM has 132 streaming multiprocessors; the plans want at least
@@ -69,12 +72,33 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def chol_solve_max_dim():
-    """Largest D whose (D*D + 2*D) f32 values fit one block's shared memory."""
+def _largest_dim(smem_floats):
     D = 1
-    while 4 * ((D + 1) ** 2 + 2 * (D + 1)) <= SMEM_PER_BLOCK:
+    while 4 * smem_floats(D + 1) <= SMEM_PER_BLOCK:
         D += 1
     return D
+
+
+def packed_row(i):
+    """Offset of row i in K1's packed triangle (int or integer tensor): row
+    i holds its i + 1 entries and is padded to a multiple of 4 floats, so
+    that every row starts on 16 bytes: four rows of 4 floats, four of 8,
+    and so on."""
+    g, r = i >> 2, i & 3
+    return 4 * (g + 1) * (2 * g + r)
+
+
+def _packed_floats(D):
+    """Shared memory of K1's packed kernel: the lower triangle of A with b as
+    one more row (rows 0..D), two column buffers of D + 1 padded to 4, and
+    z."""
+    return packed_row(D + 1) + 2 * ((D + 4) & ~3) + D
+
+
+def chol_solve_max_dim():
+    """Largest D a K1 kernel serves: the packed kernel's, whose lower
+    triangle of A fits one block's shared memory up to it."""
+    return _largest_dim(_packed_floats)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +280,7 @@ def kernel_bound(name, **shape):
 # serves D <= K1_GRID * TS; the smallest that covers D is taken.
 K1_GRID = 16
 K1_TILES = (6, 8)
-K1_SHARED_THREADS = 256
+K1_PACKED_THREADS = 512
 
 
 def chol_solve_plan(C, D):
@@ -265,18 +289,19 @@ def chol_solve_plan(C, D):
     ``"tiled"`` keeps the matrix in registers: ``threads`` (16, 16) a chain
     in a cyclic layout, thread (r, c) owning the entries (i, k) with
     i % 16 == r and k % 16 == c, a ``tile`` of (TS, TS); D below 16 * TS is
-    padded with the identity in registers.  ``"shared"`` keeps it in shared
-    memory, for every other D up to ``chol_solve_max_dim()``.  One chain a
-    block either way.  Returns {"kernel", "threads", "tile" (None for the
-    shared-memory kernel), "smem": bytes a block, "grid"}.
+    padded with the identity in registers.  ``"packed"`` keeps the lower
+    triangle in shared memory, for every other D up to
+    ``chol_solve_max_dim()``.  One chain a block in both.
+    A larger D raises NotImplementedError.  Returns {"kernel", "threads",
+    "tile" (None but for the tiled kernel), "smem": bytes a block, "grid"}.
     """
     if min(C, D) < 1:
         raise ValueError(f"chol_solve_plan: empty shape {(C, D)}")
     if D > chol_solve_max_dim():
         raise NotImplementedError(
             f"chol_solve: D={D} exceeds {chol_solve_max_dim()}, the largest "
-            f"dimension whose matrix fits one block's shared memory; the "
-            f"large-D path is ROADMAP item 'K1 large-D'")
+            f"dimension whose lower triangle fits one block's shared memory; "
+            f"the path beyond it is ROADMAP item 'K1 large-D'")
     for TS in K1_TILES:
         DP = K1_GRID * TS
         if D <= DP:
@@ -286,8 +311,8 @@ def chol_solve_plan(C, D):
             floats = DP * (DP + 4) + 2 * buf + 2 * DP + K1_GRID ** 2 // 32
             return {"kernel": "tiled", "threads": (K1_GRID, K1_GRID),
                     "tile": (TS, TS), "smem": 4 * floats, "grid": C}
-    return {"kernel": "shared", "threads": (K1_SHARED_THREADS,),
-            "tile": None, "smem": 4 * (D * D + 2 * D), "grid": C}
+    return {"kernel": "packed", "threads": (K1_PACKED_THREADS,),
+            "tile": None, "smem": 4 * _packed_floats(D), "grid": C}
 
 
 def add_jitter(A, jitter):
@@ -346,11 +371,56 @@ def chol_solve_tiled_plain(A, b, z, jitter=0.0):
     return u, v
 
 
+def chol_solve_packed_plain(A, b, z, jitter=0.0):
+    """The packed kernel's algorithm on its own storage, step by step: the
+    lower triangle of A row by row in one vector (entry (i, k) at
+    ``packed_row(i) + k``, the rows padded to 16 bytes) with b as row D, the
+    jitter on the diagonal, then right-looking column steps in which every
+    reader scales the raw column by the one reciprocal square root of its
+    diagonal, the reciprocal kept in the diagonal's place, and both back
+    substitutions along the rows of L by multiplication.  Same function as
+    ``chol_solve_plain``; nothing on the main path calls it."""
+    C, D = b.shape
+    ii, kk = torch.tril_indices(D + 1, D + 1, device=A.device)
+    keep = kk < D                       # row D is b: it has no diagonal
+    ii, kk = ii[keep], kk[keep]
+    off = packed_row(ii) + kk
+    a = torch.zeros(C, packed_row(D + 1), dtype=A.dtype, device=A.device)
+    a[:, off] = torch.cat([A, b[:, None, :]], 1)[:, ii, kk]
+    diag = torch.arange(D, device=A.device)
+    diag = packed_row(diag) + diag
+    if jitter != 0.0:
+        a[:, diag] += (jitter * (a[:, diag].sum(-1) / D + 1.0))[:, None]
+    for j in range(D):
+        in_col = (kk == j) & (ii >= j)
+        raw = torch.zeros(C, D + 1, dtype=a.dtype, device=a.device)
+        raw[:, ii[in_col]] = a[:, off[in_col]]
+        inv = torch.rsqrt(raw[:, j])
+        col = raw * inv[:, None]
+        trail = kk > j                  # (i, k) with j < k <= i, and row D
+        a[:, off[trail]] = torch.addcmul(
+            a[:, off[trail]], col[:, ii[trail]], col[:, kk[trail]],
+            value=-1.0)
+        a[:, off[in_col]] = col[:, ii[in_col]]
+        a[:, diag[j]] = inv
+    row_b = packed_row(D)
+    u, v = a[:, row_b:row_b + D].clone(), z.clone()
+    for j in range(D - 1, -1, -1):
+        ri = a[:, diag[j]]
+        u[:, j] *= ri
+        v[:, j] *= ri
+        row = a[:, packed_row(j):packed_row(j) + j]
+        u[:, :j] -= row * u[:, j, None]
+        v[:, :j] -= row * v[:, j, None]
+    return u, v
+
+
 def chol_solve(A, b, z, jitter=0.0):
     """(mean, noise) of the precision draw, per chain: A (C, D, D) SPD,
     b and z (C, D) -> mean = A^-1 b, noise = chol(A)^-T z, both (C, D).
     With ``jitter`` > 0 the kernel factors A + jitter * (tr(A) / D + 1) * I,
-    adding to the diagonal it holds on chip."""
+    adding to the diagonal it holds on chip.  On the card a D above
+    ``chol_solve_max_dim()`` raises NotImplementedError."""
     if not _route("chol_solve", A):
         return chol_solve_plain(A, b, z, jitter)
     C, D = b.shape
@@ -363,7 +433,7 @@ def chol_solve(A, b, z, jitter=0.0):
         rc = _library().bfmmm_chol_solve(
             A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
             noise.data_ptr(), C, D, float(jitter),
-            plan["tile"][0] if plan["tile"] else 0,
+            plan["tile"][0] if plan["tile"] else 0,    # 0: the packed kernel
             torch.cuda.current_stream().cuda_stream)
     _launched("chol_solve", rc)
     return mean, noise
@@ -380,7 +450,8 @@ def mean_rss_plain(B, y, w, want_mu=False):
     return (r * r).sum((1, 2)), (mu if want_mu else None)
 
 
-# A K2 block has 256 threads, each holding 4 points in registers at once.
+# A K2 block has 256 threads, each holding 4 points in registers at once
+# (2 at P = 16).
 K2_TILE_POINTS = 1024
 # Shared memory a K2 block may fill with its tile of w: within the 48 KB a
 # block has without opting in, beside the reduction's few hundred bytes.
@@ -399,9 +470,10 @@ def mean_rss_plan(C, N, L, P, want_mu=False):
     chain tile, and the card is fastest with one wave of blocks, so TC is
     the smallest that keeps the grid within one block per SM, or the
     largest there is; with mu it is ``K2_MU_CHAIN_TILE``.  The tile of w
-    stays within ``K2_W_SMEM``.  Returns
-    {"TC", "TN", "grid": (chain tiles, point tiles), "scratch": shape of
-    the per-tile partial sums, "smem": bytes}.
+    stays within ``K2_W_SMEM``; a P so wide that one row of the smallest
+    tile does not raises NotImplementedError.  Returns {"TC", "TN", "grid":
+    (chain tiles, point tiles), "scratch": shape of the per-tile partial
+    sums, "smem": bytes}.
     """
     if min(C, N, L, P) < 1:
         raise ValueError(f"mean_rss_plan: empty shape {(C, N, L, P)}")

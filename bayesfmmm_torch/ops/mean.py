@@ -9,7 +9,9 @@ so mu_n = B_n w_n.  Linear terms of the sweep stay in Gram space
 (B_n' r_n = u_n - G_n w_n); squared residual norms go through the length-L
 residual, because the Gram identity yy - 2 u.w + w'Gw cancels in f32.
 For CUDA tensors that residual pass is kernel K2 (ops/kernels.py), which
-forms mu and the RSS in one pass over B for all chains.
+forms mu and the RSS in one pass over B for all chains.  With the identity
+basis of the multivariate family mu is w itself and the RSS needs no pass
+over an (N, P, P) identity, so K2 is not launched there.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ def effective_coeffs(state, X):
 def compute_mu(data, state):
     """Model mean mu (C, N, L)."""
     w = effective_coeffs(state, data.X)
+    if data.identity_basis:
+        return w                                   # B = I, L = P
     return kernels.mean_rss(data.B, data.y, w, want_mu=True)[1]
 
 
@@ -56,13 +60,40 @@ def build_cache(data, state) -> SweepCache:
 def rss_from_coeffs(data, w):
     """Per-chain sum_n ||y_n - B_n w_n||^2 (C,), in residual space.  B rows
     and y are zero at padded points, so no mask is needed."""
+    if data.identity_basis:
+        r = data.y - w
+        return (r * r).sum((1, 2))
     return kernels.mean_rss(data.B, data.y, w.contiguous())[0]
 
 
 def rss_rows_from_coeffs(data, w):
     """Per-observation ||y_n - B_n w_n||^2 (C, N), in residual space."""
-    r = data.y - torch.einsum("nlp,cnp->cnl", data.B, w)
+    r = data.y - apply_basis(data, w)
     return (r * r).sum(-1)
+
+
+def apply_basis(data, w):
+    """B_n w_n for coefficients w (..., N, P) -> (..., N, L); w itself
+    under the identity basis."""
+    if data.identity_basis:
+        return w
+    return torch.einsum("nlp,...np->...nl", data.B, w)
+
+
+def gram_vec(data, w):
+    """G_n w_n for coefficients w (..., N, P); w itself under the identity
+    basis (G_n = I)."""
+    if data.identity_basis:
+        return w
+    return torch.einsum("npq,...nq->...np", data.G, w)
+
+
+def gram_dirs(data, U):
+    """G_n U_n for eigen directions U (..., N, P, M); U itself under the
+    identity basis."""
+    if data.identity_basis:
+        return U
+    return torch.einsum("npq,...nqm->...npm", data.G, U)
 
 
 def feature_offsets(state, X):

@@ -9,7 +9,10 @@ restated so that the port loads nothing of the JAX package;
   3. set nu to the archetypes and Z by simplex-constrained least squares,
   4. initialize (chi, Phi) from an SVD of the residual coefficients.
 
-All NumPy f64 on the host, O(N P^2) — negligible next to one sweep.
+All NumPy f64 on the host, O(N P^2) — negligible next to one sweep.  It
+reads B, y, G and the mask only, so it serves every family: the tensor
+basis of hd data and the identity basis of multivariate data included
+(eta and xi start at init_state's zeros).
 """
 
 from __future__ import annotations
@@ -113,10 +116,11 @@ def spectral_ensemble(g, state, data, K, M, *, z_jitter=0.02):
     bench seeds its ensemble: Z jittered per chain by ``z_jitter`` times a
     normal draw from ``g``, floored at 1e-4 and renormalized."""
     dev = state.Z.device
-    sp = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+    sp = {k: torch.as_tensor(np.asarray(v), dtype=state.Z.dtype, device=dev)
           for k, v in spectral_init(data, K, M).items()}
     Z0 = (sp["Z"] + z_jitter * torch.randn(
-        state.Z.shape, generator=g, device=dev)).clamp_min(1e-4)
+        state.Z.shape, generator=g, dtype=state.Z.dtype,
+        device=dev)).clamp_min(1e-4)
     return state.replace(
         Z=Z0 / Z0.sum(-1, keepdim=True),
         nu=sp["nu"].expand_as(state.nu).contiguous(),

@@ -51,12 +51,37 @@ KNOCK_OUTS = {
                     "    for (int idx = t; idx < D * D; idx += T)")],
 }
 
+# The same for the packed kernel (128 < D <= 334), timed at PACKED_SHAPE
+PACKED_SHAPE = (16, 256)
+PACKED_KNOCK_OUTS = {
+    "whole": [],
+    "no_barrier": [("  for (int j = 0; j < D; ++j) {\n    __syncthreads();\n"
+                    "    const float* cur",
+                    "  for (int j = 0; j < D; ++j) {\n    const float* cur")],
+    "no_rsqrt": [("    const float inv = rsqrtf(cur[j]);",
+                  "    const float inv = cur[j] * 1e-2f;")],
+    "no_update": [("    for (int i = first; i <= D; i += W) {",
+                   "    for (int i = first; i < 0; i += W) {")],
+    "no_handoff": [("      __syncwarp();\n      nxt[i] = row[jn];\n"
+                    "      row[j] = li;\n", "")],
+    "threads_1024": [("constexpr int kPackedThreads = 512;",
+                      "constexpr int kPackedThreads = 1024;")],
+    "threads_256": [("constexpr int kPackedThreads = 512;",
+                     "constexpr int kPackedThreads = 256;")],
+    "no_back_solves": [("  if (warp == 0) {\n    // backward on both "
+                        "right-hand sides along the rows of L",
+                        "  if (warp < 0) {\n    // backward on both "
+                        "right-hand sides along the rows of L")],
+    "no_staging": [("    for (int k = lane; k <= i; k += 32) dst[k] = src[k];",
+                    "    for (int k = lane; k < 0; k += 32) dst[k] = src[k];")],
+}
 
-def patched_sources(text):
-    """{name: source text} for every knock-out; each patch must match
-    ``text`` exactly once."""
+
+def patched_sources(text, knock_outs=None):
+    """{name: source text} for every knock-out (the register kernel's unless
+    ``knock_outs`` is given); each patch must match ``text`` exactly once."""
     out = {}
-    for name, patches in KNOCK_OUTS.items():
+    for name, patches in (knock_outs or KNOCK_OUTS).items():
         src = text
         for old, new in patches:
             if src.count(old) != 1:
@@ -101,23 +126,30 @@ def build_all(sources, out_dir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--kernel", choices=("tiled", "packed"), default="tiled",
+                    help="the register kernel at the headline shape, or the "
+                         "packed kernel at 16 chains of D = 256")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: needs one NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
     text = (kernels._CSRC / "chol_solve.cu").read_text()
-    libs = build_all(patched_sources(text), kernels._BUILD_DIR / "probe")
-    A, b, z = spd(torch.Generator(device=dev).manual_seed(123), CHAINS, D,
-                  dev)
+    packed = args.kernel == "packed"
+    C, dim = PACKED_SHAPE if packed else (CHAINS, D)
+    libs = build_all(
+        patched_sources(text, PACKED_KNOCK_OUTS if packed else None),
+        kernels._BUILD_DIR / "probe")
+    A, b, z = spd(torch.Generator(device=dev).manual_seed(123), C, dim, dev)
     mean, noise = torch.empty_like(b), torch.empty_like(b)
-    tile = kernels.chol_solve_plan(CHAINS, D)["tile"][0]
+    plan = kernels.chol_solve_plan(C, dim)
+    tile = plan["tile"][0] if plan["tile"] else 0      # 0: the packed kernel
 
     def launcher(lib):
         def launch():
             rc = lib.bfmmm_chol_solve(
                 A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-                noise.data_ptr(), CHAINS, D, 0.0, tile,
+                noise.data_ptr(), C, dim, 0.0, tile,
                 torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(
@@ -130,7 +162,8 @@ def main(argv=None):
     for name, t in times.items():
         t["saves_ms"] = whole - t["device_ms"]
     print(card_line())
-    print(json.dumps({"shape": dict(C=CHAINS, D=D), "tile": tile, **times}))
+    print(json.dumps({"shape": dict(C=C, D=dim), "kernel": plan["kernel"],
+                      "tile": tile, **times}))
     return 0
 
 

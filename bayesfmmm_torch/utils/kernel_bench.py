@@ -22,7 +22,8 @@ revision's ``csrc`` into DIR and binds it as that revision did, and times
 its three wrappers in the same turns: two revisions are compared only
 inside one run, on one card.  ``--sweep`` times K2 over other tile sizes
 than the plan's and every kernel of K1 that can serve D=96 (and, in
-groups of their own, D=32, 64 and 128) beside the plan's choice.  K1's
+groups of their own, D=32, 64 and 128, and D=129, 200 and 240 at 256 and
+at 16 chains) beside the plan's choice.  K1's
 group also times ``jitter_ops``, the PyTorch ops that built
 A + jitter * scale * I before K1 took the jitter inside.  Prints the
 card's name and power limit and one JSON object.  Needs one card.
@@ -168,6 +169,17 @@ def library_weighted_gram(W, G):
     return torch.matmul(W, G.reshape(G.shape[0], -1))
 
 
+def library_chol_solve(A, b, z):
+    """K1's function by the library: the three ``torch.linalg`` calls (one
+    factorization, two triangular solves, the second on both right-hand
+    sides).  A yardstick only; on the card the package calls it for no D a
+    kernel serves."""
+    L = torch.linalg.cholesky_ex(A).L
+    w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(
+        L.mT, torch.cat([w, z[..., None]], -1), upper=True)
+
+
 def _baseline_kernels(pkg):
     """``ops/kernels.py`` of the package directory ``pkg``, an earlier
     revision's, as a module beside this revision's: it finds its own
@@ -200,7 +212,7 @@ def _k2_tiles(lib, B, y, w, TC, TN):
 
 def _k1_tile(lib, A, b, z, tile):
     """K1 through the C entry point with another kernel than the plan's:
-    ``tile`` 0 is the shared-memory kernel, otherwise the tile side of the
+    ``tile`` 0 is the packed kernel, otherwise the tile side of the
     register-tiled one."""
     C, D_ = b.shape
     mean, noise = torch.empty_like(b), torch.empty_like(b)
@@ -218,7 +230,7 @@ def _k1_tile(lib, A, b, z, tile):
 def _k1_sweep(lib, x):
     """{name: callable} of every kernel of K1 that serves x's D."""
     D_ = x[1].shape[1]
-    cands = {"shared": _k1_tile(lib, *x, tile=0)}
+    cands = {"packed": _k1_tile(lib, *x, tile=0)}
     for TS in kernels.K1_TILES:
         if D_ <= kernels.K1_GRID * TS:
             cands[f"tiled {TS}x{TS}"] = _k1_tile(lib, *x, tile=TS)
@@ -261,6 +273,7 @@ def main(argv=None):
         for name, cands in groups.items():
             fn = getattr(base, name.removesuffix("_2c"))
             cands["baseline"] = lambda fn=fn, name=name: fn(*x[name])
+    k1_shapes = {}
     if args.sweep:
         lib = kernels._library()
         for name in ("mean_rss", "mean_rss_2c"):
@@ -270,9 +283,13 @@ def main(argv=None):
                         lib, *x[name], TC=TC, TN=TN)
         groups["chol_solve"].update(_k1_sweep(lib, x["chol_solve"]))
         g = torch.Generator(device=dev).manual_seed(321)
-        for D_ in (32, 64, 128):
-            xd = spd(g, CHAINS, D_, dev)
-            groups[f"chol_solve_d{D_}"] = {
+        for C_, D_ in ((CHAINS, 32), (CHAINS, 64), (CHAINS, 128),
+                       (CHAINS, 129), (CHAINS, 200), (CHAINS, 240),
+                       (16, 129), (16, 200), (16, 240)):
+            xd = spd(g, C_, D_, dev)
+            name = f"chol_solve_c{C_}_d{D_}"
+            k1_shapes[name] = dict(C=C_, D=D_)
+            groups[name] = {
                 "kernel": lambda xd=xd: kernels.chol_solve(*xd),
                 **_k1_sweep(lib, xd)}
 
@@ -286,13 +303,11 @@ def main(argv=None):
               "mean_rss": dict(C=CHAINS, N=N, L=L, P=P),
               "mean_rss_2c": dict(C=2 * CHAINS, N=N, L=L, P=P),
               "weighted_gram": dict(R=CHAINS * K, N=N, P=P)}
-    for name in result:
-        if name.startswith("chol_solve_d"):
-            shapes[name] = dict(C=CHAINS, D=int(name.removeprefix(
-                "chol_solve_d")))
+    shapes.update(k1_shapes)
     for name, shape in shapes.items():
-        bound = kernels.kernel_bound(name.split("_d")[0].removesuffix("_2c"),
-                                     **shape)
+        bound = kernels.kernel_bound(
+            "chol_solve" if name in k1_shapes else name.removesuffix("_2c"),
+            **shape)
         result[name]["shape"] = shape
         result[name]["bound"] = bound
         result[name]["share_of_bound"] = (

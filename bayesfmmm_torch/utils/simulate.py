@@ -1,8 +1,10 @@
-"""Functional mixed-membership data simulator (port of
-``bayesfmmm_tpu/utils/simulate.py::simulate_functional``).
+"""Mixed-membership data simulators of the three families (port of
+``bayesfmmm_tpu/utils/simulate.py``): ``simulate_functional``,
+``simulate_hd_functional``, ``simulate_multivariate``.
 
-All NumPy with ``default_rng(seed)`` and the same float32 truth and design,
-so for one seed it gives the JAX package's y, mask and B bit for bit.
+All NumPy with ``default_rng(seed)`` and the same truth and design in the
+data's dtype, so for one seed each gives the JAX package's y, mask, B and X
+bit for bit.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ import numpy as np
 import torch
 
 from bayesfmmm_torch.models.state import (STATE_FIELDS, default_device,
-                                          make_functional_data)
+                                          make_functional_data,
+                                          make_hd_functional_data,
+                                          make_multivariate_data)
 
 
 def _numpy_mu(B, X, truth):
@@ -26,9 +30,10 @@ def _numpy_mu(B, X, truth):
 
 
 def _truth_state(rng, N, K, P, M, D, *, nu_scale, phi_scale, sigma2,
-                 with_eta, with_xi):
-    """Ground-truth parameters of one chain, as float32 NumPy arrays in the
-    field order of the state (the draw order is the JAX package's)."""
+                 with_eta, with_xi, dtype=torch.float32):
+    """Ground-truth parameters of one chain, as NumPy arrays of the data's
+    dtype in the field order of the state (the draw order is the JAX
+    package's)."""
     nu = nu_scale * rng.normal(size=(K, P))
     Phi = phi_scale * rng.normal(size=(K, P, M))
     Z = rng.dirichlet(np.full(K, 1.0), size=N)
@@ -42,7 +47,8 @@ def _truth_state(rng, N, K, P, M, D, *, nu_scale, phi_scale, sigma2,
         delta=np.ones((K, M)), A=np.ones((K, 2)), eta=eta,
         tau_eta=np.ones((K, D)), xi=xi, gamma_xi=np.ones((K, P, D, M)),
         delta_xi=np.ones((K, M, D)), A_xi=np.ones((K, 2, D)))
-    return {f: np.asarray(truth[f], np.float32) for f in STATE_FIELDS}
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return {f: np.asarray(truth[f], np_dtype) for f in STATE_FIELDS}
 
 
 def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
@@ -77,7 +83,7 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
                                  device="cpu")
     truth = _truth_state(rng, N, K, P, M, D, nu_scale=nu_scale,
                          phi_scale=phi_scale, sigma2=sigma2,
-                         with_eta=with_eta, with_xi=with_xi)
+                         with_eta=with_eta, with_xi=with_xi, dtype=dtype)
     mu = _numpy_mu(data0.B.numpy(), data0.X.numpy(), truth)
     mask = data0.mask.numpy()
     y = mu + np.sqrt(sigma2) * rng.normal(size=mu.shape) * mask
@@ -87,3 +93,52 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
                                 boundary_knots=boundary, X=X, dtype=dtype,
                                 device=device)
     return data, truth
+
+
+def simulate_hd_functional(seed=1, *, N=20, K=2, M=2, D=0, n_points=(40, 50),
+                           sigma2=0.01, nu_scale=3.0, phi_scale=0.5,
+                           basis_degrees=(2, 2), n_internal=(1, 1),
+                           with_eta=False, with_xi=False,
+                           dtype=torch.float32, device=None):
+    """Simulate surface (2-D domain) MM data with a tensor B-spline basis
+    (BHDFMMM, BFMMM.h:2892): surface i is observed at n_i random points of
+    [0, 1]^dim.  Returns (data, truth) as ``simulate_functional`` does."""
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+    dim = len(basis_degrees)
+    internal = [np.linspace(0, 1, n + 2)[1:-1] for n in n_internal]
+    boundary = np.tile(np.array([0.0, 1.0]), (dim, 1))
+    t_list = [rng.uniform(0, 1, (int(rng.integers(n_points[0],
+                                                  n_points[1] + 1)), dim))
+              for _ in range(N)]
+    X = rng.normal(size=(N, D)) if D else None
+    kw = dict(basis_degrees=basis_degrees, internal_knots_list=internal,
+              boundary_knots=boundary, X=X, dtype=dtype)
+    data0 = make_hd_functional_data([np.zeros(t.shape[0]) for t in t_list],
+                                    t_list, device="cpu", **kw)
+    truth = _truth_state(rng, N, K, int(data0.P), M, D, nu_scale=nu_scale,
+                         phi_scale=phi_scale, sigma2=sigma2,
+                         with_eta=with_eta, with_xi=with_xi, dtype=dtype)
+    mu = _numpy_mu(data0.B.numpy(), data0.X.numpy(), truth)
+    mask = data0.mask.numpy()
+    y = mu + np.sqrt(sigma2) * rng.normal(size=mu.shape) * mask
+    y_list = [y[i][mask[i] > 0] for i in range(N)]
+    return make_hd_functional_data(y_list, t_list, device=device, **kw), truth
+
+
+def simulate_multivariate(seed=1, *, N=200, K=2, P=6, M=2, D=0, sigma2=0.01,
+                          nu_scale=3.0, phi_scale=0.5, with_eta=False,
+                          with_xi=False, dtype=torch.float32, device=None):
+    """Simulate multivariate MM data (identity basis).  Returns (data,
+    truth) as ``simulate_functional`` does."""
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D)) if D else None
+    data0 = make_multivariate_data(np.zeros((N, P)), X=X, dtype=dtype,
+                                   device="cpu")
+    truth = _truth_state(rng, N, K, P, M, D, nu_scale=nu_scale,
+                         phi_scale=phi_scale, sigma2=sigma2,
+                         with_eta=with_eta, with_xi=with_xi, dtype=dtype)
+    mu = _numpy_mu(data0.B.numpy(), data0.X.numpy(), truth)
+    y = mu + np.sqrt(sigma2) * rng.normal(size=mu.shape)
+    return make_multivariate_data(y, X=X, dtype=dtype, device=device), truth

@@ -28,6 +28,13 @@ i.e. 5 standard deviations of one run's ensemble median: the spread between
 seeds (sample sd of the 5 medians) combined with the standard error of two
 sample medians of make_torch_slice_reference.py's rule.
 
+The tight gate beside these wide limits: the first seed's phase-1/2 posterior
+medians (what its phase 3 was warm-started from) are stored under
+``warm_start_from``, so the port can run phase 3 alone from the very same
+point; its ensemble median must then lie within ``from_jax_medians``, the
+first seed's own median +- 5 standard errors of two sample medians
+(make_torch_slice_reference.py's rule), with no spread between seeds in it.
+
 The JAX package restarts its iteration count in every progress chunk, so
 phase 3 runs here as ONE chunk (progress_every = the run's length): the
 excursions then fall at sweeps 100, 200 and 300, as in the port, whose
@@ -63,6 +70,10 @@ SEEDS = (0, 1, 2, 3, 4)         # the first is the one chip_smoke.py runs
 CHAINS = 64
 PORT_CHAINS = 256
 OUT = os.path.join(HERE, "torch_fit_reference.json")
+# the fields fit_warm_start takes from each phase's medians (api.py:309-317)
+WARM_FROM_PHASE_1 = ("Z", "pi", "alpha3", "nu", "tau", "eta", "tau_eta")
+WARM_FROM_PHASE_2 = ("Phi", "gamma", "delta", "A", "sigma2", "chi", "xi",
+                     "gamma_xi", "delta_xi", "A_xi")
 
 
 def run_seed(data, seed):
@@ -82,7 +93,11 @@ def run_seed(data, seed):
             checkpoint_to=os.path.join(tmp, "ensemble.npz"))
     for leaf in jax.tree.leaves(r3.ensemble_state):
         assert np.all(np.isfinite(np.asarray(leaf)))
+    est = {**{f: r1.estimates(_warn=False)[f] for f in WARM_FROM_PHASE_1},
+           **{f: r2.estimates(_warn=False)[f] for f in WARM_FROM_PHASE_2}}
     return {
+        "warm_start_from": {f: np.asarray(v, np.float64).tolist()
+                            for f, v in est.items()},
         "fit_seed": seed,
         "best_chain_loglik_last_100": {
             "nu_z": float(np.mean(r1.loglik[-100:])),
@@ -113,6 +128,9 @@ def main():
                                   n_time=tuple(p["n_time"]))
     t0 = time.time()
     runs = [run_seed(data, seed) for seed in SEEDS]
+    warm_start_from = runs[0]["warm_start_from"]
+    for r in runs:
+        del r["warm_start_from"]
     ref = {
         "protocol": p,
         "seeds": list(SEEDS),
@@ -124,6 +142,10 @@ def main():
         "best_chain_loglik_last_100": runs[0]["best_chain_loglik_last_100"],
         "loglik": across_seeds(runs, "loglik"),
         "sigma2": across_seeds(runs, "sigma2"),
+        "from_jax_medians": {"fit_seed": SEEDS[0],
+                             "loglik": runs[0]["loglik"]["limits"],
+                             "sigma2": runs[0]["sigma2"]["limits"]},
+        "warm_start_from": warm_start_from,
         "runs": runs,
         "jax_version": jax.__version__,
         "cpu_seconds": round(time.time() - t0, 1),

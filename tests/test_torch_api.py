@@ -498,17 +498,31 @@ def test_entry_points_default_to_the_card():
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
+    """The three families and covariates build; what is still missing is
+    absent by name, and the default-off kernels name their item."""
     y, t = _tiny_Y()
-    for family in ("hd", "multivariate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            api.build_data(y, t, family=family, device="cpu")
+    mv = api.build_data(np.ones((4, 3)), family="multivariate", device="cpu")
+    assert mv.family == "multivariate" and mv.identity_basis and mv.P == 3
+    pts = np.stack(np.meshgrid(*[np.linspace(0, 1, 4)] * 2), -1).reshape(-1, 2)
+    hd = api.build_data([np.ones(16)] * 3, [pts] * 3, family="hd",
+                        basis_degrees=[2, 2],
+                        internal_knots_list=[np.array([0.5])] * 2,
+                        boundary_knots=np.array([[0., 1.], [0., 1.]]),
+                        device="cpu")
+    assert hd.family == "hd" and hd.P == 16 and not hd.identity_basis
+    with pytest.raises(ValueError, match="must be a matrix"):
+        api.build_data(np.ones(4), family="multivariate", device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         api.build_data(y, t, family="other", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        api.fit_nu_z(y, t, K=2, tot_mcmc_iters=100, X=np.ones((3, 1)),
+    r = api.fit_nu_z(y, t, K=2, tot_mcmc_iters=100, X=np.ones((3, 1)),
                      device="cpu", **KNOTS)
+    assert r.config.covariate_mean and r.config.D == 1
+    assert np.abs(r.traces["eta"][-1]).max() > 0
     for name in ("fit_pt", "fit_smc", "fit_hmc", "fit_advi_init"):
         assert not hasattr(api, name)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
+        gibbs.sweep_full(None, r.final_state, r.data, Priors(), None,
+                         hmc_steps=1)
 
 
 def test_fit_result_converts_between_the_packages():
@@ -582,3 +596,87 @@ def test_pipeline_matches_jax_by_moments(tmp_path, tempered):
     back = armaio.load_trace_dir(str(tmp_path))
     assert back["Nu"].shape == (n, 2, sim["P"])
     np.testing.assert_allclose(back["Z"].sum(axis=2), 1.0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Covariates and the other families through the entry points
+# ---------------------------------------------------------------------------
+
+def test_fit_takes_covariates_and_routes_covariate_cov(tmp_path):
+    """X turns the mean's covariate adjustment on in phase 1, covariate_cov
+    the covariance's in phase 2, and phase 3 inherits both; the exported
+    directory gains the reference's covariate files."""
+    rng = np.random.default_rng(0)
+    t = [np.sort(rng.uniform(0, 1, 12)) for _ in range(8)]
+    X = rng.normal(size=(8, 1))
+    Y = [np.sin(5 * ti) * (1 + 0.5 * x) + 0.05 * rng.normal(size=12)
+         for ti, x in zip(t, X[:, 0])]
+    r1 = api.fit_nu_z(Y, t, K=2, M=2, X=X, tot_mcmc_iters=100, device="cpu",
+                      **KNOTS)
+    assert r1.config == ModelConfig(K=2, P=7, M=2, D=1, covariate_mean=True)
+    assert not r1.traces["xi"].any() and r1.traces["eta"][-1].any()
+    plain2 = api.fit_theta(r1, tot_mcmc_iters=100)
+    assert not plain2.config.covariate_cov and not plain2.traces["xi"].any()
+    # phase 2 keeps eta pinned at phase 1's medians and moves tau_eta
+    np.testing.assert_array_equal(
+        plain2.traces["eta"][-1], r1.estimates(_warn=False)["eta"])
+    assert np.ptp(plain2.traces["tau_eta"]) > 0
+    res = api.fit(Y, t, K=2, M=2, X=X, covariate_cov=True, nu_z_iters=100,
+                  theta_iters=100, warm_iters=100, progress=False,
+                  device="cpu", directory=str(tmp_path), **KNOTS)
+    assert res.config.covariate_mean and res.config.covariate_cov
+    assert res.traces["xi"][-1].any() and np.ptp(res.traces["A_xi"]) > 0
+    back = armaio.load_trace_dir(str(tmp_path))
+    assert back["Xi"].shape == (100, 2, 7, 1, 2)
+    assert back["Eta"].shape == (100, 2, 7, 1)
+    # a JAX configuration of the same fit has the same flags
+    assert JModelConfig(K=2, P=7, M=2, D=1, covariate_mean=True,
+                        covariate_cov=True).__dict__ == res.config.__dict__
+
+
+@pytest.mark.parametrize("family", ["multivariate", "hd"])
+def test_fit_takes_the_other_families_from_raw_observations(family):
+    rng = np.random.default_rng(1)
+    if family == "multivariate":
+        Y, time, kw = rng.normal(size=(12, 4)), None, {}
+    else:
+        time = [rng.uniform(0, 1, (14, 2)) for _ in range(6)]
+        Y = [np.sin(3 * ti[:, 0]) + ti[:, 1] for ti in time]
+        kw = dict(basis_degrees=[2, 2],
+                  internal_knots_list=[np.array([0.5])] * 2,
+                  boundary_knots=np.array([[0., 1.], [0., 1.]]))
+    res = api.fit(Y, time, K=2, M=1, family=family, nu_z_iters=100,
+                  theta_iters=100, warm_iters=100, progress=False,
+                  kernels="production", device="cpu", **kw)
+    assert res.config.family == family == res.data.family
+    assert res.data.identity_basis == (family == "multivariate")
+    assert np.isfinite(res.loglik).all()
+    if family == "multivariate":
+        # the stored Tau is the variance: the reciprocal of the precision
+        np.testing.assert_allclose(
+            api.export_layout(res.traces, res.config)["Tau"],
+            1.0 / res.traces["tau"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            api.fit(Y, time, K=2, M=1, family=family, nu_z_iters=100, **kw)
+
+
+def test_fit_result_from_estimates_starts_phase_3_where_it_says():
+    """A FitResult made from stored point estimates gives them back as its
+    estimates (Z renormalised), for both phases of fit_warm_start; nested
+    lists that lost the axes behind D = 0 are reshaped."""
+    data, truth = simulate_functional(seed=4, N=6, K=2, P=5, M=2,
+                                      n_time=(8, 9), device="cpu")
+    est = {f: np.asarray(v).tolist() for f, v in truth.items()}
+    assert np.asarray(est["xi"]).shape == (2, 5, 0)       # the lost axis
+    r = convert.fit_result_from_estimates(est, data, ModelConfig(K=2, P=5,
+                                                                 M=2))
+    got = r.estimates(_warn=False)
+    for f in STATE_FIELDS:
+        np.testing.assert_allclose(got[f], truth[f], rtol=1e-6, err_msg=f)
+    assert got["xi"].shape == (2, 5, 0, 2)
+    res = api.fit_warm_start(r, r, tot_mcmc_iters=100, n_chains=2,
+                             progress=False)
+    assert res.config == r.config and np.isfinite(res.loglik).all()
+    # from the truth the first draw is already at the truth's level
+    assert res.loglik[0] > 0.8 * res.loglik[-20:].mean() > 0

@@ -299,3 +299,67 @@ def test_fit_warm_start_batched_branch(tmp_path, small):
     with pytest.raises(ValueError, match="resume_batched"):
         api.fit_warm_start(resume_from="x.npz", data=data,
                            tot_mcmc_iters=100, r_stored_iters=50, directory=d)
+
+
+# ---------------------------------------------------------------------------
+# Covariate-adjusted fits
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_cov():
+    data, _ = simulate_functional(seed=6, N=10, K=2, P=5, M=2, D=1,
+                                  n_time=(8, 10), with_eta=True, with_xi=True,
+                                  device="cpu")
+    r1 = api.fit_nu_z(data=data, K=2, M=2, tot_mcmc_iters=100, seed=0)
+    return data, r1
+
+
+@pytest.mark.parametrize("covariate_cov", [False, True])
+def test_covariate_fit_resumes_with_its_own_flags(tmp_path, small_cov,
+                                                  covariate_cov):
+    """The file stores the ModelConfig, so a covariate_mean-only fit resumed
+    from its checkpoint keeps covariate_cov=False (the JAX package reads it
+    off xi's shape, which is always allocated: its resume turns xi on), and
+    the resume gives the unbroken run's bits either way."""
+    data, r1 = small_cov
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100, covariate_cov=covariate_cov,
+                       seed=1)
+    assert r2.config.covariate_mean
+    assert r2.config.covariate_cov == covariate_cov
+    ck = str(tmp_path / "cov.npz")
+    kw = dict(kernels="production", progress=False, **TT)
+    whole = api.fit_warm_start(r1, r2, tot_mcmc_iters=200, n_chains=2,
+                               seed=7, **kw)
+    a = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, n_chains=2, seed=7,
+                           checkpoint_to=ck, **kw)
+    b = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
+                           **kw)
+    assert load_checkpoint(ck, "cpu")[3] == r2.config == b.config
+    np.testing.assert_array_equal(
+        np.concatenate([a.all_chain_loglik, b.all_chain_loglik], 1),
+        whole.all_chain_loglik)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(b.ensemble_state, f),
+                           getattr(whole.ensemble_state, f)), f
+    assert float(b.ensemble_state.eta.abs().max()) > 0
+    # xi moves exactly when the covariance adjustment is on
+    assert bool(b.ensemble_state.xi.any()) == covariate_cov
+    assert np.ptp(b.traces["gamma_xi"]) > 0 if covariate_cov else \
+        np.all(b.traces["gamma_xi"] == 1.0)
+
+
+def test_batched_run_writes_the_covariate_files(tmp_path, small_cov):
+    """fit_warm_start's batched branch on a covariate-adjusted fit: the
+    reference's Eta/Tau_Eta/Xi/... batch files appear and read back as the
+    returned traces."""
+    data, r1 = small_cov
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100, covariate_cov=True, seed=1)
+    d = str(tmp_path / "batches")
+    res = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, r_stored_iters=50,
+                             directory=d, progress=False, seed=3)
+    names = set(os.listdir(d))
+    for stem in ("Eta", "Tau_Eta", "Xi", "Gamma_Xi", "Delta_Xi", "A_Xi"):
+        assert {f"{stem}0.txt", f"{stem}1.txt"} <= names, stem
+    back = armaio.load_trace_dir(d)
+    assert back["Xi"].shape == (100, 2, 5, 1, 2)
+    np.testing.assert_allclose(back["Eta"], res.traces["eta"], rtol=1e-6)

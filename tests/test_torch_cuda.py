@@ -35,7 +35,7 @@ def _spd(g, C, D, dev, diag=50.0):
                                  (3, 97), (9, 93)])
 def test_chol_solve_kernel_matches_plain(dev, C, D, jitter):
     """The main path's shape, shapes of both kernels (register-tiled up to
-    its reach, shared-memory above), ragged D that pads the tiles and
+    its reach, the packed triangle above), ragged D that pads the tiles and
     takes the 4-byte loads, an odd chain count; without and with the jitter;
     the same bits from two calls, one launch counted a call."""
     g = torch.Generator(device=dev).manual_seed(D)
@@ -119,12 +119,77 @@ def test_precision_draw_launches_k1_and_no_matrix_sized_op(dev):
     assert sum("chol_tiled_kernel" in n for n in names) == 1, names
 
 
+@pytest.mark.parametrize("jitter", [0.0, 1e-6])
+@pytest.mark.parametrize("C,D", [(16, 256), (64, 256), (256, 256), (3, 251),
+                                 (2, 241), (2, 334), (3, 333), (5, 129),
+                                 (3, 130), (2, 200)])
+def test_chol_solve_packed_kernel_matches_plain(dev, C, D, jitter):
+    """The packed kernel (128 < D <= 334): the joint xi and hd Phi draws'
+    D = 256 at the chain counts of the repo's configurations, an odd D, the
+    smallest and the largest, against torch.linalg to the tiled kernel's
+    tolerances; the same bits from two calls; and, for two chains, against
+    its own plain version, which repeats its arithmetic."""
+    assert kernels.chol_solve_plan(C, D)["kernel"] == "packed"
+    g = torch.Generator(device=dev).manual_seed(D + C)
+    A, b, z = _spd(g, C, D, dev)
+    kernels.reset_launch_counts()
+    mean, noise = kernels.chol_solve(A, b, z, jitter)
+    mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
+    assert kernels.LAUNCHES["chol_solve"] == 2
+    assert torch.equal(mean, mean2) and torch.equal(noise, noise2)
+    mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
+    torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
+    torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
+    mean_t, noise_t = kernels.chol_solve_packed_plain(
+        A[:2].cpu(), b[:2].cpu(), z[:2].cpu(), jitter)
+    torch.testing.assert_close(mean[:2].cpu(), mean_t, rtol=0, atol=5e-5)
+    torch.testing.assert_close(noise[:2].cpu(), noise_t, rtol=0, atol=5e-4)
+
+
+def test_kernel_wrappers_refuse_float64_on_the_card(dev):
+    """The kernels take float32 only; a float64 tensor on the card raises
+    by name at every wrapper, it is not cast silently (on the CPU the plain
+    versions take it)."""
+    f64 = dict(dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="chol_solve.*float32"):
+        kernels.chol_solve(torch.eye(8, **f64)[None], torch.ones(1, 8, **f64),
+                           torch.ones(1, 8, **f64))
+    with pytest.raises(ValueError, match="mean_rss.*float32"):
+        kernels.mean_rss(torch.ones(3, 4, 8, **f64), torch.ones(3, 4, **f64),
+                         torch.ones(2, 3, 8, **f64))
+    with pytest.raises(ValueError, match="weighted_gram.*float32"):
+        kernels.weighted_gram(torch.ones(2, 3, **f64),
+                              torch.ones(3, 8, 8, **f64))
+    mean, _ = kernels.chol_solve(torch.eye(8, dtype=torch.float64)[None] * 2,
+                                 torch.ones(1, 8, dtype=torch.float64),
+                                 torch.ones(1, 8, dtype=torch.float64))
+    assert mean.dtype == torch.float64
+
+
+def test_mean_rss_wide_p_raises_on_the_card(dev):
+    """A P too wide for a block's tile of w: no kernel serves it, and on the
+    card the wrapper raises; it does not give way to the plain version."""
+    P = 2000
+    g = torch.Generator(device=dev).manual_seed(0)
+    B = torch.randn(4, 5, P, generator=g, device=dev)
+    y = torch.randn(4, 5, generator=g, device=dev)
+    w = torch.randn(3, 4, P, generator=g, device=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="too wide"):
+        kernels.mean_rss(B, y, w, want_mu=True)
+    assert kernels.LAUNCHES["mean_rss"] == 0
+
+
 def test_chol_solve_rejects_oversize_dimension(dev):
+    """A D above every kernel raises on the card and names the queued
+    item; nothing is launched and nothing goes to torch.linalg."""
     D = kernels.chol_solve_max_dim() + 1
     A = torch.eye(D, device=dev)[None]
     b = torch.zeros(1, D, device=dev)
+    kernels.reset_launch_counts()
     with pytest.raises(NotImplementedError, match="large-D"):
-        kernels.chol_solve(A, b, b)
+        kernels.chol_solve(A, b, b, 1e-6)
+    assert kernels.LAUNCHES["chol_solve"] == 0
 
 
 @pytest.mark.parametrize("C,N,L,P,pad", [(256, 100, 100, 8, None),
@@ -136,6 +201,11 @@ def test_chol_solve_rejects_oversize_dimension(dev):
                                          (20, 9, 11, 12, None),
                                          (200, 100, 100, 8, None),
                                          (400, 100, 100, 8, None),
+                                         # the hd family: P = 16, L = 144
+                                         (64, 64, 144, 16, None),
+                                         (128, 64, 144, 16, None),
+                                         (4, 64, 144, 16, None),
+                                         (5, 9, 11, 16, 7),
                                          (50, 100, 100, 6, None)])
 def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
     """The main path's two shapes (C chains and the MGP-scale moves' 2C
@@ -332,3 +402,46 @@ def test_excursion_on_the_card_matches_the_cpu(dev):
     assert out[str(dev)][2].device.type == "cuda"
     torch.testing.assert_close(out[str(dev)][2].cpu(), out["cpu"][2],
                                rtol=2e-4, atol=2e-3)
+
+
+def test_config_4_checkpoint_split_equals_the_unbroken_run(dev, tmp_path):
+    """The covariate-adjusted covariance model at the suite's config-4 width
+    (K=2, P=8, M=16, N=80, D=1; 16 chains): Phi and xi both drawn jointly at
+    D = 256 by the packed kernel, twice a sweep; 100 + 100 sweeps of the
+    production census through a checkpoint give the bits of one 200-sweep
+    run, an excursion included, and the resume keeps covariate_cov."""
+    import numpy as np
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=7, N=80, K=2, P=8, M=16, D=1,
+                                  n_time=(100, 100), with_eta=True,
+                                  with_xi=True)
+    r1 = api.fit_nu_z(data=data, K=2, M=16, tot_mcmc_iters=100, n_try=1,
+                      init="spectral")
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100, covariate_cov=True)
+    assert r2.config.covariate_cov and r2.final_state.xi.device.type == "cuda"
+    ck = str(tmp_path / "c4.npz")
+    kw = dict(kernels="production", n_temp_trans=60, N_t=2, beta_N_t=0.7,
+              progress=False)
+    whole = api.fit_warm_start(r1, r2, tot_mcmc_iters=200, n_chains=16,
+                               seed=3, **kw)
+    kernels.reset_launch_counts()
+    first = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, n_chains=16,
+                               seed=3, checkpoint_to=ck, **kw)
+    # 99 sweeps and one excursion of 4: K1 twice each, at the packed
+    # kernel's D = 256
+    assert kernels.LAUNCHES["chol_solve"] == 2 * (99 + 4)
+    assert kernels.chol_solve_plan(16, 256)["kernel"] == "packed"
+    rest = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
+                              **kw)
+    assert rest.config == r2.config
+    np.testing.assert_array_equal(
+        np.concatenate([first.all_chain_loglik, rest.all_chain_loglik], 1),
+        whole.all_chain_loglik)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(rest.ensemble_state, f),
+                           getattr(whole.ensemble_state, f)), f
+    assert bool(rest.ensemble_state.xi.any())

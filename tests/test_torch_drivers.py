@@ -319,8 +319,10 @@ def test_sweep_nu_z_leaves_the_covariance_block_untouched():
         assert getattr(new, f) is getattr(st, f), f
     for f in ("Z", "pi", "alpha3", "nu", "tau", "sigma2"):
         assert not torch.equal(getattr(new, f), getattr(st, f)), f
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        gibbs.sweep_nu_z(None, st, tdata, THP, None, covariate_mean=True)
+    # the data has no covariates: the covariate flag draws nothing
+    cov = gibbs.sweep_nu_z(torch.Generator().manual_seed(0), st, tdata, THP,
+                           torch.full((2,), 10.0), covariate_mean=True)
+    assert torch.equal(cov.sigma2, new.sigma2) and cov.eta is st.eta
 
 
 def test_sweep_theta_leaves_the_mean_block_untouched():
@@ -333,8 +335,9 @@ def test_sweep_theta_leaves_the_mean_block_untouched():
     for f in ("Phi", "delta", "A", "gamma", "tau", "sigma2", "chi"):
         assert not torch.equal(getattr(new, f), getattr(st, f)), f
     for kw in (dict(covariate_mean=True), dict(covariate_cov=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            gibbs.sweep_theta(None, st, tdata, THP, **kw)
+        cov = gibbs.sweep_theta(torch.Generator().manual_seed(0), st, tdata,
+                                THP, **kw)
+        assert torch.equal(cov.chi, new.chi) and cov.xi is st.xi
 
 
 def test_phase_nu_z_pins_phi_at_zero():
@@ -385,3 +388,41 @@ def test_phase_ensemble_matches_jax(phase):
         se = np.sqrt(a.var(0) / len(a) + b.var(0) / len(b))
         assert np.all(np.abs(a.mean(0) - b.mean(0)) <= 5.0 * se), \
             f"{name}: {a.mean(0)} vs {b.mean(0)} (se {se})"
+
+
+def test_phase_3_from_the_jax_medians_lands_where_jax_did():
+    """The fit smoke's tight gate on the CPU: the port's phase 3 alone from
+    the JAX package's own phase-1/2 medians (stored by
+    tests/data/make_torch_fit_reference.py) at 32 chains; its ensemble
+    median lies within 5 standard errors of two sample medians (64 JAX
+    chains, 32 here) of the JAX package's, with no spread between fit seeds
+    in the limits.  About a minute on the CPU."""
+    import json
+    from pathlib import Path
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.config import ModelConfig as TModelConfig
+    from bayesfmmm_torch.utils.simulate import (
+        simulate_functional as tsimulate)
+
+    ref = json.loads((Path(__file__).parent / "data"
+                      / "torch_fit_reference.json").read_text())
+    p, C = ref["protocol"], 32
+    data, _ = tsimulate(seed=p["seed"], N=p["N"], K=p["K"], P=p["P"],
+                        M=p["M"], n_time=tuple(p["n_time"]), device="cpu")
+    start = convert.fit_result_from_estimates(
+        ref["warm_start_from"], data, TModelConfig(K=p["K"], P=p["P"],
+                                                   M=p["M"]))
+    res = api.fit_warm_start(
+        start, start, tot_mcmc_iters=p["warm_iters"], n_chains=C,
+        kernels=p["kernels"], n_temp_trans=p["n_temp_trans"], N_t=p["N_t"],
+        beta_N_t=p["beta_N_t"], progress=False, seed=p["fit_seed"] + 2)
+    run = ref["runs"][0]
+    assert run["fit_seed"] == ref["from_jax_medians"]["fit_seed"]
+    for stat, x in (("loglik", res.all_chain_loglik[:, -1]),
+                    ("sigma2", res.ensemble_state.sigma2.numpy())):
+        s = run[stat]
+        half = 5.0 * 1.2533 * (s["q75"] - s["q25"]) / 1.349 * np.sqrt(
+            1.0 / ref["chains"] + 1.0 / C)
+        assert abs(np.median(x) - s["median"]) <= half, (stat, np.median(x),
+                                                         s["median"], half)

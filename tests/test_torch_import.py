@@ -69,7 +69,11 @@ def test_cuda_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_chol_solve_max_dim_fits_shared_memory():
-    D = kernels.chol_solve_max_dim()
-    assert 4 * (D * D + 2 * D) <= kernels.SMEM_PER_BLOCK
-    assert 4 * ((D + 1) ** 2 + 2 * (D + 1)) > kernels.SMEM_PER_BLOCK
-    assert D >= 112     # at least the TPU kernel's gate
+    def packed(D):      # the triangle with b as a row, two columns, z
+        return 4 * (kernels.packed_row(D + 1) + 2 * ((D + 4) // 4 * 4) + D)
+    top = kernels.chol_solve_max_dim()
+    assert packed(top) <= kernels.SMEM_PER_BLOCK < packed(top + 1)
+    assert top >= 112       # at least the TPU kernel's gate
+    assert top >= 256       # the 256-dimensional joint draws have a kernel
+    # a square matrix of that side would not fit a block: hence the triangle
+    assert 4 * (256 * 256 + 2 * 256) > kernels.SMEM_PER_BLOCK

@@ -65,18 +65,27 @@ def test_kernel_bound_counts_mu_and_rejects_unknown():
 
 @pytest.mark.parametrize("C", [1, 3, 256, 1000])
 def test_chol_solve_plan_owns_every_entry_once(C):
-    """Over D = 1..240: the tiled kernel's cyclic layout gives every entry
+    """Over D = 1..334: the tiled kernel's cyclic layout gives every entry
     on or below the diagonal to exactly one (thread, register) pair, the
-    grid covers every chain, and shared memory fits one block."""
+    packed kernel's storage one float to every entry of the triangle and of
+    b, the grid covers every chain, and shared memory fits one block."""
     top = kernels.chol_solve_max_dim()
-    assert top == 240
+    assert top == 334
     for D in range(1, top + 1):
         plan = kernels.chol_solve_plan(C, D)
         assert plan["smem"] <= kernels.SMEM_PER_BLOCK
         assert plan["grid"] == C                # one chain a block
-        if plan["kernel"] == "shared":
-            assert plan["tile"] is None
-            assert plan["smem"] == 4 * (D * D + 2 * D)
+        if plan["kernel"] == "packed":
+            assert plan["tile"] is None and D > 128
+            assert plan["threads"] == (kernels.K1_PACKED_THREADS,)
+            i, k = np.tril_indices(D + 1)
+            i, k = i[k < D], k[k < D]           # row D is b: no diagonal
+            off = kernels.packed_row(i) + k
+            assert len(np.unique(off)) == len(off)
+            assert off.max() < kernels.packed_row(D + 1)
+            assert (kernels.packed_row(np.arange(D + 2)) % 4 == 0).all()
+            assert plan["smem"] == 4 * (kernels.packed_row(D + 1)
+                                        + 2 * ((D + 4) // 4 * 4) + D)
             continue
         assert plan["kernel"] == "tiled"
         (TR, TC), (RT, CT) = plan["threads"], plan["tile"]
@@ -92,7 +101,8 @@ def test_chol_solve_plan_owns_every_entry_once(C):
 def test_chol_solve_plan_main_path_and_limits():
     """D = 96 takes the register-tiled kernel with 16 x 16 threads and 6 x 6
     tiles, one chain a block, two blocks an SM; above the tiled kernel's
-    reach the shared-memory one; above 240 nothing."""
+    reach the packed one; above 334 the plan raises and names the queued
+    item."""
     plan = kernels.chol_solve_plan(256, 96)
     assert plan["kernel"] == "tiled" and plan["threads"] == (16, 16)
     assert plan["tile"] == (6, 6) and plan["grid"] == 256
@@ -102,38 +112,47 @@ def test_chol_solve_plan_main_path_and_limits():
         assert kernels.chol_solve_plan(5, D)["tile"] == (6, 6)
     for D in (97, 128):
         assert kernels.chol_solve_plan(5, D)["tile"] == (8, 8)
-    for D in (129, 200, 240):
-        assert kernels.chol_solve_plan(5, D)["kernel"] == "shared"
-    with pytest.raises(NotImplementedError, match="K1 large-D"):
-        kernels.chol_solve_plan(2, 241)
+    for D in (129, 200, 240, 241, 250, 256, 334):
+        assert kernels.chol_solve_plan(2, D)["kernel"] == "packed"
+    with pytest.raises(NotImplementedError, match="335 exceeds 334.*large-D"):
+        kernels.chol_solve_plan(2, 335)
     with pytest.raises(ValueError):
         kernels.chol_solve_plan(0, 96)
 
 
 def test_chol_solve_rejects_oversize_dimension_on_any_device():
-    """The wrapper's CPU route takes any D (the plain version); the plan,
-    which the CUDA route asks, names the queued large-D item."""
+    """The wrapper's CPU route takes any D (the plain version) and counts
+    nothing; the plan, which the CUDA route asks, names the queued large-D
+    item."""
     D = kernels.chol_solve_max_dim() + 1
     A = torch.eye(D)[None] * 2.0
     b = torch.ones(1, D)
+    kernels.reset_launch_counts()
     mean, noise = kernels.chol_solve(A, b, b)
     torch.testing.assert_close(mean, b / 2.0)
     torch.testing.assert_close(noise, b / 2.0 ** 0.5)
+    assert kernels.LAUNCHES["chol_solve"] == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         kernels.chol_solve_plan(1, D)
 
 
-def test_k1_probe_patches_match_the_source():
-    """Each knock-out of utils/k1_probe.py patches csrc/chol_solve.cu in
-    exactly one place, and changes it."""
+@pytest.mark.parametrize("which", ["tiled", "packed"])
+def test_k1_probe_patches_match_the_source(which):
+    """Each knock-out of utils/k1_probe.py, of the register kernel and of
+    the packed one, patches csrc/chol_solve.cu in exactly one place, and
+    changes it."""
     from bayesfmmm_torch.utils import k1_probe
     text = (kernels._CSRC / "chol_solve.cu").read_text()
-    sources = k1_probe.patched_sources(text)
-    assert set(sources) == set(k1_probe.KNOCK_OUTS) and sources["whole"] == text
+    outs = k1_probe.KNOCK_OUTS if which == "tiled" \
+        else k1_probe.PACKED_KNOCK_OUTS
+    sources = k1_probe.patched_sources(text, outs)
+    assert set(sources) == set(outs) and sources["whole"] == text
     assert all(src != text for name, src in sources.items()
                if name != "whole")
+    broken = text.replace("rsqrtf(d)", "rsqrtf(d + 0)").replace(
+        "rsqrtf(cur[j])", "rsqrtf(cur[j] + 0)")
     with pytest.raises(RuntimeError, match="not once"):
-        k1_probe.patched_sources(text.replace("rsqrtf(d)", "rsqrtf(d + 0)"))
+        k1_probe.patched_sources(broken, outs)
 
 
 def _mean_rss_tiled(B, y, w, plan):
@@ -302,7 +321,7 @@ def _entry_points():
     t_list = [np.linspace(0.0, 1.0, int(m.sum())) for m in mask]
     y_list = [data.y.numpy()[i][mask[i]] for i in range(len(mask))]
     jax_like = type("JaxModelData", (), dict(
-        identity_basis=False,
+        identity_basis=False, family="functional",
         **{f: getattr(data, f).numpy()
            for f in ("y", "mask", "B", "X", "G", "pen", "u", "yy")}))()
     return {
@@ -335,3 +354,62 @@ def test_entry_point_defaults_to_the_card(name):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tstate.default_device()
     assert tstate.default_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the covariate-adjusted models and the hd family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C,nbytes,flop,bound_us,by", [
+    # a triangle of A 256*257/2 = 32,896 floats and 4 vectors of 256 a
+    # chain: 33,920 floats; D^3/3 + 3 D^2 = 5,789,013.3 FLOP a chain
+    (16, 2_170_880, 16 * (256 ** 3 / 3 + 3 * 256 ** 2), 1.382, "operations"),
+    (64, 8_683_520, 64 * (256 ** 3 / 3 + 3 * 256 ** 2), 5.530, "operations"),
+    (256, 34_734_080, 256 * (256 ** 3 / 3 + 3 * 256 ** 2), 22.119,
+     "operations"),
+])
+def test_kernel_bound_of_the_256_dimensional_draws(C, nbytes, flop, bound_us,
+                                                   by):
+    b = kernels.kernel_bound("chol_solve", C=C, D=256)
+    assert b["bytes"] == nbytes
+    assert b["flop"] == pytest.approx(flop, rel=1e-12)
+    assert b["bound_by"] == by
+    assert b["bound_ms"] == pytest.approx(bound_us * US, rel=1e-3)
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * max(nbytes / 3.35e12, flop / 67e12), rel=1e-12)
+
+
+def test_plans_at_the_new_main_path_shapes():
+    """What the plans choose where slice 6 first puts them on a main path:
+    K1 at D = 256 the packed kernel with its triangle in 137,264 bytes (one
+    block an SM); K2 at the hd family's P = 16, L = 144 the kernel, its tile
+    of w inside the budget; K3 the tiled kernel at update_eta's rows, at the
+    sequential scan's and at P = 16 (66 KB at N = 64)."""
+    for C in (16, 64, 256):
+        plan = kernels.chol_solve_plan(C, 256)
+        assert plan["kernel"] == "packed" and plan["grid"] == C
+        assert plan["smem"] == 137_264
+        assert 2 * plan["smem"] > kernels.SMEM_PER_BLOCK
+    assert kernels.chol_solve_plan(4, 60)["tile"] == (6, 6)     # config 1
+    assert kernels.chol_solve_plan(8, 72)["tile"] == (6, 6)     # config 3
+    for C in (4, 64, 128):
+        plan = kernels.mean_rss_plan(C, 64, 144, 16)
+        assert plan["smem"] == 4 * plan["TC"] * plan["TN"] * 16 \
+            <= kernels.K2_W_SMEM
+        assert plan["grid"][0] * plan["TC"] >= C
+        assert plan["grid"][1] * plan["TN"] >= 64
+    for R, N, P in ((48, 100, 8), (512, 80, 8), (32, 80, 8), (256, 64, 16),
+                    (16, 64, 16)):
+        plan = kernels.weighted_gram_plan(R, N, P)
+        assert plan["tiled"] and plan["grid"][0] * plan["TR"] >= R
+        assert plan["smem"] == 4 * (N * P * P + plan["TR"] * N) \
+            <= kernels.SMEM_PER_BLOCK
+    assert kernels.weighted_gram_plan(256, 64, 16)["smem"] == 66_048
+
+
+def test_reset_launch_counts_clears_every_counter():
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 3
+    kernels.reset_launch_counts()
+    assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 0,
+                                "weighted_gram": 0}

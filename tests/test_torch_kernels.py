@@ -246,7 +246,50 @@ def test_weighted_gram_keeps_leading_axes():
     rng = np.random.default_rng(0)
     G = torch.from_numpy(rng.normal(size=(7, 5, 5)).astype(np.float32))
     W = torch.from_numpy(rng.uniform(size=(3, 2, 7)).astype(np.float32))
-    out = _weighted_gram(SimpleNamespace(G=G), W.transpose(0, 1))
+    out = _weighted_gram(SimpleNamespace(G=G, identity_basis=False), W.transpose(0, 1))
     assert out.shape == (2, 3, 5, 5)
     torch.testing.assert_close(out, torch.einsum("kcn,npq->kcpq",
                                                  W.transpose(0, 1), G))
+
+
+# ---------------------------------------------------------------------------
+# K1's packed kernel: its plain version, which repeats its arithmetic on its
+# own storage
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("C,D", [(3, 1), (2, 7), (4, 33), (2, 96), (1, 241)])
+@pytest.mark.parametrize("jitter", [0.0, 1e-3])
+def test_chol_solve_packed_plain_matches_plain(dtype, tol, C, D, jitter):
+    """Packed lower triangle with b as a row, raw columns scaled by the
+    reader, reciprocals on the diagonal: the same (mean, noise) as the
+    library's factor and solves, to ``tol`` of the result's scale."""
+    g = torch.Generator().manual_seed(D)
+    X = torch.randn(C, D, D + 4, generator=g, dtype=dtype)
+    A = X @ X.mT / D + torch.eye(D, dtype=dtype)
+    b = torch.randn(C, D, generator=g, dtype=dtype)
+    z = torch.randn(C, D, generator=g, dtype=dtype)
+    mean, noise = kernels.chol_solve_packed_plain(A, b, z, jitter)
+    mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
+    assert mean.dtype == dtype and mean.shape == (C, D)
+    for got, want in ((mean, mean_p), (noise, noise_p)):
+        assert float((got - want).abs().max()) <= tol * (
+            1.0 + float(want.abs().max()))
+    # the inputs are left as they were
+    assert torch.equal(A, X @ X.mT / D + torch.eye(D, dtype=dtype))
+
+
+def test_chol_solve_plain_versions_agree_at_the_joint_draws_dimension():
+    """D = 256, the joint xi and hd Phi draws: plain, tiled-plain and
+    packed-plain on the same float64 inputs to 1e-10."""
+    g = torch.Generator().manual_seed(256)
+    X = torch.randn(2, 256, 300, generator=g, dtype=torch.float64)
+    A = X @ X.mT / 256 + torch.eye(256, dtype=torch.float64)
+    b = torch.randn(2, 256, generator=g, dtype=torch.float64)
+    z = torch.randn(2, 256, generator=g, dtype=torch.float64)
+    want = kernels.chol_solve_plain(A, b, z, 1e-6)
+    for fn in (kernels.chol_solve_packed_plain,
+               kernels.chol_solve_tiled_plain):
+        for got, ref in zip(fn(A, b, z, 1e-6), want):
+            assert float((got - ref).abs().max()) < 1e-10, fn.__name__

@@ -121,8 +121,10 @@ def test_convert_roundtrip_is_exact(both):
         assert torch.equal(getattr(dd, f), getattr(tdata, f))
     assert dd.n_obs == tdata.n_obs
     mv, _ = jsim.simulate_multivariate(seed=0, N=5, K=2, P=3, M=1)
-    with pytest.raises(NotImplementedError, match="multivariate"):
-        convert.data_from_jax(mv, device="cpu")
+    dmv = convert.data_from_jax(mv, device="cpu")
+    assert dmv.identity_basis and dmv.family == "multivariate"
+    assert not dd.identity_basis and dd.family == "functional"
+    assert torch.equal(dmv.G, torch.eye(3).expand(5, 3, 3))
 
 
 def test_init_state_shapes_and_support(both):
@@ -136,3 +138,46 @@ def test_init_state_shapes_and_support(both):
     torch.testing.assert_close(st.Z.sum(-1), torch.ones(6, 12))
     torch.testing.assert_close(st.pi.sum(-1), torch.ones(6))
     assert bool((st.Z >= 0).all()) and bool(torch.isfinite(st.nu).all())
+
+
+# ---------------------------------------------------------------------------
+# Covariates: state shapes and the carriers at D > 0
+# ---------------------------------------------------------------------------
+
+def test_init_state_shapes_with_covariates():
+    """eta, tau_eta, xi, gamma_xi, delta_xi, A_xi at D = 2: the JAX shapes
+    (models/state.py:238-243) with the chain axis in front, eta and xi at 0
+    and the rest at 1."""
+    jdata, _ = jsim.simulate_functional(seed=1, N=6, K=3, P=5, M=2, D=2,
+                                        n_time=(8, 10))
+    jst = jstate.init_state(jax.random.PRNGKey(0),
+                            jconfig.ModelConfig(K=3, P=5, M=2, D=2,
+                                         covariate_mean=True), jdata)
+    tdata = convert.data_from_jax(jdata, device="cpu")
+    st = tstate.init_state(torch.Generator().manual_seed(0),
+                           config.ModelConfig(K=3, P=5, M=2, D=2,
+                                        covariate_mean=True), tdata, chains=4)
+    for f in ("eta", "tau_eta", "xi", "gamma_xi", "delta_xi", "A_xi"):
+        assert getattr(st, f).shape == (4,) + np.asarray(getattr(jst, f)).shape
+        np.testing.assert_array_equal(getattr(st, f)[0].numpy(),
+                                      np.asarray(getattr(jst, f)), f)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_state_carriers_with_covariates(dtype):
+    """state_from_numpy / state_to_numpy at D > 0: one chain's leaves are
+    broadcast, a stacked state is taken as it is, the round trip is exact,
+    and float64 is kept when asked for."""
+    _, truth = jsim.simulate_functional(seed=2, N=5, K=2, P=4, M=2, D=2,
+                                        n_time=(6, 8), with_eta=True,
+                                        with_xi=True)
+    st = convert.state_from_numpy(truth, chains=3, device="cpu", dtype=dtype)
+    assert st.xi.shape == (3, 2, 4, 2, 2) and st.xi.dtype == dtype
+    assert st.A_xi.shape == (3, 2, 2, 2) and st.delta_xi.shape == (3, 2, 2, 2)
+    back = convert.state_to_numpy(st)
+    for f in tstate.STATE_FIELDS:
+        np.testing.assert_array_equal(back[f][1],
+                                      np.asarray(getattr(truth, f)), f)
+    again = convert.state_from_numpy(back, chains=3, device="cpu",
+                                     dtype=dtype)
+    assert torch.equal(again.eta, st.eta) and float(st.eta.abs().max()) > 0

@@ -108,7 +108,7 @@ def test_sweep_ensemble_matches_jax(census):
             f"{name}: {a.mean(0)} vs {b.mean(0)} (se {se})"
 
 
-def test_driver_thinning_and_flags_outside_the_slice():
+def test_driver_thinning_and_flags_outside_the_slice(monkeypatch):
     from bayesfmmm_torch.ops import gibbs as tgibbs
     from bayesfmmm_torch.ops.mean import build_cache
     from bayesfmmm_torch.utils.simulate import simulate_functional as tsim
@@ -123,15 +123,24 @@ def test_driver_thinning_and_flags_outside_the_slice():
     assert res.loglik.shape == (3, 2) and res.traces["Z"].shape == (3, 2, 6, 2)
     assert torch.equal(res.traces["sigma2"][:, -1], res.final_state.sigma2)
     for kw in (dict(z_anchor=True), dict(phi_chi_moves=1),
-               dict(hmc_steps=1), dict(covariate_mean=True)):
+               dict(hmc_steps=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
             drivers.phase_warm_start(g, st, data, hp, c, n_iters=1, **kw)
+    # without covariates in the data the covariate flags draw nothing
+    a, b = (drivers.phase_warm_start(
+        torch.Generator().manual_seed(3), st, data, hp, c, n_iters=2, **kw)
+        for kw in ({}, dict(covariate_mean=True, covariate_cov=True)))
+    assert torch.equal(a.loglik, b.loglik)
     # tempered transitions run: one excursion, at iteration 2 of 0..3
     tt = drivers.phase_warm_start(g, st, data, hp, c, n_iters=4,
                                   n_temp_trans=2, N_t=2, beta_N_t=0.5)
     assert tt.tt_accept.shape == (3, 1) and tt.loglik.shape == (3, 4)
     with pytest.raises(ValueError, match="betas"):
         drivers.phase_warm_start(g, st, data, hp, c, n_iters=2, betas=[0.5])
-    wide = st.replace(Phi=torch.zeros(3, 2, 5, 410))   # K*M*P = 4100
-    with pytest.raises(NotImplementedError, match="sequential blocked"):
-        tgibbs.update_phi(g, wide, data, hp, build_cache(data, st))
+    # above the joint draw's largest dimension the blocks are drawn one
+    # after another: another stream of draws, finite and of the same shape
+    monkeypatch.setattr(tgibbs, "_JOINT_MAX_DIM", 4)    # K*M*P = 20 here
+    seq, cache = tgibbs.update_phi(g, st, data, hp, build_cache(data, st))
+    assert seq.Phi.shape == st.Phi.shape and torch.isfinite(seq.Phi).all()
+    torch.testing.assert_close(cache.w, build_cache(data, seq).w,
+                               rtol=1e-4, atol=1e-4)
