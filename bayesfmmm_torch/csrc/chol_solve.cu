@@ -65,55 +65,65 @@
 //   is 10 us of a call, the back substitutions 3, the staging of A 2.  A
 //   step is latency: barrier, shared-memory read, multiply-adds, shuffle,
 //   rsqrtf, shared-memory write.
-// The packed kernel (128 < D <= 334; config shapes D = K*M*P = 256 of the
+// The blocked kernel (128 < D <= 336; config shapes D = K*M*P = 256 of the
 // covariate-adjusted xi draw and of the hd family's Phi draw).  A square
-// 256 x 256 float matrix is 256 KB and does not fit a block's 227 KB, and
-// the designs that would hold it elsewhere cost more than they give at this
-// size: panels streamed from global memory pay a round trip to L2 in every
-// one of the D dependent column steps, and a cluster sharing the factor
-// through distributed shared memory pays a cluster barrier there.  The
-// factor only ever touches the lower triangle, and D (D + 1) / 2 floats are
-// 128.5 KB at D = 256: so the triangle is kept packed in one block's shared
-// memory, row by row, every row padded to 16 bytes (131 KB at D = 256),
-// which serves every D up to 334 with the chain still one block and no
-// global traffic inside the loop.  What it does about the cost of a column
-// step:
-//   * ONE barrier a column.  Row i belongs to warp i mod 16 for the whole
-//     factorization.  The owner of a row updates it, hands the entry of the
-//     next column to a buffer of D + 1 raw (unscaled) values, and stores
-//     L[i][j]; after the barrier every warp reads the raw column, takes the
-//     one reciprocal square root of its diagonal itself and scales what it
-//     needs.  Two buffers in turn, as in the tiled kernel.  The hand-over is
-//     done by every lane with the same values after a __syncwarp.  What the
-//     card chose at 16 chains of D = 256 (utils/k1_probe.py --kernel
-//     packed): stores under a one-lane branch in the inner loop cost 0.17 of
-//     0.60 ms; a shuffle from the lane that holds the entry in place of the
-//     read-back, 0.15 ms more; two rows of a warp at a time, 0.13 ms more;
-//     1,024 threads the same, 256 threads 0.2 ms more.
-//   * A lane keeps its scaled column values l_k in registers, four
-//     neighbouring columns a chunk, for all the rows of its warp, so the
-//     inner step is one 16-byte shared-memory load, four multiply-adds and
-//     one 16-byte store; rows are contiguous and aligned, so the loads are
-//     conflict-free.  l_k is 0 at the finished columns, which makes the
-//     update a no-op there, and the last four entries of a row may reach
-//     into the row's own pad: no store needs a mask.  (One entry a lane
-//     with a predicate each, the first version, took 1,056 us at 16 chains:
-//     ten instructions a multiply-add.)
-//   * b is row D of the matrix, so w = L^-1 b rides along, and 1 / L_jj is
-//     kept in the diagonal's place: the back substitutions (one warp, both
-//     right-hand sides in registers, along contiguous rows of L, as in the
-//     tiled kernel) multiply by it.
-//   * The jitter goes onto the diagonal in shared memory, the trace summed
-//     by one warp in a fixed order.
-// 128.5 KB a block is one block an SM: 132 chains run at once, and 256
-// chains take two waves.  ops/kernels.py::chol_solve_packed_plain repeats
-// this arithmetic on the same storage in PyTorch.  It also serves
-// 128 < D <= 240, where a kernel that kept the matrix in shared memory as a
-// square (two barriers a column) stood before: the card gave the packed
-// kernel 129, 266 and 366 us at 16 chains of D = 129, 200 and 240 against
-// the square's 224, 514 and 756, and 255, 536 and 745 against 241, 1,042
-// and 1,537 at 256 chains (utils/kernel_bench.py --sweep, one call), so the
-// square went.
+// 256 x 256 float matrix is 256 KB and does not fit a block's 227 KB, but
+// the factor only touches the lower triangle: D (D + 1) / 2 floats, packed
+// row by row with every row padded to 16 bytes (134 KB at D = 256), with b
+// as row D and z beside it, fit one block up to D = 336.  One chain a block,
+// and 134 KB of shared memory a block is one block an SM.
+// What bounds it on the card.  By the count, operations: D^3/3 multiply-adds
+// a chain against 34 KB of A, b and z, 1.38 us at 16 chains of D = 256.  In
+// practice the chain's own work on one SM: at one block an SM, 16 chains
+// use 16 SMs, and the time is the chain of dependent steps (the diagonal
+// blocks, the panel solves, the back substitutions) plus the trailing
+// updates' instructions on that SM.  Device memory is touched only to stage
+// A and write the result.  What the design does about it, a panel of NB
+// columns at a time (right-looking):
+//   * The diagonal block (NB x NB) is factored by one warp in registers:
+//     lane r holds row k0 + r, the diagonal comes by a shuffle, every lane
+//     takes the one reciprocal square root, and the scaled column goes round
+//     by shuffles, the next diagonal first.  No block barrier inside;
+//     1 / L_jj is kept in the diagonal's place for the substitutions.
+//   * The panel below it, L21 = A21 L11^-T, one row a thread (row D among
+//     them, so b's panel becomes w = L^-1 b on the way): forward
+//     substitution by multiplication with the reciprocals, L11 read from its
+//     packed rows with 16-byte broadcast loads.  No barrier inside.
+//   * The trailing update A22 -= L21 L21^T on the lower triangle and row D,
+//     register-tiled: a thread owns a 4 x 4 tile, accumulates its NB-deep
+//     products from 16-byte loads of L21 and loads and stores each entry of
+//     A22 once a panel, not once a column.  A warp takes 4 x 8 tiles at once
+//     (lane = row tile + 4 * column tile: a quarter-warp reads 4 rows and 2
+//     columns of L21, the rest comes by broadcast); warps take these groups
+//     in turn; tiles wholly above the diagonal are skipped, and what a
+//     diagonal tile computes above the diagonal falls into its row's pad.
+//   * Three barriers a panel (24 at D = 256 with NB = 32) where an
+//     unblocked factor needs one a column.
+//   * Both back substitutions as before: one warp, u and v in registers,
+//     x_j handed round by shuffle, one row of L read a step.
+//   * A is staged with 16-byte cp.async copies of the groups on or below the
+//     diagonal (A 16-byte aligned and D a multiple of 4; 4-byte copies
+//     otherwise); the jitter goes onto the diagonal in shared memory, the
+//     trace summed by one warp in a fixed order.
+// This is blocking inside shared memory, which is neither of the designs
+// set aside for this size before: panels streamed from global memory pay a
+// round trip to L2 in each dependent step, and a cluster sharing the factor
+// through distributed shared memory pays a cluster barrier there.  Here
+// the whole triangle stays in one block's shared memory, as in the unblocked
+// packed kernel that stood here before (one barrier and one load and store
+// of the whole trailing triangle a column), and only the order of the work
+// changes.  What the card chose (an H100 80GB HBM3 at 700 W, with
+// utils/kernel_bench.py --sweep and utils/k1_probe.py --kernel blocked):
+// NB = 32 over 16 (slower from D = 200 up, the same at 129), the lanes and
+// the unmasked update above, the next diagonal first and the back
+// substitutions' steps unrolled by 4; slower, and set aside: lanes column
+// tile first, masking what lands in pads, 1,024 threads (64 registers,
+// spills), and a look-ahead in which warp 0 factors the next diagonal
+// block while the others finish the update (the update split in two costs
+// more than the diagonal blocks it hides).
+// ops/kernels.py::chol_solve_blocked_plain repeats this arithmetic in
+// PyTorch; tests/test_torch_kernel_bounds.py holds a copy of the tiling to
+// owning every entry once a panel.
 // No batch-minor transpose and no 128-lane padding: the TPU kernel needed
 // both to put chains on vector lanes; here chains are blocks.
 
@@ -360,13 +370,13 @@ cudaError_t launch_tiled(const float* A, const float* b, const float* z,
 }
 
 // ---------------------------------------------------------------------------
-// The packed kernel: the lower triangle in shared memory, D up to 334
+// The blocked kernel: the lower triangle in shared memory, a panel of NB
+// columns at a time, D up to 336
 // ---------------------------------------------------------------------------
 
-constexpr int kPackedThreads = 512;
-constexpr int kPackedWarps = kPackedThreads / 32;
-constexpr int kPackedChunks = 3;        // 128-column chunks of a row: D <= 384
-constexpr int kPackedSolveValues = 11;  // values a lane of the solve: D <= 352
+constexpr int kBlockedThreads = 512;
+constexpr int kBlockedWarps = kBlockedThreads / 32;
+constexpr int kSolveValues = 11;        // values a lane of the solve: D <= 352
 
 // Offset of row i of the packed triangle.  Row i holds its i + 1 entries and
 // is padded to a multiple of 4 floats, so every row starts on 16 bytes: four
@@ -376,30 +386,206 @@ __host__ __device__ __forceinline__ int packed_row(int i) {
   return 4 * (g + 1) * (2 * g + r);
 }
 
-__global__ void __launch_bounds__(kPackedThreads, 1)
-chol_packed_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                   const float* __restrict__ z, float* __restrict__ mean,
-                   float* __restrict__ noise, int D, float jitter) {
-  constexpr int T = kPackedThreads, W = kPackedWarps, NC = kPackedChunks;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float part(const float4& c, int m) {
+  return m == 0 ? c.x : m == 1 ? c.y : m == 2 ? c.z : c.w;
+}
+
+// One warp: the diagonal block at (k0, k0), nb <= NB of its rows real.  Lane
+// r holds row k0 + r in registers, the entries above the diagonal 0.  After
+// the column steps the row holds L (k < r) and 1 / L_rr (k == r); what lies
+// past the diagonal in its last 16-byte group is pad, read only under a
+// mask.
+template <int NB>
+__device__ __forceinline__ void factor_diagonal_block(float* a, int k0,
+                                                      int nb, int lane) {
+  float* row = a + packed_row(k0 + min(lane, nb - 1)) + k0;
+  float x[NB];
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (lane < nb && 4 * q <= lane) c = ld4(row + 4 * q);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      x[4 * q + m] = 4 * q + m <= lane ? part(c, m) : 0.0f;
+  }
+  float d = __shfl_sync(kFullWarp, x[0], 0);
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nb) {
+      const float inv = rsqrtf(d);
+      const float l = lane > j ? x[j] * inv : 0.0f;
+      x[j] = lane == j ? inv : l;
+      if (j + 1 < NB) {
+        // the next diagonal before the rest of the update: lane j + 1
+        // takes off its own l squared, one shuffle less in the chain
+        d = __shfl_sync(kFullWarp, fmaf(-l, l, x[j + 1]), j + 1);
+#pragma unroll
+        for (int k = j + 1; k < NB; ++k)
+          x[k] = fmaf(-l, __shfl_sync(kFullWarp, l, k), x[k]);
+      }
+    }
+  }
+  if (lane < nb) {
+#pragma unroll
+    for (int q = 0; q < NB / 4; ++q)
+      if (4 * q <= lane)
+        *reinterpret_cast<float4*>(row + 4 * q) =
+            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+  }
+}
+
+// One thread: row i (below the diagonal block, or row D) of the panel,
+// x <- x L11^-T by forward substitution, left-looking: x_j takes the dot
+// product of the finished x_m with row j of L11 in four partial sums, then
+// the reciprocal of L_jj, which lies in the same 16-byte group.
+template <int NB>
+__device__ __forceinline__ void solve_panel_row(float* a, int k0, int nb,
+                                                int i) {
+  float* row = a + packed_row(i) + k0;
+  float x[NB];
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (4 * q < nb) c = ld4(row + 4 * q);
+    x[4 * q] = c.x;
+    x[4 * q + 1] = c.y;
+    x[4 * q + 2] = c.z;
+    x[4 * q + 3] = c.w;
+  }
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    if (j < nb) {
+      const float* lj = a + packed_row(k0 + j) + k0;
+      float s[4] = {x[j], 0.0f, 0.0f, 0.0f};
+      float ri = 0.0f;
+#pragma unroll
+      for (int q = 0; q <= j / 4; ++q) {
+        const float4 c = ld4(lj + 4 * q);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          if (4 * q + m < j) s[m] = fmaf(-x[4 * q + m], part(c, m), s[m]);
+          if (4 * q + m == j) ri = part(c, m);
+        }
+      }
+      x[j] = ((s[0] + s[1]) + (s[2] + s[3])) * ri;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q)
+    if (4 * q < nb)
+      *reinterpret_cast<float4*>(row + 4 * q) =
+          make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// One thread: the 4 x 4 tile of rows i0.. and columns c0.. of the trailing
+// part, A -= L21 L21^T over the panel's NB columns.  Rows past D and columns
+// from D on read row D instead, unmasked: what they compute lands in rows
+// past D, which are not stored, or past a row's diagonal, in its pad, which
+// is only ever read under a mask.  Masking them was slower on the card
+// (utils/k1_probe.py, alt_masked_update).
+template <int NB>
+__device__ __forceinline__ void update_tile(float* a, int k0, int i0, int c0,
+                                            int D) {
+  int ro[4], co[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    ro[r] = packed_row(min(i0 + r, D)) + k0;
+    co[r] = packed_row(min(c0 + r, D)) + k0;
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < NB / 4; ++q) {
+    float4 rv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) rv[r] = ld4(a + ro[r] + 4 * q);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 cv = ld4(a + co[c] + 4 * q);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][c] = fmaf(rv[r].x, cv.x, acc[r][c]);
+        acc[r][c] = fmaf(rv[r].y, cv.y, acc[r][c]);
+        acc[r][c] = fmaf(rv[r].z, cv.z, acc[r][c]);
+        acc[r][c] = fmaf(rv[r].w, cv.w, acc[r][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (i0 + r <= D) {
+      float4* p = reinterpret_cast<float4*>(a + packed_row(i0 + r) + c0);
+      float4 t = *p;
+      t.x -= acc[r][0];
+      t.y -= acc[r][1];
+      t.z -= acc[r][2];
+      t.w -= acc[r][3];
+      *p = t;
+    }
+  }
+}
+
+// Every warp: the trailing part of the panel, rows s..D and columns
+// s..min(i, D - 1), in 4 x 4 tiles.  Tile (a, b) holds rows s + 4a.. and
+// columns s + 4b..; a warp owns the tiles (4 ga + lane % 4, 8 gb + lane / 4)
+// of a group (ga, gb), and the groups on or below the diagonal go to the
+// warps in turn, row of groups by row of groups.
+template <int NB>
+__device__ __forceinline__ void update_trailing(float* a, int k0, int s, int D,
+                                                int warp, int lane) {
+  const int n_rows = (D - s) / 4 + 1, n_cols = (D - s + 3) / 4;
+  const int rt = lane & 3, ct = lane >> 2;
+  int u = 0;
+  for (int ga = 0; 4 * ga < n_rows; ++ga) {
+    const int n_groups = min((4 * ga + 3) / 8 + 1, (n_cols + 7) / 8);
+    for (int gb = 0; gb < n_groups; ++gb, ++u) {
+      const int ta = 4 * ga + rt, tb = 8 * gb + ct;
+      if (u % kBlockedWarps == warp && tb <= ta && ta < n_rows && tb < n_cols)
+        update_tile<NB>(a, k0, s + 4 * ta, s + 4 * tb, D);
+    }
+  }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kBlockedThreads, 1)
+chol_blocked_kernel(const float* __restrict__ A, const float* __restrict__ b,
+                    const float* __restrict__ z, float* __restrict__ mean,
+                    float* __restrict__ noise, int D, float jitter,
+                    bool wide) {
+  constexpr int T = kBlockedThreads, W = kBlockedWarps;
   extern __shared__ __align__(16) float smem[];
-  const int CB = (D + 4) & ~3;              // a raw column: D + 1, padded
   float* a = smem;                          // rows 0..D; row D is b
-  float* colbuf = a + packed_row(D + 1);    // two raw columns
-  float* v = colbuf + 2 * CB;               // z -> noise
+  float* v = a + packed_row(D + 1);         // z -> noise
   float* u = a + packed_row(D);             // row D: b -> L^-1 b -> mean
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* Ag = A + (size_t)blockIdx.x * D * D;
   const size_t off_v = (size_t)blockIdx.x * D;
 
+  // stage the lower triangle, a row a warp
   for (int i = warp; i < D; i += W) {
     const float* src = Ag + (size_t)i * D;
     float* dst = a + packed_row(i);
-    for (int k = lane; k <= i; k += 32) dst[k] = src[k];
+    if (wide) {
+      for (int g = lane; 4 * g <= i; g += 32)
+        __pipeline_memcpy_async(dst + 4 * g, src + 4 * g, 16);
+    } else {
+      for (int k = lane; k <= i; k += 32)
+        __pipeline_memcpy_async(dst + k, src + k, 4);
+    }
   }
+  __pipeline_commit();
   for (int k = tid; k < D; k += T) {
     u[k] = b[off_v + k];
     v[k] = z[off_v + k];
   }
+  __pipeline_wait_prior(0);
   __syncthreads();
   if (jitter != 0.0f) {
     if (warp == 0) {        // the trace, summed in a fixed order
@@ -410,71 +596,21 @@ chol_packed_kernel(const float* __restrict__ A, const float* __restrict__ b,
     }
     __syncthreads();
   }
-  for (int i = tid; i < 2 * CB; i += T)      // column 0, raw; the pads 0
-    colbuf[i] = i <= D ? a[packed_row(i)] : 0.0f;
 
-  for (int j = 0; j < D; ++j) {
+  for (int k0 = 0; k0 < D; k0 += NB) {
+    const int nb = min(NB, D - k0), s = k0 + nb;
+    if (warp == 0) factor_diagonal_block<NB>(a, k0, nb, lane);
     __syncthreads();
-    const float* cur = colbuf + (j & 1) * CB;
-    float* nxt = colbuf + ((j + 1) & 1) * CB;
-    const float inv = rsqrtf(cur[j]);
-    if (tid == 0) a[packed_row(j) + j] = inv;
-    const int jn = j + 1;
-    // this lane's scaled column values l_k, four columns a chunk; 0 at the
-    // finished columns k <= j, whose entries the update then leaves alone
-    float4 lk[NC];
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int k0 = 4 * (lane + 32 * m);
-      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 < CB) c = *reinterpret_cast<const float4*>(cur + k0);
-      lk[m].x = (k0 > j && k0 < D) ? c.x * inv : 0.0f;
-      lk[m].y = (k0 + 1 > j && k0 + 1 < D) ? c.y * inv : 0.0f;
-      lk[m].z = (k0 + 2 > j && k0 + 2 < D) ? c.z * inv : 0.0f;
-      lk[m].w = (k0 + 3 > j && k0 + 3 < D) ? c.w * inv : 0.0f;
-    }
-    // the rows below j of this warp: i = warp (mod W), row D included.  A
-    // lane updates four entries of a row at once, all of a row's loads
-    // before its stores; the last four of a row may reach into the row's
-    // own pad, which nothing reads.
-    const int first = jn + ((warp - jn) % W + W) % W;
-    for (int i = first; i <= D; i += W) {
-      const float li = cur[i] * inv;
-      float* row = a + packed_row(i);
-      const int kmax = min(i, D - 1);
-      float4 x[NC];
-#pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const int k0 = 4 * (lane + 32 * m);
-        if (k0 <= kmax && k0 + 3 >= j)
-          x[m] = *reinterpret_cast<const float4*>(row + k0);
-      }
-#pragma unroll
-      for (int m = 0; m < NC; ++m) {
-        const int k0 = 4 * (lane + 32 * m);
-        if (k0 <= kmax && k0 + 3 >= j) {
-          x[m].x = fmaf(-li, lk[m].x, x[m].x);
-          x[m].y = fmaf(-li, lk[m].y, x[m].y);
-          x[m].z = fmaf(-li, lk[m].z, x[m].z);
-          x[m].w = fmaf(-li, lk[m].w, x[m].w);
-          *reinterpret_cast<float4*>(row + k0) = x[m];
-        }
-      }
-      // the raw entry of the next column goes to its buffer and L[i][j] (in
-      // row D, w_j) into the place of the entry it was made from: every
-      // lane stores the same values, so nothing branches
-      __syncwarp();
-      nxt[i] = row[jn];
-      row[j] = li;
-    }
+    for (int i = s + tid; i <= D; i += T) solve_panel_row<NB>(a, k0, nb, i);
+    __syncthreads();
+    if (s < D) update_trailing<NB>(a, k0, s, D, warp, lane);
+    __syncthreads();
   }
-  __syncthreads();
 
   if (warp == 0) {
-    // backward on both right-hand sides along the rows of L, x <- L^-T x,
-    // as in the tiled kernel: u and v in registers, x_j handed round by
-    // shuffle, one row of L read a step, no barrier
-    constexpr int NV = kPackedSolveValues;
+    // x <- L^-T x for w and z together, along the rows of L: u and v in
+    // registers, x_j handed round by shuffle, one row of L read a step
+    constexpr int NV = kSolveValues;
     float uu[NV], vv[NV];
 #pragma unroll
     for (int m = 0; m < NV; ++m) {
@@ -484,6 +620,8 @@ chol_packed_kernel(const float* __restrict__ A, const float* __restrict__ b,
     }
 #pragma unroll
     for (int mb = NV - 1; mb >= 0; --mb) {
+      // four steps unrolled, so rows of L load ahead of the shuffles
+#pragma unroll 4
       for (int l = min(31, D - 1 - 32 * mb); l >= 0; --l) {
         const int j = 32 * mb + l;
         const float* row = a + packed_row(j);
@@ -518,37 +656,39 @@ chol_packed_kernel(const float* __restrict__ A, const float* __restrict__ b,
   }
 }
 
-cudaError_t launch_packed(const float* A, const float* b, const float* z,
-                          float* mean, float* noise, int C, int D,
-                          float jitter, cudaStream_t stream) {
-  if (D > 128 * kPackedChunks || D > 32 * kPackedSolveValues)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)packed_row(D + 1) +
-                                       2 * (size_t)((D + 4) & ~3) + (size_t)D);
+template <int NB>
+cudaError_t launch_blocked(const float* A, const float* b, const float* z,
+                           float* mean, float* noise, int C, int D,
+                           float jitter, cudaStream_t stream) {
+  if (D > 32 * kSolveValues) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((size_t)packed_row(D + 1) + (size_t)D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chol_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chol_blocked_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  chol_packed_kernel<<<C, kPackedThreads, smem, stream>>>(A, b, z, mean, noise,
-                                                          D, jitter);
+  const bool wide = reinterpret_cast<std::uintptr_t>(A) % 16 == 0 && D % 4 == 0;
+  chol_blocked_kernel<NB><<<C, kBlockedThreads, smem, stream>>>(
+      A, b, z, mean, noise, D, jitter, wide);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // A (C, D, D), b, z, mean and noise (C, D), all contiguous float32.  `tile`
-// names the kernel, as ops/kernels.py::chol_solve_plan chooses it: 0 the
-// packed kernel, otherwise the side of a thread's tile in the
-// register-tiled one (6 or 8), which needs D <= 16 * tile.
+// names the kernel, as ops/kernels.py::chol_solve_plan chooses it: -32 the
+// blocked kernel (panels of 32 columns), otherwise the side of a thread's
+// tile in the register-tiled one (6 or 8), which needs D <= 16 * tile.
 extern "C" int bfmmm_chol_solve(const float* A, const float* b,
                                 const float* z, float* mean, float* noise,
                                 int C, int D, float jitter, int tile,
                                 void* stream_) {
   cudaStream_t s = (cudaStream_t)stream_;
   switch (tile) {
-    case 0: return (int)launch_packed(A, b, z, mean, noise, C, D, jitter, s);
+    case -32:
+      return (int)launch_blocked<32>(A, b, z, mean, noise, C, D, jitter, s);
     case 6: return (int)launch_tiled<6>(A, b, z, mean, noise, C, D, jitter, s);
     case 8: return (int)launch_tiled<8>(A, b, z, mean, noise, C, D, jitter, s);
     default: return (int)cudaErrorInvalidValue;

@@ -26,9 +26,9 @@ allocates nothing and returns cudaGetLastError().
 run can show that its main path went through the kernels.
 
 What surrounds the CUDA code is kept here, where the CPU tests reach it:
-``chol_solve_plan`` chooses which of K1's two kernels serves a shape and
-its thread grid, ``mean_rss_plan`` and ``weighted_gram_plan`` choose the
-tile sizes, the grid and the scratch shape that K2 and K3 are launched
+``chol_solve_plan`` chooses which of K1's two kernels serves a shape, and its
+thread grid or panel width, ``mean_rss_plan`` and ``weighted_gram_plan`` choose
+the tile sizes, the grid and the scratch shape that K2 and K3 are launched
 with, and ``kernel_bound`` gives the bytes, the FLOP and the least time the
 card could take for a call of each kernel, from its shapes.
 """
@@ -51,7 +51,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1's
-# packed kernel keeps the lower triangle of the (D, D) matrix there.
+# blocked kernel keeps the lower triangle of the (D, D) matrix there.
 SMEM_PER_BLOCK = 232_448
 
 # One H100 SXM has 132 streaming multiprocessors; the plans want at least
@@ -88,17 +88,16 @@ def packed_row(i):
     return 4 * (g + 1) * (2 * g + r)
 
 
-def _packed_floats(D):
-    """Shared memory of K1's packed kernel: the lower triangle of A with b as
-    one more row (rows 0..D), two column buffers of D + 1 padded to 4, and
-    z."""
-    return packed_row(D + 1) + 2 * ((D + 4) & ~3) + D
+def _blocked_floats(D):
+    """Shared memory of K1's blocked kernel: the packed lower triangle of A
+    with b as one more row (rows 0..D), then z."""
+    return packed_row(D + 1) + D
 
 
 def chol_solve_max_dim():
-    """Largest D a K1 kernel serves: the packed kernel's, whose lower
+    """Largest D a K1 kernel serves: the blocked kernel's, whose lower
     triangle of A fits one block's shared memory up to it."""
-    return _largest_dim(_packed_floats)
+    return _largest_dim(_blocked_floats)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +279,10 @@ def kernel_bound(name, **shape):
 # serves D <= K1_GRID * TS; the smallest that covers D is taken.
 K1_GRID = 16
 K1_TILES = (6, 8)
-K1_PACKED_THREADS = 512
+# K1's blocked kernel: threads a block, and the panel width (columns
+# factored at a time; 16 was slower on the card, utils/k1_probe.py)
+K1_BLOCKED_THREADS = 512
+K1_PANEL = 32
 
 
 def chol_solve_plan(C, D):
@@ -289,11 +291,12 @@ def chol_solve_plan(C, D):
     ``"tiled"`` keeps the matrix in registers: ``threads`` (16, 16) a chain
     in a cyclic layout, thread (r, c) owning the entries (i, k) with
     i % 16 == r and k % 16 == c, a ``tile`` of (TS, TS); D below 16 * TS is
-    padded with the identity in registers.  ``"packed"`` keeps the lower
-    triangle in shared memory, for every other D up to
-    ``chol_solve_max_dim()``.  One chain a block in both.
-    A larger D raises NotImplementedError.  Returns {"kernel", "threads",
-    "tile" (None but for the tiled kernel), "smem": bytes a block, "grid"}.
+    padded with the identity in registers.  ``"blocked"`` keeps the packed
+    lower triangle in shared memory and factors it a ``panel`` of columns
+    at a time, for every other D up to ``chol_solve_max_dim()``.  One chain
+    a block in both.  A larger D raises NotImplementedError.  Returns
+    {"kernel", "threads", "tile" (None but for the tiled kernel), "panel"
+    (None but for the blocked kernel), "smem": bytes a block, "grid"}.
     """
     if min(C, D) < 1:
         raise ValueError(f"chol_solve_plan: empty shape {(C, D)}")
@@ -310,9 +313,18 @@ def chol_solve_plan(C, D):
             buf = K1_GRID * (TS + TS % 2) + 4
             floats = DP * (DP + 4) + 2 * buf + 2 * DP + K1_GRID ** 2 // 32
             return {"kernel": "tiled", "threads": (K1_GRID, K1_GRID),
-                    "tile": (TS, TS), "smem": 4 * floats, "grid": C}
-    return {"kernel": "packed", "threads": (K1_PACKED_THREADS,),
-            "tile": None, "smem": 4 * _packed_floats(D), "grid": C}
+                    "tile": (TS, TS), "panel": None, "smem": 4 * floats,
+                    "grid": C}
+    return {"kernel": "blocked", "threads": (K1_BLOCKED_THREADS,),
+            "tile": None, "panel": K1_PANEL, "smem": 4 * _blocked_floats(D),
+            "grid": C}
+
+
+def chol_solve_code(plan):
+    """The kernel code of csrc/chol_solve.cu's entry point for a plan: the
+    tile side of the register-tiled kernel, or minus the panel width of the
+    blocked one."""
+    return plan["tile"][0] if plan["tile"] else -plan["panel"]
 
 
 def add_jitter(A, jitter):
@@ -371,47 +383,47 @@ def chol_solve_tiled_plain(A, b, z, jitter=0.0):
     return u, v
 
 
-def chol_solve_packed_plain(A, b, z, jitter=0.0):
-    """The packed kernel's algorithm on its own storage, step by step: the
-    lower triangle of A row by row in one vector (entry (i, k) at
-    ``packed_row(i) + k``, the rows padded to 16 bytes) with b as row D, the
-    jitter on the diagonal, then right-looking column steps in which every
-    reader scales the raw column by the one reciprocal square root of its
-    diagonal, the reciprocal kept in the diagonal's place, and both back
-    substitutions along the rows of L by multiplication.  Same function as
-    ``chol_solve_plain``; nothing on the main path calls it."""
+def chol_solve_blocked_plain(A, b, z, jitter=0.0):
+    """The blocked kernel's algorithm, a panel of ``K1_PANEL`` columns at
+    a time: the jitter on the diagonal, b carried as row D of the matrix; per
+    panel the diagonal block by column steps with one reciprocal square
+    root each, the rows below it (row D among them) by forward substitution
+    with multiplication by those reciprocals, and the trailing part by one
+    product; then both back substitutions by multiplication with the
+    reciprocals.  Same function as ``chol_solve_plain``; nothing on the
+    main path calls it."""
     C, D = b.shape
-    ii, kk = torch.tril_indices(D + 1, D + 1, device=A.device)
-    keep = kk < D                       # row D is b: it has no diagonal
-    ii, kk = ii[keep], kk[keep]
-    off = packed_row(ii) + kk
-    a = torch.zeros(C, packed_row(D + 1), dtype=A.dtype, device=A.device)
-    a[:, off] = torch.cat([A, b[:, None, :]], 1)[:, ii, kk]
-    diag = torch.arange(D, device=A.device)
-    diag = packed_row(diag) + diag
+    M = torch.cat([A, b[:, None, :]], 1).tril()      # rows 0..D; row D is b
     if jitter != 0.0:
-        a[:, diag] += (jitter * (a[:, diag].sum(-1) / D + 1.0))[:, None]
-    for j in range(D):
-        in_col = (kk == j) & (ii >= j)
-        raw = torch.zeros(C, D + 1, dtype=a.dtype, device=a.device)
-        raw[:, ii[in_col]] = a[:, off[in_col]]
-        inv = torch.rsqrt(raw[:, j])
-        col = raw * inv[:, None]
-        trail = kk > j                  # (i, k) with j < k <= i, and row D
-        a[:, off[trail]] = torch.addcmul(
-            a[:, off[trail]], col[:, ii[trail]], col[:, kk[trail]],
-            value=-1.0)
-        a[:, off[in_col]] = col[:, ii[in_col]]
-        a[:, diag[j]] = inv
-    row_b = packed_row(D)
-    u, v = a[:, row_b:row_b + D].clone(), z.clone()
+        diag = M.diagonal(dim1=-2, dim2=-1)
+        diag += (jitter * (diag.sum(-1) / D + 1.0))[:, None]
+    rinv = torch.empty_like(b)
+    for k0 in range(0, D, K1_PANEL):
+        s = min(D, k0 + K1_PANEL)
+        blk = M[:, k0:s, k0:s].clone()
+        for j in range(s - k0):
+            inv = torch.rsqrt(blk[:, j, j])
+            col = blk[:, :, j] * inv[:, None]
+            col[:, :j + 1] = 0.0
+            blk[:, :, j] = col
+            blk[:, :, j + 1:] = torch.addcmul(
+                blk[:, :, j + 1:], col[:, :, None], col[:, None, j + 1:],
+                value=-1.0)
+            rinv[:, k0 + j] = inv
+        L11 = blk.tril(-1)
+        X = M[:, s:, k0:s].clone()                    # rows s..D
+        for j in range(s - k0):
+            dot = (X[:, :, :j] * L11[:, None, j, :j]).sum(-1)
+            X[:, :, j] = (X[:, :, j] - dot) * rinv[:, k0 + j, None]
+        M[:, s:, k0:s] = X
+        M[:, s:, s:] -= X @ X[:, :D - s].mT
+        M[:, k0:s, k0:s] = L11
+    u, v = M[:, D].clone(), z.clone()
     for j in range(D - 1, -1, -1):
-        ri = a[:, diag[j]]
-        u[:, j] *= ri
-        v[:, j] *= ri
-        row = a[:, packed_row(j):packed_row(j) + j]
-        u[:, :j] -= row * u[:, j, None]
-        v[:, :j] -= row * v[:, j, None]
+        u[:, j] *= rinv[:, j]
+        v[:, j] *= rinv[:, j]
+        u[:, :j] -= M[:, j, :j] * u[:, j, None]
+        v[:, :j] -= M[:, j, :j] * v[:, j, None]
     return u, v
 
 
@@ -432,8 +444,7 @@ def chol_solve(A, b, z, jitter=0.0):
     with torch.cuda.device(A.device):
         rc = _library().bfmmm_chol_solve(
             A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-            noise.data_ptr(), C, D, float(jitter),
-            plan["tile"][0] if plan["tile"] else 0,    # 0: the packed kernel
+            noise.data_ptr(), C, D, float(jitter), chol_solve_code(plan),
             torch.cuda.current_stream().cuda_stream)
     _launched("chol_solve", rc)
     return mean, noise

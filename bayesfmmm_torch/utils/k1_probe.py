@@ -1,20 +1,31 @@
-"""Where K1's time goes on one NVIDIA GPU: the register-tiled kernel with one
-part knocked out at a time.
+"""Where K1's time goes on one NVIDIA GPU: one of its kernels with one part
+knocked out at a time.
 
-    python3 -m bayesfmmm_torch.utils.k1_probe [--rounds 4]
+    python3 -m bayesfmmm_torch.utils.k1_probe [--kernel tiled|blocked]
+                                              [--rounds 4]
 
 No profiler that reads stall reasons runs everywhere, so this asks the card
-directly: it patches ``csrc/chol_solve.cu`` in memory (the barrier of the
-column loop, the diagonal's shuffle, the reciprocal square root, the stores
-of L, the back substitutions, or the staging of A taken out), builds each
-patched source with nvcc into ``_build/probe/``, and times the builds in
-turns at the main path's shape (C=256, D=96), device time from the
-profiler.  A knocked-out kernel computes nonsense: only its time means
-anything, and the difference to the whole kernel is what that part costs
-where it stands (for the barrier: the wait for the owners of the column,
-not the instruction).  Each patch must match the source exactly once, so
-the probe fails loudly when the kernel has moved on.  Prints the card's
-name and power limit and one JSON object.  Needs one card.
+directly: it patches ``csrc/chol_solve.cu`` in memory, one part taken out
+at a time, builds each patched source with nvcc into ``_build/probe/``, and
+times the builds in turns, device time from the profiler.  The register
+kernel (``--kernel tiled``, the default) is timed at the main path's shape
+(C=256, D=96) without the barrier of the column loop, the diagonal's
+shuffle, the reciprocal square root, the stores of L, the back
+substitutions or the staging of A; the blocked kernel (``--kernel
+blocked``) at 16 chains of D = 256 without the diagonal block's factor,
+its reciprocal square roots, the panel solve, the trailing update, the
+panel loop's barriers, the back substitutions or the staging, and beside
+it the alternatives its design set aside (``alt_*``: the same function;
+panels of 16 columns, the update's rows past D masked, lanes column tile
+first, the diagonal shuffled after the column's update, the back
+substitutions' steps not unrolled, 1,024 threads, a look-ahead).  A
+knocked-out kernel computes nonsense: only its time means anything, and
+the difference to the whole kernel is what that part costs where it
+stands (for a barrier: the wait for the slowest thread, not the
+instruction).  Each patch must match
+the source exactly once, so the probe fails loudly when the kernel has
+moved on.  Prints the card's name and power limit and one JSON object.
+Needs one card.
 """
 
 from __future__ import annotations
@@ -31,57 +42,128 @@ from bayesfmmm_torch.ops import kernels
 from bayesfmmm_torch.utils.kernel_bench import (CHAINS, D, card_line,
                                                 in_turns, spd)
 
-# name -> [(text of csrc/chol_solve.cu, its replacement)]
+_PANEL_LOOP = """\
+    if (warp == 0) factor_diagonal_block<NB>(a, k0, nb, lane);
+    __syncthreads();
+    for (int i = s + tid; i <= D; i += T) solve_panel_row<NB>(a, k0, nb, i);
+    __syncthreads();
+    if (s < D) update_trailing<NB>(a, k0, s, D, warp, lane);
+    __syncthreads();
+"""
+_PANEL_HEAD = """\
+  for (int k0 = 0; k0 < D; k0 += NB) {
+    const int nb = min(NB, D - k0), s = k0 + nb;
+"""
+# the panel loop with a look-ahead: the next panel's columns are updated
+# first, then warp 0 factors its diagonal block while the others update the
+# rest (three barriers a panel, as now)
+_LOOK_AHEAD_LOOP = """\
+  if (warp == 0) factor_diagonal_block<NB>(a, 0, min(NB, D), lane);
+  __syncthreads();
+""" + _PANEL_HEAD + """\
+    for (int i = s + tid; i <= D; i += T) solve_panel_row<NB>(a, k0, nb, i);
+    __syncthreads();
+    if (s < D) {
+      update_trailing<NB>(a, k0, s, D, 0, NB / 4, 0, W, warp, lane);
+      __syncthreads();
+      if (warp == 0)
+        factor_diagonal_block<NB>(a, s, min(NB, D - s), lane);
+      else
+        update_trailing<NB>(a, k0, s, D, NB / 4, D, 1, W - 1, warp, lane);
+      __syncthreads();
+    }
+"""
+
+# kernel -> {name: [(text of csrc/chol_solve.cu, its replacement)]}
 KNOCK_OUTS = {
-    "whole": [],
-    "no_barrier": [("      __syncthreads();\n      float rv[TSP], cv[TSP];",
-                    "      float rv[TSP], cv[TSP];")],
-    "no_shuffle": [("      const float d = __shfl_sync(kFullWarp, a[jb][jb], "
-                    "(jj % 2) * G + jj);",
-                    "      const float d = a[jb][jb];")],
-    "no_rsqrt": [("        const float inv = rsqrtf(d);",
-                  "        const float inv = d * 1e-2f;")],
-    "no_l_store": [("          S[i * LD + j] = l;\n", "")],
-    "no_back_solves": [("  if (t < 32) {\n    float u[NV];",
-                        "  if (t < 0) {\n    float u[NV];")],
-    "no_staging": [("  if (wide) {\n    const int G4", 
-                    "  if (D < 0) {\n    const int G4"),
-                   ("  } else {\n    for (int idx = t; idx < D * D; idx += T)",
-                    "  } else if (D < 0) {\n"
-                    "    for (int idx = t; idx < D * D; idx += T)")],
+    "tiled": {
+        "whole": [],
+        "no_barrier": [("      __syncthreads();\n      float rv[TSP], cv[TSP];",
+                        "      float rv[TSP], cv[TSP];")],
+        "no_shuffle": [("      const float d = __shfl_sync(kFullWarp, "
+                        "a[jb][jb], (jj % 2) * G + jj);",
+                        "      const float d = a[jb][jb];")],
+        "no_rsqrt": [("        const float inv = rsqrtf(d);",
+                      "        const float inv = d * 1e-2f;")],
+        "no_l_store": [("          S[i * LD + j] = l;\n", "")],
+        "no_back_solves": [("  if (t < 32) {\n    float u[NV];",
+                            "  if (t < 0) {\n    float u[NV];")],
+        "no_staging": [("  if (wide) {\n    const int G4",
+                        "  if (D < 0) {\n    const int G4"),
+                       ("  } else {\n    for (int idx = t; idx < D * D; "
+                        "idx += T)",
+                        "  } else if (D < 0) {\n"
+                        "    for (int idx = t; idx < D * D; idx += T)")],
+    },
+    "blocked": {
+        "whole": [],
+        "no_diagonal_block": [
+            ("    if (warp == 0) factor_diagonal_block<NB>",
+             "    if (warp < 0) factor_diagonal_block<NB>")],
+        "no_rsqrt": [
+            ("      const float inv = rsqrtf(d);\n      const float l = lane > j",
+             "      const float inv = d * 1e-2f;\n      const float l = lane > j")],
+        "no_panel_solve": [("i <= D; i += T) solve_panel_row<NB>",
+                            "i < 0; i += T) solve_panel_row<NB>")],
+        "no_trailing_update": [("    if (s < D) update_trailing<NB>",
+                                "    if (s < 0) update_trailing<NB>")],
+        "no_barriers": [(_PANEL_LOOP,
+                         _PANEL_LOOP.replace("    __syncthreads();\n", ""))],
+        "no_back_solves": [("  if (warp == 0) {\n    // x <- L^-T x for w",
+                            "  if (warp < 0) {\n    // x <- L^-T x for w")],
+        "no_staging": [("  for (int i = warp; i < D; i += W) {\n"
+                        "    const float* src = Ag",
+                        "  for (int i = warp; i < 0; i += W) {\n"
+                        "    const float* src = Ag")],
+        # the alternatives the design set aside: the same function
+        "alt_panel_16": [("      return (int)launch_blocked<32>(",
+                          "      return (int)launch_blocked<16>(")],
+        "alt_masked_update": [
+            ("    for (int r = 0; r < 4; ++r) rv[r] = ld4(a + ro[r] + 4 * q);\n",
+             "    for (int r = 0; r < 4; ++r)\n      rv[r] = i0 + r > D ? "
+             "make_float4(0.f, 0.f, 0.f, 0.f) : ld4(a + ro[r] + 4 * q);\n"),
+            ("      const float4 cv = ld4(a + co[c] + 4 * q);\n",
+             "      const float4 cv = c0 + c >= D ? make_float4(0.f, 0.f, 0.f, "
+             "0.f) : ld4(a + co[c] + 4 * q);\n")],
+        "alt_lanes_column_first": [
+            ("const int rt = lane & 3, ct = lane >> 2;",
+             "const int rt = lane >> 3, ct = lane & 7;")],
+        "alt_diagonal_last": [
+            ("      const float inv = rsqrtf(d);\n      const float l = lane > j",
+             "      const float inv = rsqrtf(__shfl_sync(kFullWarp, x[j], j));\n"
+             "      const float l = lane > j"),
+            ("        d = __shfl_sync(kFullWarp, fmaf(-l, l, x[j + 1]), j + 1);\n",
+             "")],
+        "alt_steps_not_unrolled": [
+            ("#pragma unroll 4\n      for (int l = min(31, D - 1 - 32 * mb);",
+             "      for (int l = min(31, D - 1 - 32 * mb);")],
+        "alt_threads_1024": [("constexpr int kBlockedThreads = 512;",
+                              "constexpr int kBlockedThreads = 1024;")],
+        "alt_look_ahead": [
+            ("                                                int warp, int "
+             "lane) {\n  const int n_rows = (D - s) / 4 + 1, n_cols = "
+             "(D - s + 3) / 4;",
+             "    int t_lo, int t_hi, int w0, int nw, int warp, int lane) {\n"
+             "  const int n_rows = (D - s) / 4 + 1,\n"
+             "            n_cols = min((D - s + 3) / 4, t_hi);"),
+            ("    for (int gb = 0; gb < n_groups; ++gb, ++u) {\n"
+             "      const int ta = 4 * ga + rt, tb = 8 * gb + ct;\n"
+             "      if (u % kBlockedWarps == warp && tb <= ta",
+             "    for (int gb = t_lo / 8; gb < n_groups; ++gb, ++u) {\n"
+             "      const int ta = 4 * ga + rt, tb = 8 * gb + ct;\n"
+             "      if (u % nw == warp - w0 && t_lo <= tb && tb <= ta"),
+            (_PANEL_HEAD + _PANEL_LOOP, _LOOK_AHEAD_LOOP)],
+    },
 }
-
-# The same for the packed kernel (128 < D <= 334), timed at PACKED_SHAPE
-PACKED_SHAPE = (16, 256)
-PACKED_KNOCK_OUTS = {
-    "whole": [],
-    "no_barrier": [("  for (int j = 0; j < D; ++j) {\n    __syncthreads();\n"
-                    "    const float* cur",
-                    "  for (int j = 0; j < D; ++j) {\n    const float* cur")],
-    "no_rsqrt": [("    const float inv = rsqrtf(cur[j]);",
-                  "    const float inv = cur[j] * 1e-2f;")],
-    "no_update": [("    for (int i = first; i <= D; i += W) {",
-                   "    for (int i = first; i < 0; i += W) {")],
-    "no_handoff": [("      __syncwarp();\n      nxt[i] = row[jn];\n"
-                    "      row[j] = li;\n", "")],
-    "threads_1024": [("constexpr int kPackedThreads = 512;",
-                      "constexpr int kPackedThreads = 1024;")],
-    "threads_256": [("constexpr int kPackedThreads = 512;",
-                     "constexpr int kPackedThreads = 256;")],
-    "no_back_solves": [("  if (warp == 0) {\n    // backward on both "
-                        "right-hand sides along the rows of L",
-                        "  if (warp < 0) {\n    // backward on both "
-                        "right-hand sides along the rows of L")],
-    "no_staging": [("    for (int k = lane; k <= i; k += 32) dst[k] = src[k];",
-                    "    for (int k = lane; k < 0; k += 32) dst[k] = src[k];")],
-}
+# the shape each kernel is probed at
+SHAPES = {"tiled": (CHAINS, D), "blocked": (16, 256)}
 
 
-def patched_sources(text, knock_outs=None):
-    """{name: source text} for every knock-out (the register kernel's unless
-    ``knock_outs`` is given); each patch must match ``text`` exactly once."""
+def patched_sources(text, knock_outs):
+    """{name: source text} for every knock-out of ``knock_outs`` (one of
+    ``KNOCK_OUTS``); each patch must match ``text`` exactly once."""
     out = {}
-    for name, patches in (knock_outs or KNOCK_OUTS).items():
+    for name, patches in knock_outs.items():
         src = text
         for old, new in patches:
             if src.count(old) != 1:
@@ -126,30 +208,28 @@ def build_all(sources, out_dir):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
-    ap.add_argument("--kernel", choices=("tiled", "packed"), default="tiled",
+    ap.add_argument("--kernel", choices=tuple(KNOCK_OUTS), default="tiled",
                     help="the register kernel at the headline shape, or the "
-                         "packed kernel at 16 chains of D = 256")
+                         "blocked kernel at 16 chains of D = 256")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: needs one NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
     text = (kernels._CSRC / "chol_solve.cu").read_text()
-    packed = args.kernel == "packed"
-    C, dim = PACKED_SHAPE if packed else (CHAINS, D)
-    libs = build_all(
-        patched_sources(text, PACKED_KNOCK_OUTS if packed else None),
-        kernels._BUILD_DIR / "probe")
+    C, dim = SHAPES[args.kernel]
+    libs = build_all(patched_sources(text, KNOCK_OUTS[args.kernel]),
+                     kernels._BUILD_DIR / "probe")
     A, b, z = spd(torch.Generator(device=dev).manual_seed(123), C, dim, dev)
     mean, noise = torch.empty_like(b), torch.empty_like(b)
     plan = kernels.chol_solve_plan(C, dim)
-    tile = plan["tile"][0] if plan["tile"] else 0      # 0: the packed kernel
+    code = kernels.chol_solve_code(plan)
 
     def launcher(lib):
         def launch():
             rc = lib.bfmmm_chol_solve(
                 A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-                noise.data_ptr(), C, dim, 0.0, tile,
+                noise.data_ptr(), C, dim, 0.0, code,
                 torch.cuda.current_stream().cuda_stream)
             if rc != 0:
                 raise RuntimeError(
@@ -163,7 +243,7 @@ def main(argv=None):
         t["saves_ms"] = whole - t["device_ms"]
     print(card_line())
     print(json.dumps({"shape": dict(C=C, D=dim), "kernel": plan["kernel"],
-                      "tile": tile, **times}))
+                      "code": code, **times}))
     return 0
 
 

@@ -19,11 +19,14 @@ count); ``by_kernel`` splits the kernel's figure by CUDA kernel name.
 revision's ``bayesfmmm_torch`` directory (``git archive REV bayesfmmm_torch
 | tar -x -C SOMEWHERE``), as a module of its own, which builds that
 revision's ``csrc`` into DIR and binds it as that revision did, and times
-its three wrappers in the same turns: two revisions are compared only
-inside one run, on one card.  ``--sweep`` times K2 over other tile sizes
-than the plan's and every kernel of K1 that can serve D=96 (and, in
-groups of their own, D=32, 64 and 128, and D=129, 200 and 240 at 256 and
-at 16 chains) beside the plan's choice.  K1's
+its three wrappers in the same turns (and its K1 in every group of
+``--sweep``): two revisions are compared only inside one run, on one card.
+``--sweep`` times K2 over other tile sizes than the plan's and every kernel
+of K1 that can serve D=96 (the register kernel's tiles, the blocked
+kernel; and, in groups of their own, D=32, 64 and 128, and
+D=129, 200, 240, 256 and 334 at 256 and at 16 chains, and D=256 at 64
+chains; at D=256 also the plain version and the three ``torch.linalg``
+calls) beside the plan's choice.  K1's
 group also times ``jitter_ops``, the PyTorch ops that built
 A + jitter * scale * I before K1 took the jitter inside.  Prints the
 card's name and power limit and one JSON object.  Needs one card.
@@ -212,8 +215,9 @@ def _k2_tiles(lib, B, y, w, TC, TN):
 
 def _k1_tile(lib, A, b, z, tile):
     """K1 through the C entry point with another kernel than the plan's:
-    ``tile`` 0 is the packed kernel, otherwise the tile side of the
-    register-tiled one."""
+    ``tile`` is the entry point's kernel code (``kernels.chol_solve_code``):
+    minus the blocked kernel's panel width, or the register-tiled one's
+    tile side."""
     C, D_ = b.shape
     mean, noise = torch.empty_like(b), torch.empty_like(b)
 
@@ -230,7 +234,7 @@ def _k1_tile(lib, A, b, z, tile):
 def _k1_sweep(lib, x):
     """{name: callable} of every kernel of K1 that serves x's D."""
     D_ = x[1].shape[1]
-    cands = {"packed": _k1_tile(lib, *x, tile=0)}
+    cands = {"blocked": _k1_tile(lib, *x, tile=-kernels.K1_PANEL)}
     for TS in kernels.K1_TILES:
         if D_ <= kernels.K1_GRID * TS:
             cands[f"tiled {TS}x{TS}"] = _k1_tile(lib, *x, tile=TS)
@@ -285,13 +289,21 @@ def main(argv=None):
         g = torch.Generator(device=dev).manual_seed(321)
         for C_, D_ in ((CHAINS, 32), (CHAINS, 64), (CHAINS, 128),
                        (CHAINS, 129), (CHAINS, 200), (CHAINS, 240),
-                       (16, 129), (16, 200), (16, 240)):
+                       (CHAINS, 256), (CHAINS, 334), (16, 129), (16, 200),
+                       (16, 240), (16, 256), (16, 334), (64, 256)):
             xd = spd(g, C_, D_, dev)
             name = f"chol_solve_c{C_}_d{D_}"
             k1_shapes[name] = dict(C=C_, D=D_)
             groups[name] = {
                 "kernel": lambda xd=xd: kernels.chol_solve(*xd),
                 **_k1_sweep(lib, xd)}
+            if base is not None:
+                groups[name]["baseline"] = lambda xd=xd: base.chol_solve(*xd)
+            if D_ == 256:      # the joint draws: also the yardsticks
+                groups[name]["plain"] = (
+                    lambda xd=xd: kernels.chol_solve_plain(*xd))
+                groups[name]["library"] = (
+                    lambda xd=xd: library_chol_solve(*xd))
 
     result = {}
     for name, cands in groups.items():

@@ -9,9 +9,11 @@ Phases, one line each, any failure exits non-zero:
   2. K1 chol_solve against its plain version (torch.linalg) at the main
      paths' shapes (D = 96; D = 256 at 16, 64 and 256 chains, the joint xi
      and hd Phi draws; D = 60 and 72), at shapes that take each of its two
-     kernels, odd D of the packed one, its smallest and its largest, and at
+     kernels, odd D of the blocked one, its smallest and its largest, and at
      every D the register-tiled kernel serves with a ragged chain count;
-     each without and with the jitter, the same bits from two calls; and a D
+     each without and with the jitter, the same bits from two calls, and the
+     blocked kernel's first two chains also against its own plain version
+     (which repeats its arithmetic a panel at a time) on the card; and a D
      above every kernel, which must raise and launch nothing;
   3. K2 mean_rss against its plain version (einsum + sum) at the main
      paths' shapes (C and the MGP-scale moves' 2C chain rows; the hd
@@ -54,19 +56,20 @@ Phases, one line each, any failure exits non-zero:
      P=10, M=3, N=200; 4 chains) and config 5 (hd, K=4, P=16, M=4, 64
      surfaces on a 12 x 12 grid; 64 chains) through api.fit; the launch
      counts of every phase as the code predicts them (config 4: K1 twice a
-     phase-3 sweep, both at a shape the packed kernel serves; config 1: no
+     phase-3 sweep, both at a shape the blocked kernel serves; config 1: no
      K2, no K3), counted shape by shape; and the fit smoke's phase 3
      once more from the JAX package's own phase-1/2 medians, inside the
      tight limits of tests/data/torch_fit_reference.json;
   9. timings: chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
-     the one PyTorch call for the same function where there is one (K3: a
-     matmul), the empty kernel and its bound (ops/kernels.py::kernel_bound,
+     the one PyTorch call for the same function where there is one (K1: the
+     three torch.linalg calls; K3: a matmul), the empty kernel and its bound
+     (ops/kernels.py::kernel_bound,
      published H100 SXM peaks): device time from torch.profiler, candidates
      in turns, and host-paced time from CUDA events; and the device time
      of the PyTorch ops that formed A + jitter * scale * I before K1 took
-     the jitter inside; the packed K1 kernel at (16, 64, 256) x 256 beside
+     the jitter inside; the blocked K1 kernel at (16, 64, 256) x 256 beside
      the three torch.linalg calls, K2 and K3 at slice 6's shapes, and ms,
      kernels and device-busy ms a sweep of configs 4 (16 and 256 chains), 3,
      1 and 5.
@@ -205,8 +208,9 @@ def check(ok, what):
 
 
 def k1_case(dev, g, C, D, jitter):
-    """One shape and jitter: the kernel twice against the plain version;
-    returns (max |mean - plain|, max |noise - plain|)."""
+    """One shape and jitter: the kernel twice against the plain version,
+    and the blocked kernel's first two chains against its own plain
+    version; returns (max |mean - plain|, max |noise - plain|)."""
     A, b, z = spd(g, C, D, dev)
     mean, noise = kernels.chol_solve(A, b, z, jitter)
     mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
@@ -220,6 +224,16 @@ def k1_case(dev, g, C, D, jitter):
     check(e_mean <= K1_TOL["mean"] and e_noise <= K1_TOL["noise"],
           f"K1 disagrees with its plain version at C={C} D={D} "
           f"jitter={jitter}: mean {e_mean:.3e}, noise {e_noise:.3e}")
+    if kernels.chol_solve_plan(C, D)["kernel"] == "blocked":
+        mean_b, noise_b = kernels.chol_solve_blocked_plain(
+            A[:2], b[:2], z[:2], jitter)
+        e_b = ((mean[:2] - mean_b).abs().max().item(),
+               (noise[:2] - noise_b).abs().max().item())
+        check(e_b[0] <= K1_TOL["mean"] and e_b[1] <= K1_TOL["noise"],
+              f"K1's blocked kernel disagrees with its own plain version at "
+              f"C={C} D={D} jitter={jitter}: mean {e_b[0]:.3e}, noise "
+              f"{e_b[1]:.3e}")
+        e_mean, e_noise = max(e_mean, e_b[0]), max(e_noise, e_b[1])
     return e_mean, e_noise
 
 
@@ -253,21 +267,23 @@ def k1_phase(dev, g):
     for C, D in ((CHAINS, 96), (7, 96), (3, 13), (2, 240), (5, 129), (4, 16),
                  (2, 1),
                  # slice 6: the 256-dimensional joint draws of configs 4 and
-                 # 5 at their chain counts, config 1's and config 3's D, an
-                 # odd D of the packed kernel, its smallest and its largest
+                 # 5 at their chain counts, config 1's and config 3's D, odd
+                 # D of the blocked kernel, its smallest and its largest
                  (16, 256), (64, 256), (CHAINS, 256), (4, 60), (8, 72),
-                 (3, 251), (2, 241), (3, 130), (2, 200), (2, top)):
+                 (3, 251), (2, 241), (3, 130), (2, 200), (3, 333),
+                 (2, 334), (2, top)):
         for jitter in (0.0, 1e-6):
             e_mean, e_noise = k1_case(dev, g, C, D, jitter)
+            kernel = kernels.chol_solve_plan(C, D)["kernel"]
+            check(kernel == ("tiled" if D <= 128 else "blocked"),
+                  f"K1 C={C} D={D} is served by the {kernel} kernel")
             print(f"  K1 chol_solve C={C} D={D} jitter={jitter} "
-                  f"({kernels.chol_solve_plan(C, D)['kernel']} kernel): "
-                  f"max|mean-plain|={e_mean:.3e} (tol {K1_TOL['mean']}), "
-                  f"max|noise-plain|={e_noise:.3e} (tol {K1_TOL['noise']}), "
-                  f"same bits twice")
+                  f"({kernel} kernel): max|mean-plain|={e_mean:.3e} (tol "
+                  f"{K1_TOL['mean']}), max|noise-plain|={e_noise:.3e} (tol "
+                  f"{K1_TOL['noise']}), same bits twice"
+                  + (", its own plain version on the first two chains too"
+                     if kernel == "blocked" else ""))
             worst = max(worst, e_mean, e_noise)
-    for D in (129, 256, 251, top):
-        check(kernels.chol_solve_plan(16, D)["kernel"] == "packed",
-              f"K1 D={D} is not served by the packed kernel")
     # a D above every kernel raises: nothing gives way to torch.linalg
     before = kernels.LAUNCHES["chol_solve"]
     try:
@@ -890,7 +906,7 @@ def config4_phase(dev, card):
         "config 4 resume", cc,
         phase3_launches(per_sweep("production", "xi"), RESUME_SWEEPS,
                         pp["n_temp_trans"], pp["N_t"], start=n)[1])
-    shapes.check_k1("config 4", "packed")
+    shapes.check_k1("config 4", "blocked")
     check(ca["chol_solve"] == 2 * na
           and by_shape[("chol_solve", (pr["port_chains"], 256))] == 2 * na,
           "config 4: K1 did not launch twice a phase-3 sweep at D = 256")
@@ -1019,7 +1035,7 @@ def config5_phase(dev, card):
           and p["K"] * p["M"] * data.P == 256,
           "config 5 is not the hd model at P = 16, L = 144, D = 256")
     _, counts, by_shape, ms = family_fit_phase(dev, card, "config5", data,
-                                               "hd", "packed")
+                                               "hd", "blocked")
     return counts, by_shape, ms
 
 
@@ -1105,7 +1121,7 @@ def main():
 
     x = main_path_inputs(dev)
     C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
-    fn1 = (kernels.chol_solve, kernels.chol_solve_plain, None)
+    fn1 = (kernels.chol_solve, kernels.chol_solve_plain, library_chol_solve)
     fn2 = (kernels.mean_rss, kernels.mean_rss_plain, None)
     fn3 = (kernels.weighted_gram, kernels.weighted_gram_plain,
            library_weighted_gram)
@@ -1265,8 +1281,10 @@ def main():
                     **{path: per[name] for path, (_, _, per) in PATHS.items()},
                     **{ph: per[name] for ph, per in PHASE_LAUNCHES.items()}},
                 "empty_ms": t["empty"],
-                "at_restart_chains": {k: ms[small][k] for k in (
-                    "kernel", "plain", "bound_ms", "bound_by")}}
+                "at_restart_chains": {
+                    **{k: ms[small][k] for k in (
+                        "kernel", "plain", "bound_ms", "bound_by")},
+                    "library": ms[small].get("library")}}
 
     k2 = entry("mean_rss", "mean_rss_c8", "mean_rss.cu", 68, k2_err)
     # the MGP-scale moves' 2C chain rows, 4 of the production sweep's 7

@@ -35,7 +35,7 @@ def _spd(g, C, D, dev, diag=50.0):
                                  (3, 97), (9, 93)])
 def test_chol_solve_kernel_matches_plain(dev, C, D, jitter):
     """The main path's shape, shapes of both kernels (register-tiled up to
-    its reach, the packed triangle above), ragged D that pads the tiles and
+    its reach, the blocked one above), ragged D that pads the tiles and
     takes the 4-byte loads, an odd chain count; without and with the jitter;
     the same bits from two calls, one launch counted a call."""
     g = torch.Generator(device=dev).manual_seed(D)
@@ -122,14 +122,15 @@ def test_precision_draw_launches_k1_and_no_matrix_sized_op(dev):
 @pytest.mark.parametrize("jitter", [0.0, 1e-6])
 @pytest.mark.parametrize("C,D", [(16, 256), (64, 256), (256, 256), (3, 251),
                                  (2, 241), (2, 334), (3, 333), (5, 129),
-                                 (3, 130), (2, 200)])
-def test_chol_solve_packed_kernel_matches_plain(dev, C, D, jitter):
-    """The packed kernel (128 < D <= 334): the joint xi and hd Phi draws'
-    D = 256 at the chain counts of the repo's configurations, an odd D, the
+                                 (3, 130), (2, 200), (2, 336)])
+def test_chol_solve_blocked_kernel_matches_plain(dev, C, D, jitter):
+    """The blocked kernel (128 < D <= 336): the joint xi and hd Phi draws'
+    D = 256 at the chain counts of the repo's configurations, odd D, the
     smallest and the largest, against torch.linalg to the tiled kernel's
     tolerances; the same bits from two calls; and, for two chains, against
-    its own plain version, which repeats its arithmetic."""
-    assert kernels.chol_solve_plan(C, D)["kernel"] == "packed"
+    its own plain version, which repeats its arithmetic a panel at a
+    time."""
+    assert kernels.chol_solve_plan(C, D)["kernel"] == "blocked"
     g = torch.Generator(device=dev).manual_seed(D + C)
     A, b, z = _spd(g, C, D, dev)
     kernels.reset_launch_counts()
@@ -140,7 +141,7 @@ def test_chol_solve_packed_kernel_matches_plain(dev, C, D, jitter):
     mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
     torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
     torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
-    mean_t, noise_t = kernels.chol_solve_packed_plain(
+    mean_t, noise_t = kernels.chol_solve_blocked_plain(
         A[:2].cpu(), b[:2].cpu(), z[:2].cpu(), jitter)
     torch.testing.assert_close(mean[:2].cpu(), mean_t, rtol=0, atol=5e-5)
     torch.testing.assert_close(noise[:2].cpu(), noise_t, rtol=0, atol=5e-4)
@@ -407,7 +408,7 @@ def test_excursion_on_the_card_matches_the_cpu(dev):
 def test_config_4_checkpoint_split_equals_the_unbroken_run(dev, tmp_path):
     """The covariate-adjusted covariance model at the suite's config-4 width
     (K=2, P=8, M=16, N=80, D=1; 16 chains): Phi and xi both drawn jointly at
-    D = 256 by the packed kernel, twice a sweep; 100 + 100 sweeps of the
+    D = 256 by the blocked kernel, twice a sweep; 100 + 100 sweeps of the
     production census through a checkpoint give the bits of one 200-sweep
     run, an excursion included, and the resume keeps covariate_cov."""
     import numpy as np
@@ -431,10 +432,10 @@ def test_config_4_checkpoint_split_equals_the_unbroken_run(dev, tmp_path):
     kernels.reset_launch_counts()
     first = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, n_chains=16,
                                seed=3, checkpoint_to=ck, **kw)
-    # 99 sweeps and one excursion of 4: K1 twice each, at the packed
+    # 99 sweeps and one excursion of 4: K1 twice each, at the blocked
     # kernel's D = 256
     assert kernels.LAUNCHES["chol_solve"] == 2 * (99 + 4)
-    assert kernels.chol_solve_plan(16, 256)["kernel"] == "packed"
+    assert kernels.chol_solve_plan(16, 256)["kernel"] == "blocked"
     rest = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
                               **kw)
     assert rest.config == r2.config

@@ -69,10 +69,11 @@ def test_cuda_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_chol_solve_max_dim_fits_shared_memory():
-    def packed(D):      # the triangle with b as a row, two columns, z
-        return 4 * (kernels.packed_row(D + 1) + 2 * ((D + 4) // 4 * 4) + D)
+    def blocked(D):     # the packed triangle with b as a row, then z
+        return 4 * (kernels.packed_row(D + 1) + D)
     top = kernels.chol_solve_max_dim()
-    assert packed(top) <= kernels.SMEM_PER_BLOCK < packed(top + 1)
+    assert blocked(top) <= kernels.SMEM_PER_BLOCK < blocked(top + 1)
+    assert top >= 334       # every D the packed kernel served before
     assert top >= 112       # at least the TPU kernel's gate
     assert top >= 256       # the 256-dimensional joint draws have a kernel
     # a square matrix of that side would not fit a block: hence the triangle

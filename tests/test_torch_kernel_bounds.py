@@ -65,30 +65,33 @@ def test_kernel_bound_counts_mu_and_rejects_unknown():
 
 @pytest.mark.parametrize("C", [1, 3, 256, 1000])
 def test_chol_solve_plan_owns_every_entry_once(C):
-    """Over D = 1..334: the tiled kernel's cyclic layout gives every entry
+    """Over D = 1..336: the tiled kernel's cyclic layout gives every entry
     on or below the diagonal to exactly one (thread, register) pair, the
-    packed kernel's storage one float to every entry of the triangle and of
-    b, the grid covers every chain, and shared memory fits one block."""
+    blocked kernel's packed storage one float to every entry of the
+    triangle and of b, the grid covers every chain, and shared memory fits
+    one block."""
     top = kernels.chol_solve_max_dim()
-    assert top == 334
+    assert top == 336
     for D in range(1, top + 1):
         plan = kernels.chol_solve_plan(C, D)
         assert plan["smem"] <= kernels.SMEM_PER_BLOCK
         assert plan["grid"] == C                # one chain a block
-        if plan["kernel"] == "packed":
+        if plan["kernel"] == "blocked":
             assert plan["tile"] is None and D > 128
-            assert plan["threads"] == (kernels.K1_PACKED_THREADS,)
+            assert plan["threads"] == (kernels.K1_BLOCKED_THREADS,)
+            assert plan["panel"] == kernels.K1_PANEL
+            assert kernels.chol_solve_code(plan) == -kernels.K1_PANEL
             i, k = np.tril_indices(D + 1)
             i, k = i[k < D], k[k < D]           # row D is b: no diagonal
             off = kernels.packed_row(i) + k
             assert len(np.unique(off)) == len(off)
             assert off.max() < kernels.packed_row(D + 1)
             assert (kernels.packed_row(np.arange(D + 2)) % 4 == 0).all()
-            assert plan["smem"] == 4 * (kernels.packed_row(D + 1)
-                                        + 2 * ((D + 4) // 4 * 4) + D)
+            assert plan["smem"] == 4 * (kernels.packed_row(D + 1) + D)
             continue
-        assert plan["kernel"] == "tiled"
+        assert plan["kernel"] == "tiled" and plan["panel"] is None
         (TR, TC), (RT, CT) = plan["threads"], plan["tile"]
+        assert kernels.chol_solve_code(plan) == RT
         assert TR * RT == TC * CT >= D        # a square that covers A
         assert RT in kernels.K1_TILES and TR == TC == kernels.K1_GRID
         assert TR * TC <= 1024 and (TR * TC) % 32 == 0
@@ -101,7 +104,7 @@ def test_chol_solve_plan_owns_every_entry_once(C):
 def test_chol_solve_plan_main_path_and_limits():
     """D = 96 takes the register-tiled kernel with 16 x 16 threads and 6 x 6
     tiles, one chain a block, two blocks an SM; above the tiled kernel's
-    reach the packed one; above 334 the plan raises and names the queued
+    reach the blocked one; above 336 the plan raises and names the queued
     item."""
     plan = kernels.chol_solve_plan(256, 96)
     assert plan["kernel"] == "tiled" and plan["threads"] == (16, 16)
@@ -112,12 +115,76 @@ def test_chol_solve_plan_main_path_and_limits():
         assert kernels.chol_solve_plan(5, D)["tile"] == (6, 6)
     for D in (97, 128):
         assert kernels.chol_solve_plan(5, D)["tile"] == (8, 8)
-    for D in (129, 200, 240, 241, 250, 256, 334):
-        assert kernels.chol_solve_plan(2, D)["kernel"] == "packed"
-    with pytest.raises(NotImplementedError, match="335 exceeds 334.*large-D"):
-        kernels.chol_solve_plan(2, 335)
+    for D in (129, 200, 240, 241, 250, 256, 334, 336):
+        assert kernels.chol_solve_plan(2, D)["kernel"] == "blocked"
+    with pytest.raises(NotImplementedError, match="337 exceeds 336.*large-D"):
+        kernels.chol_solve_plan(2, 337)
     with pytest.raises(ValueError):
         kernels.chol_solve_plan(0, 96)
+
+
+def _blocked_update_tiles(D, s, warps=kernels.K1_BLOCKED_THREADS // 32):
+    """The trailing update's 4 x 4 tiles at a panel whose trailing part
+    starts at s, as csrc/chol_solve.cu::update_trailing divides them: the
+    groups (ga, gb) of 4 x 8 tiles on or below the diagonal, row of groups
+    by row of groups, go to the warps in turn, and lane l of a warp owns
+    tile (4 ga + l % 4, 8 gb + l // 4) of its group.  Returns (warp, first
+    row, first column) of every tile that some lane updates."""
+    n_rows, n_cols = (D - s) // 4 + 1, (D - s + 3) // 4
+    ga = np.arange(-(-n_rows // 4))
+    n_groups = np.minimum((4 * ga + 3) // 8 + 1, (n_cols + 7) // 8)
+    g_a = np.repeat(ga, n_groups)
+    g_b = np.concatenate([np.arange(n) for n in n_groups])
+    lane = np.arange(32)
+    ta = 4 * g_a[:, None] + lane % 4
+    tb = 8 * g_b[:, None] + lane // 4
+    warp = np.broadcast_to((np.arange(len(g_a)) % warps)[:, None], ta.shape)
+    keep = (tb <= ta) & (ta < n_rows) & (tb < n_cols)
+    return warp[keep], s + 4 * ta[keep], s + 4 * tb[keep]
+
+
+def test_chol_blocked_panels_own_every_entry_once():
+    """Over every D the blocked kernel serves, panel by panel: the diagonal
+    block's rows go to the lanes of warp 0, the rows below it (row D, b,
+    among them) to one thread each, and the 4 x 4 tiles of the trailing
+    update own every entry (i, k) with s <= k <= min(i, D - 1), i <= D,
+    exactly once; a tile's entries past the diagonal fall into its row's
+    own pad (the row's 16-byte groups)."""
+    threads, panel = kernels.K1_BLOCKED_THREADS, kernels.K1_PANEL
+    for D in range(129, kernels.chol_solve_max_dim() + 1):
+        width = np.diff(kernels.packed_row(np.arange(D + 2)))  # row + pad
+        for k0 in range(0, D, panel):
+            nb = min(panel, D - k0)
+            s = k0 + nb
+            assert k0 % 4 == 0 and (nb == panel or s == D)
+            assert nb <= 32                     # one lane a row of the block
+            rows = np.arange(s, D + 1)          # one thread a row
+            assert len(rows) <= threads
+            # the panel's 16-byte groups stay inside their rows
+            assert (k0 + 4 * -(-nb // 4) <= width[rows]).all()
+            if s == D:
+                continue
+            warp, i0, c0 = _blocked_update_tiles(D, s)
+            assert ((0 <= warp) & (warp < threads // 32)).all()
+            i = (i0[:, None, None] + np.arange(4)[None, :, None]).repeat(
+                4, 2)
+            k = (c0[:, None, None] + np.arange(4)[None, None, :]).repeat(
+                4, 1)
+            stored = i <= D                     # rows past D: not stored
+            assert (c0[:, None] + 4 <= width[np.minimum(
+                i[:, :, 0], D)]).all()
+            own = np.zeros((D + 1, D + 4), dtype=int)
+            np.add.at(own, (i[stored], k[stored]), 1)
+            ii, kk = np.nonzero(own)
+            assert (own[ii, kk] == 1).all()
+            want = np.zeros_like(own, dtype=bool)
+            for r in range(s, D + 1):
+                want[r, s:min(r, D - 1) + 1] = True
+            assert (own[want] == 1).all()
+            pad = (own > 0) & ~want             # past the diagonal: its pad
+            pi, pk = np.nonzero(pad)
+            assert (pk > np.minimum(pi, D - 1)).all()
+            assert (pk < width[pi]).all()
 
 
 def test_chol_solve_rejects_oversize_dimension_on_any_device():
@@ -136,23 +203,24 @@ def test_chol_solve_rejects_oversize_dimension_on_any_device():
         kernels.chol_solve_plan(1, D)
 
 
-@pytest.mark.parametrize("which", ["tiled", "packed"])
+@pytest.mark.parametrize("which", ["tiled", "blocked"])
 def test_k1_probe_patches_match_the_source(which):
     """Each knock-out of utils/k1_probe.py, of the register kernel and of
-    the packed one, patches csrc/chol_solve.cu in exactly one place, and
-    changes it."""
+    the blocked one, patches csrc/chol_solve.cu in exactly one place, and
+    changes it; a source in which one patch's text has moved on is
+    refused."""
     from bayesfmmm_torch.utils import k1_probe
     text = (kernels._CSRC / "chol_solve.cu").read_text()
-    outs = k1_probe.KNOCK_OUTS if which == "tiled" \
-        else k1_probe.PACKED_KNOCK_OUTS
+    outs = k1_probe.KNOCK_OUTS[which]
     sources = k1_probe.patched_sources(text, outs)
     assert set(sources) == set(outs) and sources["whole"] == text
     assert all(src != text for name, src in sources.items()
                if name != "whole")
-    broken = text.replace("rsqrtf(d)", "rsqrtf(d + 0)").replace(
-        "rsqrtf(cur[j])", "rsqrtf(cur[j] + 0)")
-    with pytest.raises(RuntimeError, match="not once"):
-        k1_probe.patched_sources(broken, outs)
+    for name, patches in outs.items():
+        for old, _ in patches:
+            broken = text.replace(old, old[:-1] + "#" + old[-1])
+            with pytest.raises(RuntimeError, match="not once"):
+                k1_probe.patched_sources(broken, {name: patches})
 
 
 def _mean_rss_tiled(B, y, w, plan):
@@ -380,15 +448,15 @@ def test_kernel_bound_of_the_256_dimensional_draws(C, nbytes, flop, bound_us,
 
 
 def test_plans_at_the_new_main_path_shapes():
-    """What the plans choose where slice 6 first puts them on a main path:
-    K1 at D = 256 the packed kernel with its triangle in 137,264 bytes (one
-    block an SM); K2 at the hd family's P = 16, L = 144 the kernel, its tile
-    of w inside the budget; K3 the tiled kernel at update_eta's rows, at the
-    sequential scan's and at P = 16 (66 KB at N = 64)."""
+    """What the plans choose where slice 6 first puts them on a main path: K1
+    at D = 256 the blocked kernel with its triangle, b and z in 135,184 bytes
+    (one block an SM); K2 at the hd family's P = 16, L = 144 the kernel, its
+    tile of w inside the budget; K3 the tiled kernel at update_eta's rows, at
+    the sequential scan's and at P = 16 (66 KB at N = 64)."""
     for C in (16, 64, 256):
         plan = kernels.chol_solve_plan(C, 256)
-        assert plan["kernel"] == "packed" and plan["grid"] == C
-        assert plan["smem"] == 137_264
+        assert plan["kernel"] == "blocked" and plan["grid"] == C
+        assert plan["smem"] == 135_184
         assert 2 * plan["smem"] > kernels.SMEM_PER_BLOCK
     assert kernels.chol_solve_plan(4, 60)["tile"] == (6, 6)     # config 1
     assert kernels.chol_solve_plan(8, 72)["tile"] == (6, 6)     # config 3

@@ -2,9 +2,10 @@
 K3 (weighted_gram) against the JAX package's Pallas kernels, run in
 interpret mode on the CPU, on identical inputs made with numpy.
 
-K1's register-tiled kernel is held here through ``chol_solve_tiled_plain``,
-its algorithm step by step in PyTorch, so the algorithm is proved on the CPU
-before the card sees it.
+K1's two kernels are held here through their plain versions,
+``chol_solve_tiled_plain`` (registers, D <= 128) and
+``chol_solve_blocked_plain`` (a panel at a time, above), their algorithms in
+PyTorch, so the algorithm is proved on the CPU before the card sees it.
 
 Tolerances: K1 5e-5 on the mean and 5e-4 on the noise, those of the JAX
 package's own kernel test (tests/test_linalg.py:118-121); K2 2e-5 on mu and
@@ -253,43 +254,65 @@ def test_weighted_gram_keeps_leading_axes():
 
 
 # ---------------------------------------------------------------------------
-# K1's packed kernel: its plain version, which repeats its arithmetic on its
-# own storage
+# K1's blocked kernel: its plain version, which repeats its arithmetic a
+# panel at a time
 # ---------------------------------------------------------------------------
+
+def _blocked_problem(seed, C, D, dtype):
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn(C, D, D + 4, generator=g, dtype=dtype)
+    A = X @ X.mT / D + torch.eye(D, dtype=dtype)
+    return (A, torch.randn(C, D, generator=g, dtype=dtype),
+            torch.randn(C, D, generator=g, dtype=dtype))
+
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize("C,D", [(3, 1), (2, 7), (4, 33), (2, 96), (1, 241)])
+@pytest.mark.parametrize("C,D", [(3, 1), (2, 7), (4, 33), (2, 96), (1, 129),
+                                 (1, 241), (1, 256), (1, 334)])
 @pytest.mark.parametrize("jitter", [0.0, 1e-3])
-def test_chol_solve_packed_plain_matches_plain(dtype, tol, C, D, jitter):
-    """Packed lower triangle with b as a row, raw columns scaled by the
-    reader, reciprocals on the diagonal: the same (mean, noise) as the
-    library's factor and solves, to ``tol`` of the result's scale."""
-    g = torch.Generator().manual_seed(D)
-    X = torch.randn(C, D, D + 4, generator=g, dtype=dtype)
-    A = X @ X.mT / D + torch.eye(D, dtype=dtype)
-    b = torch.randn(C, D, generator=g, dtype=dtype)
-    z = torch.randn(C, D, generator=g, dtype=dtype)
-    mean, noise = kernels.chol_solve_packed_plain(A, b, z, jitter)
+def test_chol_solve_blocked_plain_matches_plain(dtype, tol, C, D, jitter):
+    """Panels of 32 columns (D a multiple of 32 or not, one panel or many), b
+    carried as row D, reciprocals of the diagonal: the same (mean, noise) as
+    the library's factor and solves, to ``tol`` of the result's scale; the
+    inputs are left as they were."""
+    A, b, z = _blocked_problem(D, C, D, dtype)
+    A0, b0, z0 = A.clone(), b.clone(), z.clone()
+    mean, noise = kernels.chol_solve_blocked_plain(A, b, z, jitter)
     mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
-    assert mean.dtype == dtype and mean.shape == (C, D)
+    assert mean.dtype == dtype and mean.shape == noise.shape == (C, D)
     for got, want in ((mean, mean_p), (noise, noise_p)):
         assert float((got - want).abs().max()) <= tol * (
             1.0 + float(want.abs().max()))
-    # the inputs are left as they were
-    assert torch.equal(A, X @ X.mT / D + torch.eye(D, dtype=dtype))
+    assert torch.equal(A, A0) and torch.equal(b, b0) and torch.equal(z, z0)
+
+
+@pytest.mark.parametrize("D", [256, 334])
+def test_chol_solve_blocked_plain_matches_jax_precision_draw_pair(D):
+    """Against the JAX package's draw at the blocked kernel's dimensions,
+    where it runs ``jnp.linalg.cholesky`` and ``blocked_tri_solves``
+    (ops/linalg.py:308-316), with and without the jitter (JAX's formula
+    applied outside)."""
+    A, b, z = _spd_problem(D + 6, 2, D)
+    for jitter in (0.0, 1e-6):
+        Aj = _jax_jittered(jnp.asarray(A), jitter) if jitter else A
+        mean_j, noise_j = jax.jit(jax.vmap(precision_draw_pair))(Aj, b, z)
+        mean, noise = kernels.chol_solve_blocked_plain(
+            *map(torch.from_numpy, (A, b, z)), jitter)
+        np.testing.assert_allclose(mean.numpy(), mean_j, atol=5e-5)
+        np.testing.assert_allclose(noise.numpy(), noise_j, atol=5e-4)
 
 
 def test_chol_solve_plain_versions_agree_at_the_joint_draws_dimension():
     """D = 256, the joint xi and hd Phi draws: plain, tiled-plain and
-    packed-plain on the same float64 inputs to 1e-10."""
+    blocked-plain on the same float64 inputs to 1e-10."""
     g = torch.Generator().manual_seed(256)
     X = torch.randn(2, 256, 300, generator=g, dtype=torch.float64)
     A = X @ X.mT / 256 + torch.eye(256, dtype=torch.float64)
     b = torch.randn(2, 256, generator=g, dtype=torch.float64)
     z = torch.randn(2, 256, generator=g, dtype=torch.float64)
     want = kernels.chol_solve_plain(A, b, z, 1e-6)
-    for fn in (kernels.chol_solve_packed_plain,
+    for fn in (kernels.chol_solve_blocked_plain,
                kernels.chol_solve_tiled_plain):
         for got, ref in zip(fn(A, b, z, 1e-6), want):
             assert float((got - ref).abs().max()) < 1e-10, fn.__name__
