@@ -19,6 +19,15 @@ is given and raise without a card; ``device="cpu"`` asks for the CPU.
 ``api.fit_theta`` and ``api.fit_warm_start`` (a resume from a checkpoint
 too) take the device from the data they are given.
 
+``reference_api`` holds the reference R package's 33 exported names over
+``api`` and ``post/``: the nine ``B{F,MV,HDF}MMM_*`` fitters with their
+positional R arguments, the credible intervals (``FMeanCI``, ``FCovCI``,
+``ZCI``, ``SigmaCI`` and the ``MV``/``HDF`` mirrors), ``FDIC``/``FAIC``/
+``FBIC``/``FLLik`` and their ``MV`` mirrors, ``FSamplePaths``,
+``ConditionalPredictiveOrdinates`` (computed on the device) and the six
+``Read*`` trace readers, all on a trace directory the fitters wrote.  The
+names that build data take a keyword-only ``device`` (the card when None).
+
 Quick start (the three-phase fit with the bench's production sweep in
 phase 3; ``kernels="reference"`` for the reference kernel census)::
 
@@ -35,6 +44,26 @@ phase 3; ``kernels="reference"`` for the reference kernel census)::
     res.loglik, res.estimates(align=True), res.ensemble_state
     more = api.fit_warm_start(resume_from="ensemble.npz", data=data,
                               tot_mcmc_iters=1000, kernels="production")
+
+The same model by the reference's R names, then its post-processing on the
+directory phase 3 wrote (Y, time: lists of each curve's values and times)::
+
+    from bayesfmmm_torch import reference_api as R
+    from bayesfmmm_torch.utils.simulate import functional_lists
+
+    Y, time = functional_lists(data, seed=7, n_time=(100, 100))
+
+    knots = [0.2, 0.4, 0.6, 0.8]
+    est1 = R.BFMMM_Nu_Z_multiple_try(1000, 7, 3, Y, time, 100, 3, 4,
+                                     [0, 1], knots)
+    est2 = R.BFMMM_Theta_est(1000, 7, 3, Y, time, 100, 3, 4, [0, 1], knots,
+                             est1)
+    est3 = R.BFMMM_warm_start(2000, est1, est2, dir="traces",
+                              n_temp_trans=100, N_t=3, beta_N_t=0.5)
+    R.FMeanCI("traces", 1, [i / 20 for i in range(21)], 3, [0, 1], knots,
+              1, rescale=False)
+    R.FDIC("traces", 1, 3, [0, 1], knots, time, Y)
+    R.ConditionalPredictiveOrdinates("traces", 1, 3, [0, 1], knots, time, Y)
 """
 
 __version__ = "0.1.0"

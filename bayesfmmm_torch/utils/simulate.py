@@ -1,6 +1,9 @@
 """Mixed-membership data simulators of the three families (port of
 ``bayesfmmm_tpu/utils/simulate.py``): ``simulate_functional``,
-``simulate_hd_functional``, ``simulate_multivariate``.
+``simulate_hd_functional``, ``simulate_multivariate``; and, for the
+reference-named API, ``functional_lists`` (the raw lists a functional data
+set was built from) and ``simulate_draws`` (synthetic traces around a truth,
+for post-processing checks).
 
 All NumPy with ``default_rng(seed)`` and the same truth and design in the
 data's dtype, so for one seed each gives the JAX package's y, mask, B and X
@@ -71,9 +74,7 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
     internal = np.linspace(0, 1, n_internal + 2)[1:-1]
     boundary = np.array([0.0, 1.0])
 
-    t_list = [np.sort(rng.uniform(0, 1,
-                                  rng.integers(n_time[0], n_time[1] + 1)))
-              for _ in range(N)]
+    t_list = _time_points(rng, N, n_time)
     X = rng.normal(size=(N, D)) if D else None
 
     # design first (float32, on the host), then the observations
@@ -93,6 +94,41 @@ def simulate_functional(seed=1, *, N=40, K=3, P=8, M=2, D=0, n_time=(80, 100),
                                 boundary_knots=boundary, X=X, dtype=dtype,
                                 device=device)
     return data, truth
+
+
+def _time_points(rng, N, n_time):
+    return [np.sort(rng.uniform(0, 1, rng.integers(n_time[0], n_time[1] + 1)))
+            for _ in range(N)]
+
+
+def functional_lists(data, *, seed, n_time):
+    """(Y, time): each curve's observed values and time points, the ragged
+    lists the reference's R names take, of the data
+    ``simulate_functional(seed=seed, N=data.N, n_time=n_time, ...)`` made
+    (its time points are the first draws of its generator)."""
+    t_list = _time_points(np.random.default_rng(seed), data.N, n_time)
+    y, mask = data.y.cpu().numpy(), data.mask.cpu().numpy()
+    return [y[i][mask[i] > 0] for i in range(data.N)], t_list
+
+
+def simulate_draws(truth, n_draws, *, seed=0, spread=0.05):
+    """``n_draws`` synthetic draws of every state field scattered around
+    ``truth`` (a dict of one chain's NumPy arrays, as the simulators return
+    it), as float64 traces with the draws first: nu, Phi, chi, eta, xi
+    with N(0, spread^2) noise, Z from a Dirichlet centred on the truth's
+    rows, sigma2 with log-normal noise of sd ``spread``, the rest constant.
+    They stand in for a fit's traces where post-processing is checked."""
+    rng = np.random.default_rng(seed)
+    out = {f: np.broadcast_to(np.asarray(truth[f], np.float64),
+                              (n_draws,) + np.shape(truth[f])).copy()
+           for f in STATE_FIELDS}
+    for f in ("nu", "Phi", "chi", "eta", "xi"):
+        out[f] += spread * rng.normal(size=out[f].shape)
+    Z = rng.gamma(200.0 * out["Z"] + 0.5)
+    out["Z"] = Z / Z.sum(axis=-1, keepdims=True)
+    out["sigma2"] = out["sigma2"] * np.exp(spread
+                                           * rng.normal(size=n_draws))
+    return out
 
 
 def simulate_hd_functional(seed=1, *, N=20, K=2, M=2, D=0, n_points=(40, 50),

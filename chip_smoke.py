@@ -60,7 +60,22 @@ Phases, one line each, any failure exits non-zero:
      K2, no K3), counted shape by shape; and the fit smoke's phase 3
      once more from the JAX package's own phase-1/2 medians, inside the
      tight limits of tests/data/torch_fit_reference.json;
-  9. timings: chain-sweeps/s of both paths, and each kernel at the main
+  9. slice 9's path, the reference-named API (bayesfmmm_torch.reference_api)
+     on the card, no device given: BFMMM_Nu_Z_multiple_try,
+     BFMMM_Theta_est in the reference-literal form and BFMMM_warm_start
+     (with excursions, exporting its traces) at the headline width from the
+     raw Y / time lists of bench.py's data, the launch counts of each phase
+     and the R lists' layouts; then every post-processing name on the
+     directory it wrote (FMeanCI, FCovCI, ZCI, SigmaCI, FDIC, FAIC, FBIC,
+     FLLik against the warm start's own loglik trace, FSamplePaths' band
+     coverage, the six Read*, and ConditionalPredictiveOrdinates on the card,
+     timed on the host's clock and the device's); CPO on the card, DIC, AIC,
+     BIC and the loglik trace held against the JAX package's on traces
+     rebuilt from tests/data/torch_post_reference.json's seeds (the headline
+     widths and config 4's, eta and xi); and the multivariate and hd mirrors
+     at configs 1 and 5's widths, 100 sweeps a phase, with MVMeanCI,
+     MVCovCI, MVDIC, MVAIC, MVBIC, MVLLik, HDFMeanCI and HDFCovCI;
+ 10. timings: chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
      the one PyTorch call for the same function where there is one (K1: the
@@ -91,6 +106,7 @@ import numpy as np
 import torch
 
 from bayesfmmm_torch import ModelConfig, Priors, api, diagnostics
+from bayesfmmm_torch import reference_api as R
 from bayesfmmm_torch.convert import (fit_result_from_estimates,
                                      state_to_numpy)
 from bayesfmmm_torch.io import armaio
@@ -99,16 +115,19 @@ from bayesfmmm_torch.models.likelihood import log_likelihood
 from bayesfmmm_torch.models.state import (STATE_FIELDS, init_state,
                                           make_hd_functional_data)
 from bayesfmmm_torch.ops import gibbs, kernels
+from bayesfmmm_torch.post import model_selection
 from bayesfmmm_torch.samplers import drivers
 from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
 from bayesfmmm_torch.utils.kernel_bench import (card_line, device_launches,
-                                                device_ms, in_turns,
+                                                device_ms, device_ms_by_kernel,
+                                                in_turns,
                                                 library_chol_solve,
                                                 library_weighted_gram,
                                                 main_path_inputs, paced_ms,
                                                 spd)
 from bayesfmmm_torch.utils.observability import ProgressStream
 from bayesfmmm_torch.utils.simulate import (_numpy_mu, _truth_state,
+                                            functional_lists, simulate_draws,
                                             simulate_functional,
                                             simulate_multivariate)
 
@@ -189,10 +208,10 @@ SWEEP_LAUNCHES = {
     ("reference", "eta"): (1, 2, 2),
     # config 1: the multivariate family
     ("nu_z", "mv"): (0, 0, 0), ("theta", "mv"): (1, 0, 0),
-    ("production", "mv"): (1, 0, 0),
+    ("production", "mv"): (1, 0, 0), ("reference", "mv"): (1, 0, 0),
     # config 5: the hd family launches what the functional one does
     ("nu_z", "hd"): (0, 2, 1), ("theta", "hd"): (1, 2, 0),
-    ("production", "hd"): (1, 7, 1),
+    ("production", "hd"): (1, 7, 1), ("reference", "hd"): (1, 2, 1),
 }
 KERNEL_NAMES = ("chol_solve", "mean_rss", "weighted_gram")
 
@@ -1039,6 +1058,326 @@ def config5_phase(dev, card):
     return counts, by_shape, ms
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the reference-named API and its post-processing
+# ---------------------------------------------------------------------------
+
+# The R-named functional pipeline at the headline width (bench.py's data)
+REF_API = dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100], n_try=7,
+               nu_z_iters=300, theta_iters=300, warm_iters=400,
+               n_temp_trans=100, N_t=3, beta_N_t=0.5, grid=50)
+# The mirrors at configs 1 and 5's widths, short
+REF_API_FAMILY_ITERS = 100
+# FLLik (float64 NumPy from the traces) against the warm start's own loglik
+# trace (float32 on the card, the RSS by K2): the same state, so they differ
+# by float32 rounding of terms of the order of n_obs (10,000 points): up to
+# 2.5e-3 nats found on the CPU at this width (FLLIK_ATOL: about 20 times it)
+FLLIK_ATOL = 0.05
+# tests/data/make_torch_post_reference.py's protocol: chip_smoke.py refuses
+# a reference made with another
+POST_REFERENCE = DATA / "torch_post_reference.json"
+POST_PROTOCOL = {
+    "headline": dict(data=dict(seed=7, N=100, K=3, P=8, M=4,
+                               n_time=[80, 100]),
+                     draws=200, trace_seed=13, burnin_prop=0.1, X=False),
+    "config4": dict(data=dict(seed=7, N=80, K=2, P=8, M=16, D=1,
+                              n_time=[80, 100], with_eta=True, with_xi=True),
+                    draws=200, trace_seed=13, burnin_prop=0.1, X=True),
+}
+
+
+def check_ci(what, ci, shape):
+    """A credible interval's three members: shape, finite, in order."""
+    lo, med, hi = (np.asarray(ci[k]) for k in ("CI_Lower", "CI_50",
+                                               "CI_Upper"))
+    check(lo.shape == med.shape == hi.shape == shape,
+          f"{what}: CI shape {lo.shape}, expected {shape}")
+    check(all(np.all(np.isfinite(a)) for a in (lo, med, hi)),
+          f"{what}: CI not finite")
+    check(np.all(lo <= med + 1e-12) and np.all(med <= hi + 1e-12),
+          f"{what}: CI_Lower <= CI_50 <= CI_Upper fails")
+
+
+def r_named_phases(probe, n_calls):
+    """The (seconds, launches) of the last ``n_calls`` api.fit_* calls the
+    probe saw, which must be fit_nu_z, fit_theta, fit_warm_start."""
+    calls = probe.calls[-n_calls:]
+    check([c[0] for c in calls] == list(PhaseProbe.NAMES),
+          f"the R-named fitters ran {[c[0] for c in calls]}")
+    return [(s, {k: c[k] for k in KERNEL_NAMES}) for _, _, s, c in calls]
+
+
+def ref_api_functional(dev, card):
+    """The R-named functional pipeline at the headline width, then every
+    post-processing name on the directory its warm start wrote; returns
+    (launch counts by phase, numbers for the line of timings)."""
+    p = REF_API
+    K, P, M, N = p["K"], p["P"], p["M"], p["N"]
+    n1, n2, n3 = p["nu_z_iters"], p["theta_iters"], p["warm_iters"]
+    n_time = tuple(p["n_time"])
+    sim, _ = simulate_functional(seed=p["seed"], N=N, K=K, P=P, M=M,
+                                 n_time=n_time, device=dev)
+    # the raw lists the R names take: each curve's values and time points
+    Y, t = functional_lists(sim, seed=p["seed"], n_time=n_time)
+    knots, bk, deg = np.linspace(0, 1, P - 4 + 2)[1:-1], [0, 1], 3
+    basis = (deg, bk, knots)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        with PhaseProbe() as probe:
+            # no device: the card (reference_api's default)
+            est1 = R.BFMMM_Nu_Z_multiple_try(n1, p["n_try"], K, Y, t, N, deg,
+                                             M, bk, knots)
+            est2 = R.BFMMM_Theta_est(n2, p["n_try"], K, Y, t, N, deg, M, bk,
+                                     knots, est1)
+            est3 = R.BFMMM_warm_start(n3, est1, est2, dir=tmp,
+                                      n_temp_trans=p["n_temp_trans"],
+                                      N_t=p["N_t"], beta_N_t=p["beta_N_t"])
+        counts = counters()
+        (s1, c1), (s2, c2), (s3, c3) = r_named_phases(probe, 3)
+        check(est1.data.device.type == dev.type
+              and torch.equal(est1.data.B, sim.B)
+              and torch.equal(est1.data.y, sim.y),
+              "R-named phase 1 did not build the headline data on the card")
+        n_exc, want3 = phase3_launches(PATHS["slice"][2], n3,
+                                       p["n_temp_trans"], p["N_t"])
+        for name, got, want in (
+                ("phase 1", c1, {k: v * n1 for k, v in
+                                 PHASE_LAUNCHES["nu_z"].items()}),
+                ("phase 2", c2, {k: v * n2 for k, v in
+                                 PHASE_LAUNCHES["theta"].items()}),
+                ("phase 3", c3, want3)):
+            check_counts(f"R-named {name}", got, want)
+        check(all(counts[k] > 0 for k in KERNEL_NAMES)
+              and counts == {k: c1[k] + c2[k] + c3[k] for k in counts},
+              f"R-named pipeline: launches {counts}")
+        # the R lists' members in the reference's layouts
+        # (tests/test_reference_signatures.py:52-68)
+        for est, n, members in (
+                (est1, n1, {"nu": (K, P), "Z": (N, K), "pi": (K,),
+                            "alpha_3": (), "sigma_sq": (), "tau": (K,),
+                            "loglik": ()}),
+                (est2, n2, {"Phi": (K, P, M), "chi": (N, M),
+                            "gamma": (K, P, M), "delta": (K, M),
+                            "A": (K, 2), "loglik": ()}),
+                (est3, n3, {"Phi": (K, P, M), "nu": (K, P), "Z": (N, K),
+                            "sigma_sq": (), "loglik": ()})):
+            for m, shape in members.items():
+                v = est[m]
+                check(v.shape == shape + (n,) and np.all(np.isfinite(v)),
+                      f"R list member {m}: {v.shape}, expected "
+                      f"{shape + (n,)}")
+        B = est1["B"]
+        check(len(B) == N and all(b.shape == (len(ti), P)
+                                  for b, ti in zip(B, t)),
+              "R list member B is not the per-curve basis list")
+        ll1, ll3 = (float(np.mean(e.loglik[-100:])) for e in (est1, est3))
+        print(f"  R-named pipeline: {n1} + {n2} + {n3} sweeps, {n_exc} "
+              f"excursions; phase 1 and phase 3 mean loglik over the last 100 "
+              f"draws {ll1:.2f} -> {ll3:.2f}")
+        check(ll3 > ll1, "the warm start's loglik did not climb over phase 1's")
+        out.update(phase_s={"nu_z": s1, "theta": s2, "warm_start": s3})
+
+        # every post-processing name on the directory phase 3 wrote
+        t0 = time.perf_counter()
+        grid = np.linspace(0, 1, p["grid"])
+        G = len(grid)
+        for k in range(1, K + 1):
+            for sim_band in (False, True):
+                check_ci(f"FMeanCI k={k} simultaneous={sim_band}",
+                         R.FMeanCI(tmp, 1, grid, *basis, k, rescale=False,
+                                   simultaneous=sim_band), (G,))
+        for k, l in ((1, 1), (1, 2)):
+            check_ci(f"FCovCI ({k}, {l})",
+                     R.FCovCI(tmp, 1, grid, grid, *basis, k, l,
+                              rescale=False), (G, G))
+        zci = R.ZCI(tmp, 1)
+        check_ci("ZCI", zci, (N, K))
+        check(np.all(zci["CI_Lower"] >= 0) and np.all(zci["CI_Upper"] <= 1),
+              "ZCI outside [0, 1]")
+        sci = R.SigmaCI(tmp, 1)
+        check(0 < sci["CI_Lower"] <= sci["CI_50"] <= sci["CI_Upper"],
+              f"SigmaCI {sci['CI_Lower']}, {sci['CI_50']}, {sci['CI_Upper']}")
+        ics = {name: getattr(R, name)(tmp, 1, *basis, t, Y)
+               for name in ("FDIC", "FAIC", "FBIC")}
+        check(all(np.isfinite(v) for v in ics.values()), f"{ics}")
+        ll = R.FLLik(tmp, 1, *basis, t, Y)
+        e_ll = float(np.max(np.abs(ll - est3.loglik)))
+        check(ll.shape == (n3,) and e_ll <= FLLIK_ATOL,
+              f"FLLik differs from the warm start's loglik trace by {e_ll}")
+        paths = R.FSamplePaths(tmp, 1, *basis, t, Y)
+        y, mask = sim.y.cpu().numpy(), sim.mask.cpu().numpy() > 0
+        cover = float(((y >= paths["CI_Lower"])
+                       & (y <= paths["CI_Upper"]))[mask].mean())
+        check(paths["SampPaths"].shape == (n3 - round(0.1 * n3), N, y.shape[1])
+              and cover > 0.8,
+              f"FSamplePaths: shape {paths['SampPaths'].shape}, its 95 % band "
+              f"covers {cover:.3f} of the observed points")
+        stems = {"ReadVec": ("Sigma", (n3,)), "ReadMat": ("Pi", (K, n3)),
+                 "ReadCube": ("Z", (N, K, n3)), "ReadFieldVec": ("Chi", None),
+                 "ReadFieldMat": ("Nu", None), "ReadFieldCube": ("Phi", None)}
+        for reader, (stem, shape) in stems.items():
+            got = getattr(R, reader)(os.path.join(tmp, f"{stem}0.txt"))
+            ok = (np.shape(got) == shape if shape is not None
+                  else isinstance(got, list) and len(got) == n3
+                  and all(np.all(np.isfinite(g)) for g in got))
+            check(ok, f"{reader}({stem}0.txt): {np.shape(got)}")
+        numpy_s = time.perf_counter() - t0
+
+        # CPO on the card: its host and device time at (draws, N)
+        cpo = R.ConditionalPredictiveOrdinates(tmp, 1, *basis, t, Y)
+        check(cpo.shape == (N,) and np.all(np.isfinite(cpo)),
+              f"ConditionalPredictiveOrdinates: {cpo.shape}, finite "
+              f"{np.isfinite(cpo).all()}")
+        traces, data = R._traces_and_data_from_dir(tmp, 1, Y, t, *basis)
+        check(data.device.type == dev.type, "CPO's data is not on the card")
+
+        def cpo_call():
+            return model_selection.cpo(traces, data)
+
+        check(np.array_equal(cpo_call(), cpo), "CPO: another call, other bits")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            cpo_call()
+        cpo_host_ms = (time.perf_counter() - t1) / 5 * 1e3
+        by_kernel = device_ms_by_kernel(cpo_call, reps=5, warmup=1)
+        draws = n3 - round(0.1 * n3)
+    print(f"  R-named post-processing: FMeanCI x {2 * K}, FCovCI x 2, ZCI, "
+          f"SigmaCI, FDIC {ics['FDIC']:.4f}, FAIC {ics['FAIC']:.4f}, FBIC "
+          f"{ics['FBIC']:.4f}, FLLik (max |FLLik - loglik trace| {e_ll:.3e}, "
+          f"tol {FLLIK_ATOL}), FSamplePaths (95 % band covers {cover:.4f}), "
+          f"six Read*; CPO on the card in [{cpo.min():.3f}, {cpo.max():.3f}]")
+    out.update(numpy_s=numpy_s, cpo_host_ms=cpo_host_ms,
+               cpo_device_ms=sum(by_kernel.values()), cpo_shape=(draws, N),
+               cpo_top=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:3])
+    return {"nu_z": c1, "theta": c2, "warm_start": c3}, out
+
+
+def post_reference_phase(dev):
+    """CPO on the card, DIC, AIC, BIC and the loglik trace against the JAX
+    package's on traces rebuilt from the reference's seeds."""
+    ref = json.loads(POST_REFERENCE.read_text())
+    check(ref["protocol"] == POST_PROTOCOL,
+          f"{POST_REFERENCE.name}: protocol {ref['protocol']} != "
+          f"{POST_PROTOCOL}")
+    for case, p in POST_PROTOCOL.items():
+        want = ref[case]
+        data, truth = simulate_functional(
+            device=dev, **dict(p["data"], n_time=tuple(p["data"]["n_time"])))
+        traces = simulate_draws(truth, p["draws"], seed=p["trace_seed"])
+        sums = {k: float(np.sum(v)) for k, v in sorted(traces.items())}
+        check(sums.keys() == want["trace_sums"].keys() and all(
+            np.isclose(sums[k], want["trace_sums"][k], rtol=1e-12, atol=0)
+            for k in sums), f"{case}: the rebuilt traces are not the "
+                            f"reference's")
+        X = data.X.cpu().numpy() if p["X"] else None
+        bp = p["burnin_prop"]
+        cpo = model_selection.cpo(traces, data, burnin_prop=bp, X=X)
+        err = float(np.max(np.abs(cpo - np.asarray(want["cpo"]))))
+        check(err <= want["cpo_atol"],
+              f"{case}: CPO on the card differs from the JAX package's by "
+              f"{err}, tolerance {want['cpo_atol']}")
+        got = {"dic": model_selection.dic(traces, data, burnin_prop=bp, X=X),
+               "aic": model_selection.aic(traces, data, burnin_prop=bp, X=X,
+                                          cov_adj=bool(p["X"])),
+               "bic": model_selection.bic(traces, data, burnin_prop=bp, X=X,
+                                          cov_adj=bool(p["X"]))}
+        ll = model_selection.loglik_trace(traces, data, X)
+        check(all(np.isclose(got[k], want[k], rtol=1e-9, atol=0) for k in got)
+              and np.allclose(ll, want["loglik"], rtol=1e-9, atol=0),
+              f"{case}: {got} against the JAX package's "
+              f"{ {k: want[k] for k in got} }")
+        print(f"  {case} (N={data.N}, M={p['data']['M']}, {p['draws']} draws"
+              f"{', eta and xi with X' if p['X'] else ''}): CPO on the card "
+              f"within {err:.3e} of the JAX package's (tolerance "
+              f"{want['cpo_atol']:.3e}: 4 x its float32 error); DIC "
+              f"{got['dic']:.4f}, AIC {got['aic']:.4f}, BIC {got['bic']:.4f} "
+              f"and the loglik trace equal to it (rtol 1e-9)")
+
+
+def ref_api_families(dev):
+    """The multivariate and hd mirrors at configs 1 and 5's widths, short;
+    returns their launch counts and seconds by phase."""
+    n = REF_API_FAMILY_ITERS
+    counts, seconds = {}, {}
+    with tempfile.TemporaryDirectory() as tmp, PhaseProbe() as probe:
+        # config 1: the multivariate family launches no K2 and no K3
+        p = FAMILY_PROTOCOLS["config1"]
+        K, M = p["K"], p["M"]
+        data, _ = family_data(dev, "config1")
+        Y = data.y.cpu().numpy()
+        d1 = os.path.join(tmp, "mv")
+        kernels.reset_launch_counts()
+        e1 = R.BMVMMM_Nu_Z_multiple_try(n, p["n_try"], K, Y, M)
+        e2 = R.BMVMMM_Theta_est(n, p["n_try"], K, Y, M, e1)
+        e3 = R.BMVMMM_warm_start(n, e1, e2, dir=d1)
+        counts["config1"] = counters()
+        phases = r_named_phases(probe, 3)
+        for (s, c), sweep in zip(phases, ("nu_z", "theta", "reference")):
+            check_counts(f"R-named config 1, {sweep}", c,
+                         {k: v * n for k, v in per_sweep(sweep, "mv").items()})
+        check(counts["config1"]["mean_rss"] == 0
+              and counts["config1"]["weighted_gram"] == 0
+              and counts["config1"]["chol_solve"] > 0,
+              f"R-named config 1 launched {counts['config1']}")
+        seconds["config1"] = [s for s, _ in phases]
+        check(e3.data.identity_basis and "B" not in e3 and np.allclose(
+            e3["tau"], 1.0 / np.moveaxis(e3.traces["tau"], 0, -1)),
+            "config 1: the MV list's tau or B")
+        P = Y.shape[1]
+        mean = R.MVMeanCI(d1, 1)
+        check(sorted(mean) == list(range(1, K + 1)), f"MVMeanCI: {list(mean)}")
+        for k, ci in mean.items():
+            check_ci(f"MVMeanCI k={k}", ci, (P,))
+        check_ci("MVCovCI (1, 2)", R.MVCovCI(d1, 1, 1, 2), (P, P))
+        ics = [getattr(R, name)(d1, 1, Y) for name in ("MVDIC", "MVAIC",
+                                                         "MVBIC")]
+        ll = R.MVLLik(d1, 1, Y)
+        e_ll = float(np.max(np.abs(ll - e3.loglik)))
+        check(np.all(np.isfinite(ics)) and e_ll <= FLLIK_ATOL,
+              f"config 1: MVDIC/AIC/BIC {ics}, MVLLik off by {e_ll}")
+        print(f"  R-named config 1 (multivariate): MVMeanCI, MVCovCI, MVDIC "
+              f"{ics[0]:.4f}, MVAIC {ics[1]:.4f}, MVBIC {ics[2]:.4f}, MVLLik "
+              f"within {e_ll:.3e} of the loglik trace")
+
+        # config 5: the hd family, surfaces on a 12 x 12 grid
+        p = FAMILY_PROTOCOLS["config5"]
+        K, M = p["K"], p["M"]
+        data = hd_grid_data(p, dev)
+        g = np.linspace(0, 1, p["grid"])
+        pts = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+        Y, t = list(data.y.cpu().numpy()), [pts] * p["N"]
+        knots = [np.linspace(0, 1, k + 2)[1:-1] for k in p["n_internal"]]
+        bk = np.tile(np.array([0.0, 1.0]), (2, 1))
+        basis = (p["basis_degrees"], bk, knots)
+        d5 = os.path.join(tmp, "hd")
+        kernels.reset_launch_counts()
+        e1 = R.BHDFMMM_Nu_Z_multiple_try(n, p["n_try"], K, Y, t, p["N"],
+                                         p["basis_degrees"], M, bk, knots)
+        e2 = R.BHDFMMM_Theta_est(n, p["n_try"], K, Y, t, p["N"],
+                                 p["basis_degrees"], M, bk, knots, e1)
+        R.BHDFMMM_warm_start(n, e1, e2, dir=d5)
+        counts["config5"] = counters()
+        phases = r_named_phases(probe, 3)
+        for (s, c), sweep in zip(phases, ("nu_z", "theta", "reference")):
+            check_counts(f"R-named config 5, {sweep}", c,
+                         {k: v * n for k, v in per_sweep(sweep, "hd").items()})
+        seconds["config5"] = [s for s, _ in phases]
+        check(torch.equal(e1.data.B, data.B) and e1.data.P == 16,
+              "config 5: the R names built other data")
+        for k in range(1, K + 1):
+            check_ci(f"HDFMeanCI k={k}",
+                     R.HDFMeanCI(d5, 1, pts, *basis, k, rescale=False),
+                     (len(pts),))
+        check_ci("HDFCovCI (1, 2)",
+                 R.HDFCovCI(d5, 1, pts, pts[::4], *basis, 1, 2,
+                            rescale=False), (len(pts), len(pts[::4])))
+        print(f"  R-named config 5 (hd): HDFMeanCI x {K}, HDFCovCI on "
+              f"{len(pts)} grid points")
+    return counts, seconds
+
+
 def sweep_profile(dev, name, chains, flags):
     """Kernels and device-busy ms of one sweep_full of ``chains`` chains
     from a random state, under the profiler (which slows the host; the ms a
@@ -1118,6 +1457,28 @@ def main():
     slice6 = {"config4": c4_path, "config3": c3, "config1": c1, "config5": c5}
     for k in KERNEL_NAMES:
         check(c4_path[k] > 0, f"config 4's path never launched {k}")
+
+    t9 = time.perf_counter()
+    ref_counts, ref_times = ref_api_functional(dev, card)
+    post_reference_phase(dev)
+    fam_counts, fam_seconds = ref_api_families(dev)
+    ph = ref_times["phase_s"]
+    print(f"  reference API on {card}: R-named phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in ph.items())
+          + f" (headline; phase 1 {REF_API['n_try'] + 1} chains, phase 2 "
+          f"{REF_API['n_try']}, phase 3 one); configs 1 and 5, phases 1 / 2 / "
+          f"3: "
+          + ", ".join(f"{k} " + " / ".join(f"{s:.3f}" for s in v) + " s"
+                      for k, v in fam_seconds.items())
+          + f"; CPO at (draws, N) = {ref_times['cpo_shape']}: "
+          f"{ref_times['cpo_host_ms']:.3f} ms a call on the host's clock, "
+          f"{ref_times['cpo_device_ms']:.4f} ms of device time (most in "
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in ref_times["cpo_top"])
+          + "); the NumPy "
+          f"post-processing (FMeanCI .. Read*) {ref_times['numpy_s']:.3f} s; "
+          f"the phase {time.perf_counter() - t9:.1f} s")
+    print("phase 9 slice 9 path (the reference-named API and its "
+          "post-processing, CPO on the card): ok")
 
     x = main_path_inputs(dev)
     C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
@@ -1205,7 +1566,7 @@ def main():
     jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
         jitter_ops)
     n = PROTOCOL["sweeps"]
-    print(f"phase 9 timings on {card}: slice 1 "
+    print(f"phase 10 timings on {card}: slice 1 "
           f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
           f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
           f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
@@ -1273,7 +1634,11 @@ def main():
                                      **{f"fit {ph}": c[name]
                                         for ph, c in fit_counts.items()},
                                      **{cfg: c[name]
-                                        for cfg, c in slice6.items()}},
+                                        for cfg, c in slice6.items()},
+                                     **{f"reference_api {ph}": c[name]
+                                        for ph, c in ref_counts.items()},
+                                     **{f"reference_api {cfg}": c[name]
+                                        for cfg, c in fam_counts.items()}},
                 "ms": t["kernel"], "plain_ms": t["plain"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library"),

@@ -446,3 +446,64 @@ def test_config_4_checkpoint_split_equals_the_unbroken_run(dev, tmp_path):
         assert torch.equal(getattr(rest.ensemble_state, f),
                            getattr(whole.ensemble_state, f)), f
     assert bool(rest.ensemble_state.xi.any())
+
+
+# ---------------------------------------------------------------------------
+# Post-processing: CPO on the card
+# ---------------------------------------------------------------------------
+
+def test_cpo_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The Woodbury CPO computed on the card equals the CPU's for the same
+    traces within the float32 tolerance of tests/test_torch_post.py, at the
+    covariate model (eta and xi, ragged masks), in chunks and whole."""
+    import numpy as np
+
+    from bayesfmmm_torch.post import cpo_fast
+    from bayesfmmm_torch.utils.simulate import (simulate_draws,
+                                                simulate_functional)
+
+    kw = dict(N=12, K=3, P=6, M=3, D=1, n_time=(15, 24), with_eta=True,
+              with_xi=True)
+    data_c, truth = simulate_functional(seed=5, device="cpu", **kw)
+    data_g, _ = simulate_functional(seed=5, device=dev, **kw)
+    traces = simulate_draws(truth, 40, seed=11)
+    X = data_c.X.numpy()
+    want = cpo_fast.marginal_loglik_matrix(traces, data_c, X)
+    for chunk in (None, 7):
+        if chunk is not None:       # chunks of 7 draws
+            monkeypatch.setattr(cpo_fast, "CHUNK_VALUES",
+                                chunk * data_g.N * 3 * data_g.L)
+        got = cpo_fast.marginal_loglik_matrix(traces, data_g, X)
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(
+        cpo_fast.cpo_fast(traces, data_g, X=X, burnin_prop=0.2),
+        cpo_fast.cpo_fast(traces, data_c, X=X, burnin_prop=0.2),
+        rtol=0, atol=2e-3)
+    bad = dict(traces, sigma2=-traces["sigma2"])
+    with pytest.raises(np.linalg.LinAlgError, match="positive definite"):
+        cpo_fast.cpo_fast(bad, data_g)
+
+
+def test_cpo_without_a_device_needs_the_card(tmp_path, monkeypatch):
+    """ConditionalPredictiveOrdinates builds its data on the card when no
+    device is given, and where there is no card it raises: it never falls
+    back to the CPU.  Runs on any machine (the card is hidden)."""
+    import numpy as np
+
+    from bayesfmmm_torch import api, reference_api
+    from bayesfmmm_torch.config import ModelConfig
+    from bayesfmmm_torch.utils.simulate import (functional_lists,
+                                                simulate_draws,
+                                                simulate_functional)
+
+    data, truth = simulate_functional(seed=1, N=6, K=2, P=6, M=2,
+                                      n_time=(8, 10), device="cpu")
+    Y, t = functional_lists(data, seed=1, n_time=(8, 10))
+    api.export_traces(str(tmp_path), simulate_draws(truth, 10),
+                      ModelConfig(K=2, P=6, M=2))
+    args = (str(tmp_path), 1, 3, [0, 1], np.linspace(0, 1, 4)[1:-1], t, Y)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        reference_api.ConditionalPredictiveOrdinates(*args)
+    assert reference_api.ConditionalPredictiveOrdinates(
+        *args, device="cpu").shape == (6,)
