@@ -14,10 +14,17 @@ machine that has neither.  It runs on the CUDA card unless told otherwise:
 the entry points that build data or state (``api.build_data``,
 ``api.fit_nu_z``, ``api.fit``, the simulators of ``utils/simulate.py``, the
 data makers of ``models/state.py``, ``convert.data_from_jax``,
-``convert.state_from_numpy``) place their tensors there when no ``device``
-is given and raise without a card; ``device="cpu"`` asks for the CPU.
-``api.fit_theta`` and ``api.fit_warm_start`` (a resume from a checkpoint
-too) take the device from the data they are given.
+``convert.state_from_numpy``, ``api.fit_smc``) place their tensors there
+when no ``device`` is given and raise without a card; ``device="cpu"``
+asks for the CPU.  ``api.fit_theta``, ``api.fit_warm_start`` (a resume
+from a checkpoint too) and ``api.fit_pt`` take the device from the data
+they are given.
+
+Besides the three-phase pipeline, ``api.fit_pt`` runs phase 3 as
+replica-exchange parallel tempering (``parallel/tempering.py``: replicas
+are the chain axis of one sweep, each at its own temperature) and
+``api.fit_smc`` anneals a particle cloud from the prior by adaptive
+tempered SMC (``samplers/smc.py``).
 
 ``reference_api`` holds the reference R package's 33 exported names over
 ``api`` and ``post/``: the nine ``B{F,MV,HDF}MMM_*`` fitters with their

@@ -15,9 +15,10 @@ chain is still selected by mean log-likelihood of the last 100 draws
 
 Every function that makes tensors places them on the CUDA card unless
 ``device="cpu"`` is passed (models/state.py::default_device) and raises
-where there is no card; ``fit_theta`` and ``fit_warm_start`` take the device
-from the data of the result they are given.  Traces and estimates are host
-NumPy arrays; states are tensors on the device with a leading chain axis.
+where there is no card; ``fit_theta``, ``fit_warm_start`` and ``fit_pt``
+take the device from the data of the result they are given.  Traces and
+estimates are host NumPy arrays; states are tensors on the device with a
+leading chain axis.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
 from bayesfmmm_torch.samplers import drivers
 
 __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
-           "fit_warm_start", "export_traces", "fit", "PRODUCTION_FLAGS"]
+           "fit_warm_start", "fit_pt", "fit_smc", "export_traces", "fit",
+           "PRODUCTION_FLAGS"]
 
 # kernels="production": the bench's production census of ``sweep_full``.
 # All five are named because the port's ``sweep_full`` has MALA off by
@@ -423,6 +425,188 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
     if directory is not None:
         export_traces(directory, res.traces, cfg)
     return res
+
+
+def _census(kernels, cfg):
+    """``sweep_full``'s flags for kernels="reference" or "production", with
+    the configuration's covariate flags."""
+    if kernels not in ("reference", "production"):
+        raise ValueError("kernels must be 'reference' or 'production'")
+    return dict(PRODUCTION_FLAGS if kernels == "production" else {},
+                covariate_mean=cfg.covariate_mean,
+                covariate_cov=cfg.covariate_cov)
+
+
+def _seeded_state(est1, est2, chains, data):
+    """``chains`` chains all at the phase-1/2 medians: every one of the 17
+    fields comes from one of the two estimates."""
+    host = {**{f: est1[f] for f in _WARM_FROM_PHASE_1},
+            **{f: est2[f] for f in _WARM_FROM_PHASE_2}}
+
+    def dev(f):
+        t = torch.as_tensor(np.asarray(host[f]), dtype=data.y.dtype,
+                            device=data.device)
+        return t.expand((chains,) + t.shape).contiguous()
+
+    return GibbsState(**{f: dev(f) for f in STATE_FIELDS})
+
+
+def fit_pt(nu_z_result: FitResult, theta_result: FitResult, *,
+           tot_mcmc_iters=2000, n_replicas=8, beta_min=0.3,
+           n_sweeps_between=1, burnin_prop=0.8,
+           priors: Priors | None = None, directory=None, seed=2,
+           kernels="reference", ladder="auto", pilot_sweeps=50,
+           target_accept=0.4, max_replicas=64):
+    """Phase-3 alternative: replica-exchange parallel tempering.
+
+    Tempered replicas, all started at the phase-1/2 medians, run as the
+    chain axis of one batched sweep on a temperature ladder and propose
+    state swaps after every ``n_sweeps_between`` sweeps
+    (parallel/tempering.py); ``tot_mcmc_iters`` rounds.  Returns a
+    FitResult of the cold chain (one draw a round: ``traces``,
+    ``loglik``, ``final_state``) with ``swap_rate`` and ``ladder``.  The
+    device is the data's.
+
+    ladder: "auto" (default) measures the energy sd over a pilot of
+    ``pilot_sweeps`` sweeps of one chain at beta 1 (its second half) and
+    sizes the rung spacing for ``target_accept`` swap acceptance
+    (``auto_ladder``); when bridging to ``beta_min`` would take more than
+    ``max_replicas`` rungs the ladder is clamped and a warning says so.
+    "geometric" is the fixed ``n_replicas``-rung geometric ladder to
+    ``beta_min`` (BFMMM.h:661-670 semantics; ``ladder`` is then None in
+    the result, as in the JAX package).  Either way a swap rate under 0.05
+    warns.  kernels: "reference" or "production" (``PRODUCTION_FLAGS``,
+    MALA included, which the JAX package's gauge callers run)."""
+    validation.validate_fit_args(tot_mcmc_iters=tot_mcmc_iters,
+                                 burnin_prop=burnin_prop)
+    flags = _census(kernels, theta_result.config)
+    if ladder not in ("auto", "geometric"):
+        raise ValueError("ladder must be 'auto' or 'geometric'")
+    if n_replicas < 2:
+        raise ValueError("'n_replicas' must be at least 2")
+    if not (0.0 < beta_min <= 1.0):
+        raise ValueError("'beta_min' must be in (0, 1]")
+    from bayesfmmm_torch.models.likelihood import log_likelihood
+    from bayesfmmm_torch.ops import gibbs
+    from bayesfmmm_torch.parallel.tempering import (_loglik_portion,
+                                                    auto_ladder,
+                                                    run_parallel_tempering)
+
+    hp = (priors or Priors()).validate()
+    data = theta_result.data
+    cfg = theta_result.config
+    est1 = nu_z_result.estimates(burnin_prop, _warn=False)
+    est2 = theta_result.estimates(burnin_prop, _warn=False)
+    c_vec = _c_tensor(hp, cfg.K, data)
+    generator = _generator(data, seed)
+
+    ladder_t = None
+    if ladder == "auto":
+        # the pilot: the cold chain's energy sd the rung spacing must
+        # resolve, read on the host once
+        st, E = _seeded_state(est1, est2, 1, data), []
+        for _ in range(pilot_sweeps):
+            st = gibbs.sweep_full(generator, st, data, hp, c_vec, **flags)
+            E.append(_loglik_portion(st, data))
+        half = torch.cat(E).cpu().numpy()[pilot_sweeps // 2:] if E else []
+        # too short a pilot has no sd: auto_ladder refuses the NaN
+        sd_E = float(np.std(half, ddof=1)) if len(half) > 1 \
+            else float("nan")
+        ladder_t, feasible = auto_ladder(
+            sd_E, beta_min, target_accept=target_accept,
+            max_replicas=max_replicas, dtype=data.y.dtype,
+            device=data.device)
+        n_replicas = int(ladder_t.shape[0])
+        if not feasible:
+            warnings.warn(
+                f"fit_pt: measured energy sd {sd_E:.1f} needs "
+                f"~{(1 - beta_min) * sd_E / 1.25:.0f} rungs to bridge to "
+                f"beta_min={beta_min} at {target_accept:.0%} swap "
+                f"acceptance, more than max_replicas={max_replicas}.  "
+                f"Running a clamped ladder to beta="
+                f"{float(ladder_t[-1]):.3f} instead; on large-n posteriors "
+                f"PT buys little here (adjacent-rung energy overlap needs "
+                f"dbeta ~ n^(-1/2); BENCH_SUITE.md section 4.1).",
+                UserWarning, stacklevel=2)
+
+    replicas = _seeded_state(est1, est2, n_replicas, data)
+    cold, pt, swap_rate = run_parallel_tempering(
+        generator, replicas, data, hp, c_vec, n_rounds=tot_mcmc_iters,
+        beta_min=beta_min, n_sweeps_between=n_sweeps_between,
+        ladder=ladder_t, **flags)
+    loglik = log_likelihood(cold, data)          # one K2 launch
+    swap_rate = float(swap_rate)
+    if swap_rate < 0.05:
+        warnings.warn(
+            f"fit_pt: measured swap rate {swap_rate:.3f} < 0.05: the "
+            f"replicas are effectively independent and the {n_replicas}x "
+            f"cost buys no tempering benefit (the failure mode of fixed "
+            f"ladders on large-n posteriors, BENCH_SUITE.md section 4.1).  "
+            f"Use ladder='auto', reduce beta_min, or prefer fit_smc for "
+            f"multimodality at scale.", UserWarning, stacklevel=2)
+    traces = {f: getattr(cold, f).cpu().numpy() for f in STATE_FIELDS}
+    res = FitResult(traces, loglik.cpu().numpy(), _one_chain(pt.states, 0))
+    res.data = data
+    res.config = cfg
+    res.swap_rate = swap_rate
+    res.ladder = ladder_t.cpu().numpy() if ladder_t is not None else None
+    if directory is not None:
+        export_traces(directory, traces, cfg)
+    return res
+
+
+def fit_smc(Y=None, time=None, *, data=None, K, M=1, X=None,
+            family="functional", n_particles=256, n_mutation_sweeps=2,
+            target_cess=0.7, ess_threshold=0.5,
+            priors: Priors | None = None, basis_degree=3,
+            internal_knots=None, boundary_knots=None, basis_degrees=None,
+            internal_knots_list=None, covariate_cov=False, seed=0,
+            kernels="reference", device=None):
+    """Adaptive tempered SMC fit: prior-to-posterior annealing with
+    systematic resampling and tempered-Gibbs mutation (samplers/smc.py).
+
+    No initializer is needed: the particle cloud starts at beta = 0 (the
+    prior).  Returns the JAX package's dict: ``particles`` (a GibbsState
+    on the device, one chain a particle), normalised ``weights``,
+    ``log_evidence``, ``n_stages``, ``final_beta``, weighted posterior
+    means ``estimates`` of every field, ``config`` and ``data``.  The data
+    is built on ``device`` (the card when None) unless ``data`` is given;
+    kernels as in ``fit_pt``."""
+    validation.validate_fit_args(K=K, n_eigen=M)
+    if n_particles < 2:
+        raise ValueError("'n_particles' must be at least 2")
+    if kernels not in ("reference", "production"):    # before any data
+        raise ValueError("kernels must be 'reference' or 'production'")
+    from bayesfmmm_torch.samplers.smc import run_smc
+
+    hp = (priors or Priors()).validate()
+    if data is None:
+        data = build_data(Y, time, family=family, basis_degree=basis_degree,
+                          internal_knots=internal_knots,
+                          boundary_knots=boundary_knots, X=X,
+                          basis_degrees=basis_degrees,
+                          internal_knots_list=internal_knots_list,
+                          device=device)
+    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=int(data.D),
+                      family=data.family, covariate_mean=data.D > 0,
+                      covariate_cov=covariate_cov and data.D > 0)
+    c_vec = _c_tensor(hp, K, data)
+    generator = _generator(data, seed)
+    particles = init_state(generator, cfg, data, chains=n_particles, c=c_vec,
+                           dtype=data.y.dtype)
+    result = run_smc(generator, particles, data, hp, c_vec,
+                     n_mutation_sweeps=n_mutation_sweeps,
+                     target_cess=target_cess, ess_threshold=ess_threshold,
+                     **_census(kernels, cfg))
+    w = torch.softmax(result.log_weights, 0).cpu().numpy()
+    est = {f: np.tensordot(w, getattr(result.particles, f).cpu().numpy(),
+                           axes=1)
+           for f in STATE_FIELDS}
+    return {"particles": result.particles, "weights": w,
+            "log_evidence": float(result.log_evidence),
+            "n_stages": int(result.n_stages),
+            "final_beta": float(result.final_beta),
+            "estimates": est, "config": cfg, "data": data}
 
 
 # trace field -> reference file stem (BFMMM.h:1720-1730)

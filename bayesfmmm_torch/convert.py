@@ -106,10 +106,36 @@ def fit_result_from_estimates(est, data, config):
     return res
 
 
+def _host(x):
+    """A tensor (on any device) or a JAX / NumPy array as a NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def fit_result_to_numpy(res, burnin_prop=0.8) -> dict:
     """A ``FitResult`` of either package as host arrays: its traces, loglik
-    and per-element posterior medians."""
-    return {"traces": {k: np.asarray(v) for k, v in res.traces.items()},
-            "loglik": np.asarray(res.loglik),
-            "estimates": {k: np.asarray(v) for k, v in
-                          res.estimates(burnin_prop, _warn=False).items()}}
+    and per-element posterior medians; a parallel-tempering result
+    (``fit_pt``) adds its ``swap_rate`` and ``ladder``."""
+    out = {"traces": {k: np.asarray(v) for k, v in res.traces.items()},
+           "loglik": np.asarray(res.loglik),
+           "estimates": {k: np.asarray(v) for k, v in
+                         res.estimates(burnin_prop, _warn=False).items()}}
+    if hasattr(res, "swap_rate"):
+        out["swap_rate"] = float(res.swap_rate)
+        out["ladder"] = None if res.ladder is None else _host(res.ladder)
+    return out
+
+
+def smc_result_to_numpy(res) -> dict:
+    """The dict ``fit_smc`` of either package returns, as host values: the
+    particles by field (N, ...), weights, log-evidence, stage count, final
+    beta and the weighted estimates."""
+    parts = res["particles"]
+    return {"particles": {f: _host(getattr(parts, f)) for f in STATE_FIELDS},
+            "weights": _host(res["weights"]),
+            "log_evidence": float(res["log_evidence"]),
+            "n_stages": int(res["n_stages"]),
+            "final_beta": float(res["final_beta"]),
+            "estimates": {f: _host(res["estimates"][f])
+                          for f in STATE_FIELDS}}

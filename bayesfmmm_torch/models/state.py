@@ -110,6 +110,18 @@ class GibbsState:
         return self.chi.shape[2]
 
 
+def take_chains(state: GibbsState, index) -> GibbsState:
+    """The chains ``index`` (an integer tensor on the state's device) of
+    every field, in that order: parallel tempering's swap permutation and
+    SMC's ancestors.  An index past the last chain is clamped to it, as
+    JAX's gather clamps (systematic resampling can yield C when a float32
+    cumulative sum ends below the last position; on the card an
+    out-of-range index would be a device assert)."""
+    index = index.clamp(0, state.Z.shape[0] - 1)
+    return GibbsState(**{f: getattr(state, f).index_select(0, index)
+                         for f in STATE_FIELDS})
+
+
 def default_device(device=None) -> torch.device:
     """The device an entry point places its tensors on: ``device`` when one
     is given, else the CUDA card.  Without a card it raises; there is no

@@ -84,6 +84,26 @@ def _uniform(generator, like, shape):
                       device=like.device)
 
 
+def _tempered_precision(beta, sigma2):
+    """beta / sigma2 (C,), the tempered likelihood's precision.  PyTorch
+    takes a float over a tensor as the reciprocal times the float, so a
+    tensor beta takes the same two steps and equal entries give the
+    float's bits."""
+    return sigma2.reciprocal() * beta
+
+
+def _check_beta(beta, state):
+    """A sweep's temperature: a float for every chain, or a (C,) tensor on
+    the state's device, one per chain (shape and device only: nothing is
+    read on the host)."""
+    if torch.is_tensor(beta):
+        C = state.Z.shape[0]
+        if beta.shape != (C,) or beta.device != state.Z.device:
+            raise ValueError(f"beta must be a float or a ({C},) tensor on "
+                             f"{state.Z.device}; got {tuple(beta.shape)} on "
+                             f"{beta.device}")
+
+
 def _mh_accept(log_acc, u):
     """MH decision: NaN -> reject (gibbs.py:211 of the JAX package)."""
     return torch.where(torch.isnan(log_acc), False, torch.log(u) < log_acc)
@@ -153,7 +173,9 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
     Z2 = torch.stack([state.Z, Z_new])                        # (2, C, N, K)
     w2 = torch.einsum("ecnk,cnkp->ecnp", Z2, T)
     r = data.y - apply_basis(data, w2)
-    ll = -beta * (r * r).sum(-1) / (2.0 * state.sigma2[:, None])
+    # a (C,) beta meets the (2, C, N) row sums on their chain axis
+    b = beta[:, None] if torch.is_tensor(beta) else beta
+    ll = -b * (r * r).sum(-1) / (2.0 * state.sigma2[:, None])
     lpr = ((state.alpha3[:, None] * state.pi - 1.0)[:, None, :]
            * torch.log(Z2)).sum(-1)
     lp = ll + lpr
@@ -230,7 +252,7 @@ def update_alpha3(generator, state, hp):
 # ---------------------------------------------------------------------------
 
 def update_nu(generator, state, data, hp, cache: SweepCache, beta=1.0):
-    s = beta / state.sigma2                                   # (C,)
+    s = _tempered_precision(beta, state.sigma2)               # (C,)
     # every row's precision depends only on (Z, tau, sigma2): factor all K
     # in one batched Cholesky before the sequential loop
     prec = s[:, None, None, None] \
@@ -291,7 +313,7 @@ def update_eta(generator, state, data, hp, cache: SweepCache, beta=1.0):
     K, D = state.K, data.D
     if D == 0:
         return state, cache
-    s = beta / state.sigma2
+    s = _tempered_precision(beta, state.sigma2)
     Z2X2 = torch.einsum("nd,cnj->cdjn", data.X * data.X, state.Z * state.Z)
     prec = s[:, None, None, None, None] * _weighted_gram(data, Z2X2) \
         + state.tau_eta.transpose(1, 2)[..., None, None] * data.pen
@@ -319,7 +341,7 @@ def update_eta(generator, state, data, hp, cache: SweepCache, beta=1.0):
 def update_phi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     C, K, P, M = state.Phi.shape
     tilde_tau = torch.cumprod(state.delta, dim=2)             # (C, K, M)
-    s = beta / state.sigma2
+    s = _tempered_precision(beta, state.sigma2)
     prior_diag = tilde_tau[..., None] * state.gamma.transpose(2, 3)
     W = torch.einsum("cnj,cnm->cjmn", state.Z, state.chi).reshape(
         C, K * M, -1)
@@ -344,7 +366,7 @@ def update_xi(generator, state, data, hp, cache: SweepCache, beta=1.0):
         return state, cache
     C, K, P, _, M = state.xi.shape
     tilde_tau_xi = torch.cumprod(state.delta_xi, dim=2)       # (C, K, M, D)
-    s = beta / state.sigma2
+    s = _tempered_precision(beta, state.sigma2)
     prior_diag = tilde_tau_xi[..., None] \
         * state.gamma_xi.permute(0, 1, 4, 3, 2)               # (C, K, M, D, P)
     B = K * M * D
@@ -363,7 +385,7 @@ def update_xi(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # ---------------------------------------------------------------------------
 
 def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
-    s = (beta / state.sigma2)[:, None]                        # (C, 1)
+    s = _tempered_precision(beta, state.sigma2)[:, None]      # (C, 1)
     U = eigen_directions(state, data.X)                       # (C, N, P, M)
     GU = gram_dirs(data, U)
     Wden = 1.0 + s[..., None] * (U * GU).sum(2)               # (C, N, M)
@@ -388,12 +410,21 @@ def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # and rate scale by beta, :101-103).  The RSS is kernel K2 on CUDA.
 # ---------------------------------------------------------------------------
 
-def update_sigma(generator, state, data, hp, cache: SweepCache, beta=1.0):
+def sigma_shape_rate(state, data, hp, cache: SweepCache, beta=1.0):
+    """The inverse-Gamma shape and rate of sigma^2 | rest, each (C,).  A
+    tensor beta takes the shape in float64, as the host does for a float
+    one, so that equal entries give the float's bits."""
     rss = rss_from_coeffs(data, cache.w)                      # (C,)
-    a = hp.alpha_0 + beta * data.n_obs / 2.0
-    b = hp.beta_0 + beta * rss / 2.0
-    g = standard_gamma(generator, torch.full_like(rss, a))
-    return state.replace(sigma2=b / g)
+    if torch.is_tensor(beta):
+        a = (hp.alpha_0 + beta.double() * data.n_obs / 2.0).to(rss.dtype)
+    else:
+        a = torch.full_like(rss, hp.alpha_0 + beta * data.n_obs / 2.0)
+    return a, hp.beta_0 + beta * rss / 2.0
+
+
+def update_sigma(generator, state, data, hp, cache: SweepCache, beta=1.0):
+    a, b = sigma_shape_rate(state, data, hp, cache, beta)
+    return state.replace(sigma2=b / standard_gamma(generator, a))
 
 
 # ---------------------------------------------------------------------------
@@ -673,7 +704,7 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
         raise NotImplementedError(
             "update_z_chi(anchor_prop=True): ROADMAP item 13 'gradient "
             "samplers and default-off kernels'")
-    s = beta / state.sigma2
+    s = _tempered_precision(beta, state.sigma2)
     Z = state.Z
     C, N, K = Z.shape
     alpha_ind = (state.alpha3[:, None] * state.pi)[:, None, :].expand_as(Z)
@@ -748,7 +779,8 @@ def update_chi_joint(generator, state, data, hp, cache: SweepCache,
     m."""
     U = eigen_directions(state, data.X)                       # (C, N, P, M)
     a = cache.w - torch.einsum("cnpm,cnm->cnp", U, state.chi)
-    chi, w = _redraw_chi(generator, data, beta / state.sigma2, U, a)
+    chi, w = _redraw_chi(generator, data,
+                         _tempered_precision(beta, state.sigma2), U, a)
     return state.replace(chi=chi), cache.replace(w=w)
 
 
@@ -1017,7 +1049,7 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
     redraw.  Nothing leaves this function attached to a graph."""
     C, K, P, M = state.Phi.shape
     dt, dev = state.Phi.dtype, state.Phi.device
-    s = beta / state.sigma2
+    s = _tempered_precision(beta, state.sigma2)
     pri = torch.cumprod(state.delta, dim=2)[:, :, None, :] * state.gamma
     a = _mean_only_coeffs(state, data.X)
     ur = data.u - gram_vec(data, a)
@@ -1091,7 +1123,9 @@ def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
     [, eta, tau_eta].
 
     Phi is held at zero in this phase (BFMMM.h:1063), so the likelihood is
-    chi-free by construction; Phi, chi and the Phi tower are not touched."""
+    chi-free by construction; Phi, chi and the Phi tower are not touched.
+    ``beta`` as in ``sweep_full``."""
+    _check_beta(beta, state)
     use_full_f32()
     cache = build_cache(data, state)
     state, cache = update_z(generator, state, data, hp, cache, beta)
@@ -1108,7 +1142,8 @@ def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
                 covariate_cov=False, beta=1.0):
     """One phase-2 sweep of every chain: Phi, delta, A, gamma, tau, sigma,
     chi [, tau_eta, xi and its tower], with (Z, nu, eta, pi, alpha3)
-    pinned."""
+    pinned.  ``beta`` as in ``sweep_full``."""
+    _check_beta(beta, state)
     use_full_f32()
     cache = build_cache(data, state)
     state, cache = update_phi(generator, state, data, hp, cache, beta)
@@ -1131,8 +1166,8 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
 
     Reference order (BFMMM.h:1500-1554): Z, pi, alpha3, Phi, delta, A,
     gamma, nu, tau, sigma, chi; the covariate-adjusted models append eta,
-    tau_eta, xi, delta_xi, A_xi, gamma_xi.  ``collapsed_z`` swaps Z for the collapsed
-    (Z, chi) block and chi for its joint draw; ``gauge`` appends the gauge
+    tau_eta, xi, delta_xi, A_xi, gamma_xi.  ``collapsed_z`` swaps Z for the
+    collapsed (Z, chi) block and chi for its joint draw; ``gauge`` appends the gauge
     moves and the MGP- and noise-scale interweaves, and with
     ``phi_mala_steps`` > 0 the Phi MALA.  The bench's production sweep is
     collapsed_z=True, gauge=True, p_indep=0.3, phi_mala_steps=4,
@@ -1140,7 +1175,15 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
     package turns it on for every gauge caller (ROADMAP F3).
 
     ``beta`` < 1 tempers the data-likelihood kernels, as in the JAX
-    package.  The flags of kernels not ported yet raise."""
+    package: a float tempers every chain alike, a (C,) tensor on the
+    state's device gives each chain its own temperature (parallel
+    tempering's ladder, SMC's stage), and is never read on the host.  Each
+    chain's draw is then the one a float at its entry would give: the
+    random numbers drawn do not depend on beta's values, except sigma^2's
+    gamma variate, whose shape beta sets.  A tensor whose entries all equal
+    a float32 value b gives the bits of the float b.  The flags of kernels
+    not ported yet raise."""
+    _check_beta(beta, state)
     for flag, on in (("z_anchor", z_anchor), ("phi_chi_moves", phi_chi_moves),
                      ("hmc_steps", hmc_steps)):
         if on:

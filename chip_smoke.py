@@ -75,7 +75,19 @@ Phases, one line each, any failure exits non-zero:
      widths and config 4's, eta and xi); and the multivariate and hd mirrors
      at configs 1 and 5's widths, 100 sweeps a phase, with MVMeanCI,
      MVCovCI, MVDIC, MVAIC, MVBIC, MVLLik, HDFMeanCI and HDFCovCI;
- 10. timings: chain-sweeps/s of both paths, and each kernel at the main
+ 10. slice 10's paths, parallel tempering and SMC at the headline width (no
+     device given, so on the card): api.fit_pt from the JAX package's own
+     phase-1/2 medians (tests/data/torch_fit_reference.json) with the auto
+     ladder (a pilot of 50 sweeps of one chain, up to 64 replicas, 400
+     rounds), then 100 rounds on a geometric ladder of 8; api.fit_smc from
+     the prior with 256 particles; the ladder, the swap rate, the cold
+     chain's median loglik, SMC's stage count, log-evidence and weighted
+     sigma2 against tests/data/torch_tempering_reference.json (JAX, five
+     seeds each), the launch counts as the code predicts them, shape by
+     shape (K1 at 1 and R replicas, K2 at 1, 2, R, 2R, 256, 512 rows and the
+     cold chain's log-likelihood over the rounds, K3 at 3 and 3R), and ms,
+     kernels and device-busy ms a PT round and an SMC stage;
+ 11. timings: chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
      the one PyTorch call for the same function where there is one (K1: the
@@ -85,7 +97,9 @@ Phases, one line each, any failure exits non-zero:
      in turns, and host-paced time from CUDA events; and the device time
      of the PyTorch ops that formed A + jitter * scale * I before K1 took
      the jitter inside; the blocked K1 kernel at (16, 64, 256) x 256 beside
-     the three torch.linalg calls, K2 and K3 at slice 6's shapes, and ms,
+     the three torch.linalg calls, K2 and K3 at slice 6's shapes, each
+     kernel at PT's shapes (K1 at R and one chain, K2 at R and 2R, K3 at
+     3R), and ms,
      kernels and device-busy ms a sweep of configs 4 (16 and 256 chains), 3,
      1 and 5.
 
@@ -100,6 +114,7 @@ import os
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -113,10 +128,12 @@ from bayesfmmm_torch.io import armaio
 from bayesfmmm_torch.io.checkpoint import load_checkpoint
 from bayesfmmm_torch.models.likelihood import log_likelihood
 from bayesfmmm_torch.models.state import (STATE_FIELDS, init_state,
-                                          make_hd_functional_data)
+                                          make_hd_functional_data,
+                                          take_chains)
 from bayesfmmm_torch.ops import gibbs, kernels
+from bayesfmmm_torch.parallel import tempering
 from bayesfmmm_torch.post import model_selection
-from bayesfmmm_torch.samplers import drivers
+from bayesfmmm_torch.samplers import drivers, smc
 from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
 from bayesfmmm_torch.utils.kernel_bench import (card_line, device_launches,
                                                 device_ms, device_ms_by_kernel,
@@ -215,6 +232,19 @@ SWEEP_LAUNCHES = {
 }
 KERNEL_NAMES = ("chol_solve", "mean_rss", "weighted_gram")
 
+# Slice 10: parallel tempering and SMC at the headline width, from the data
+# of FIT_PROTOCOL; each must equal the protocol its JAX reference was made
+# with (tests/data/make_torch_tempering_reference.py).  PT starts from the
+# JAX package's phase-1/2 medians (FIT_REFERENCE's warm_start_from).
+TEMPERING_REFERENCE = DATA / "torch_tempering_reference.json"
+PT_PROTOCOL = dict(kernels="production", ladder="auto", beta_min=0.3,
+                   max_replicas=64, pilot_sweeps=50, tot_mcmc_iters=400)
+SMC_PROTOCOL = dict(n_particles=256, n_mutation_sweeps=2,
+                    kernels="production")
+# the short run on a fixed ladder: finiteness and launch counts only
+PT_GEOMETRIC = dict(kernels="production", ladder="geometric", n_replicas=8,
+                    beta_min=0.3, tot_mcmc_iters=100)
+
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
 K2_TOL = {"rss_rtol": 1e-5, "mu": 2e-5}     # tests/test_pallas_kernels.py
 # tests/test_pallas_kernels.py:46-47, the absolute part scaled by N/21
@@ -290,7 +320,10 @@ def k1_phase(dev, g):
                  # D of the blocked kernel, its smallest and its largest
                  (16, 256), (64, 256), (CHAINS, 256), (4, 60), (8, 72),
                  (3, 251), (2, 241), (3, 130), (2, 200), (3, 333),
-                 (2, 334), (2, top)):
+                 (2, 334), (2, top),
+                 # slice 10: PT's pilot (one chain), the geometric ladder's
+                 # 8 replicas and the auto ladder's most (max_replicas)
+                 (1, 96), (8, 96), (PT_PROTOCOL["max_replicas"], 96)):
         for jitter in (0.0, 1e-6):
             e_mean, e_noise = k1_case(dev, g, C, D, jitter)
             kernel = kernels.chol_solve_plan(C, D)["kernel"]
@@ -328,19 +361,25 @@ def k1_phase(dev, g):
     return max(worst, *(max(e) for e in e_all))
 
 
-def k2_phase(dev, g):
+# K2's shapes: (C, N, L, P, padded from)
+K2_SHAPES = (
+    (CHAINS, 100, 100, 8, None), (2 * CHAINS, 100, 100, 8, None),
+    (8, 100, 100, 8, None), (7, 100, 100, 8, None), (3, 13, 24, 6, 16),
+    # slice 6: config 5 (hd, P=16, L=144) at its 64 chains, 128 chain rows
+    # and 4 restart chains; config 4 (N=80) at 256, 512 and 16
+    (64, 64, 144, 16, None), (128, 64, 144, 16, None),
+    (4, 64, 144, 16, None), (CHAINS, 80, 100, 8, None),
+    (2 * CHAINS, 80, 100, 8, None), (16, 80, 100, 8, None),
+    # slice 10: PT's pilot (1 and 2 rows), 8 and 64 replicas and their 2R
+    # rows, and the cold chain's log-likelihood over the rounds
+    (1, 100, 100, 8, None), (2, 100, 100, 8, None), (16, 100, 100, 8, None),
+    (64, 100, 100, 8, None), (128, 100, 100, 8, None),
+    (PT_PROTOCOL["tot_mcmc_iters"], 100, 100, 8, None))
+
+
+def k2_phase(dev, g, shapes=K2_SHAPES):
     worst = 0.0
-    for C, N, L, P, pad in ((CHAINS, 100, 100, 8, None),
-                           (2 * CHAINS, 100, 100, 8, None),
-                           (8, 100, 100, 8, None), (7, 100, 100, 8, None),
-                           (3, 13, 24, 6, 16),
-                           # slice 6: config 5 (hd, P=16, L=144) at its 64
-                           # chains, 128 chain rows and 4 restart chains;
-                           # config 4 (N=80) at 256, 512 and 16
-                           (64, 64, 144, 16, None), (128, 64, 144, 16, None),
-                           (4, 64, 144, 16, None), (CHAINS, 80, 100, 8, None),
-                           (2 * CHAINS, 80, 100, 8, None),
-                           (16, 80, 100, 8, None)):
+    for C, N, L, P, pad in shapes:
         B = torch.randn(N, L, P, generator=g, device=dev)
         y = torch.randn(N, L, generator=g, device=dev)
         if pad is not None:
@@ -366,17 +405,24 @@ def k2_phase(dev, g):
     return worst
 
 
-def k3_phase(dev, g):
+# K3's shapes: (R, N, P)
+K3_SHAPES = (
+    (CHAINS * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
+    (8 * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
+    (5, 21, 8), (7, 130, 16), (3, 40, 20),
+    # slice 6: update_eta's R = C D K of config 3 (8 chains) and config 4
+    # (256, 16), the sequential scan's R = C K M D of config 4, config 5's
+    # P = 16 at 64 and 4 chains
+    (8 * 2 * 3, 100, 8), (CHAINS * 2, 80, 8), (16 * 2, 80, 8),
+    (16 * 2 * 16, 80, 8), (64 * 4, 64, 16), (4 * 4, 64, 16),
+    # slice 10: update_nu's R = 3 C of PT's pilot and of 64 replicas (8
+    # replicas: 24 above)
+    (PROTOCOL["K"], 100, 8), (64 * PROTOCOL["K"], 100, 8))
+
+
+def k3_phase(dev, g, shapes=K3_SHAPES):
     worst = 0.0
-    for R, N, P in ((CHAINS * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
-                    (8 * PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]),
-                    (5, 21, 8), (7, 130, 16), (3, 40, 20),
-                    # slice 6: update_eta's R = C D K of config 3 (8 chains)
-                    # and config 4 (256, 16), the sequential scan's
-                    # R = C K M D of config 4, config 5's P = 16 at 64 and 4
-                    # chains
-                    (8 * 2 * 3, 100, 8), (CHAINS * 2, 80, 8), (16 * 2, 80, 8),
-                    (16 * 2 * 16, 80, 8), (64 * 4, 64, 16), (4 * 4, 64, 16)):
+    for R, N, P in shapes:
         G = torch.randn(N, P, P, generator=g, device=dev)
         W = torch.rand(R, N, generator=g, device=dev)
         out = kernels.weighted_gram(W, G)
@@ -1378,38 +1424,298 @@ def ref_api_families(dev):
     return counts, seconds
 
 
-def sweep_profile(dev, name, chains, flags):
-    """Kernels and device-busy ms of one sweep_full of ``chains`` chains
-    from a random state, under the profiler (which slows the host; the ms a
-    sweep of the runs above are the host's)."""
+# ---------------------------------------------------------------------------
+# Slice 10: parallel tempering and SMC
+# ---------------------------------------------------------------------------
+
+def production_sweeps(add, C, n):
+    """Add the launches of ``n`` production sweeps of C chains at the
+    headline width to ``add(kernel, shape, count)``: K1 once (update_phi),
+    K2 twice on C rows (sigma2, MALA's RSS) and four times on 2C (the
+    MGP-scale moves), K3 once on C K rows (update_nu)."""
+    K, P, M, N = (PROTOCOL[k] for k in ("K", "P", "M", "N"))
+    L = PROTOCOL["n_time"][1]
+    add("chol_solve", (C, K * M * P), n)
+    add("mean_rss", (C, N, L, P), 2 * n)
+    add("mean_rss", (2 * C, N, L, P), 4 * n)
+    add("weighted_gram", (C * K, N, P), n)
+
+
+def predicted(fill):
+    """(launches by kernel, launches by (kernel, shape)) that ``fill(add)``
+    adds up."""
+    by = {}
+
+    def add(name, shape, n):
+        by[(name, shape)] = by.get((name, shape), 0) + n
+
+    fill(add)
+    by = {k: n for k, n in by.items() if n}
+    return ({k: sum(n for (name, _), n in by.items() if name == k)
+             for k in KERNEL_NAMES}, by)
+
+
+def pt_launches(R, n_rounds, pilot):
+    """fit_pt in the production census: the pilot's sweeps of one chain and
+    its energy (K2) after each, every round's sweep of R replicas and their
+    energies, and the cold chain's log-likelihood over all rounds (one K2
+    on n_rounds rows)."""
+    N, L, P = PROTOCOL["N"], PROTOCOL["n_time"][1], PROTOCOL["P"]
+
+    def fill(add):
+        production_sweeps(add, 1, pilot)
+        add("mean_rss", (1, N, L, P), pilot)
+        production_sweeps(add, R, n_rounds)
+        add("mean_rss", (R, N, L, P), n_rounds)
+        add("mean_rss", (n_rounds, N, L, P), 1)
+    return predicted(fill)
+
+
+def smc_launches(n_particles, n_stages, n_mutation):
+    """fit_smc in the production census: each stage's log-likelihood (K2)
+    and its mutation sweeps of every particle."""
+    N, L, P = PROTOCOL["N"], PROTOCOL["n_time"][1], PROTOCOL["P"]
+
+    def fill(add):
+        add("mean_rss", (n_particles, N, L, P), n_stages)
+        production_sweeps(add, n_particles, n_stages * n_mutation)
+    return predicted(fill)
+
+
+def check_shapes(what, got, want):
+    got = {k: v for k, v in got.items() if v}
+    print(f"  {what}: launches by shape "
+          + ", ".join(f"{k[0]} {k[1]} {v}" for k, v in sorted(got.items())))
+    check(got == want, f"{what}: launches by shape {got}, expected {want}")
+
+
+def in_limits(what, x, lim, rule):
+    lo, hi = lim["limits"]
+    print(f"  {what}: port {x:.6g}; JAX "
+          + ", ".join(f"{v:.6g}" for v in lim["values"])
+          + f"; limits [{lo:.6g}, {hi:.6g}] ({rule})")
+    check(lo <= x <= hi, f"{what}: {x} outside [{lo}, {hi}]")
+
+
+def tempering_phase(dev, card):
+    """api.fit_pt (auto ladder, then a short geometric one) and api.fit_smc
+    at the headline width, held against the JAX package's limits; returns
+    (launches of each path, launches by shape of PT, its ladder length,
+    timing numbers)."""
+    ref = json.loads(TEMPERING_REFERENCE.read_text())
+    head, rule = ref["headline"], ref["limit_rule"]
+    fp = FIT_PROTOCOL
+    dp = {k: fp[k] for k in ("seed", "N", "K", "P", "M", "n_time")}
+    check(head["protocol"]["data"] == dp
+          and head["protocol"]["pt"] == PT_PROTOCOL
+          and head["protocol"]["smc"] == SMC_PROTOCOL,
+          f"{TEMPERING_REFERENCE.name}: protocol {head['protocol']} != "
+          f"{dp} / {PT_PROTOCOL} / {SMC_PROTOCOL}")
+    fit_ref = json.loads(FIT_REFERENCE.read_text())
+    data, _ = simulate_functional(seed=dp["seed"], N=dp["N"], K=dp["K"],
+                                  P=dp["P"], M=dp["M"],
+                                  n_time=tuple(dp["n_time"]), device=dev)
+    start = fit_result_from_estimates(
+        fit_ref["warm_start_from"], data,
+        ModelConfig(K=dp["K"], P=dp["P"], M=dp["M"]))
+
+    # the rounds' seconds, apart from the pilot's: fit_pt calls
+    # run_parallel_tempering by its module attribute
+    rounds_s = []
+    original = tempering.run_parallel_tempering
+
+    def timed_rounds(*a, **kw):
+        t0 = time.perf_counter()
+        out = original(*a, **kw)
+        torch.cuda.synchronize()
+        rounds_s.append(time.perf_counter() - t0)
+        return out
+
+    out = {}
+    tempering.run_parallel_tempering = timed_rounds
+    try:
+        for name, kw in (("pt", PT_PROTOCOL), ("pt geometric", PT_GEOMETRIC)):
+            kernels.reset_launch_counts()
+            with ShapeProbe() as shapes, \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                res = api.fit_pt(start, start, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            out[name] = (res, counters(), dict(shapes.counts), seconds,
+                         rounds_s[-1], [str(w.message) for w in caught])
+    finally:
+        tempering.run_parallel_tempering = original
+
+    # the auto ladder and its run
+    res, pt_counts, pt_shapes, pt_s, pt_rounds_s, msgs = out["pt"]
+    n = PT_PROTOCOL["tot_mcmc_iters"]
+    lad = res.ladder
+    R = len(lad)
+    check(lad[0] == 1.0 and np.all(np.diff(lad) < 0)
+          and lad[-1] >= np.float32(PT_PROTOCOL["beta_min"]),
+          f"PT: ladder {lad} does not fall from 1 to beta_min or above")
+    check(res.loglik.shape == (n,) and np.all(np.isfinite(res.loglik)),
+          "PT: the cold chain's loglik trace is malformed")
+    for f, v in res.traces.items():
+        check(v.shape[0] == n and np.all(np.isfinite(v)),
+              f"PT: cold trace {f} malformed")
+    for f, v in state_to_numpy(res.final_state).items():
+        check(v.shape[0] == 1 and np.all(np.isfinite(v)),
+              f"PT: final {f} malformed")
+    for m in msgs:
+        print(f"  PT warned: {m[:150]}")
+    check(not any("swap rate" in m for m in msgs),
+          "PT: the auto ladder's run raised the swap-rate warning")
+    print(f"  PT ladder: {R} rungs from 1 to {lad[-1]:.4f}, swap rate "
+          f"{res.swap_rate:.4f} (JAX: "
+          + ", ".join(f"{v:.4f}" for v in head["pt"]["swap_rate"]["values"])
+          + ")")
+    in_limits("PT ladder length", R, head["pt"]["ladder_length"], rule)
+    in_limits(f"PT cold chain's median loglik over rounds {n // 2}..{n}",
+              float(np.median(res.loglik[n // 2:])),
+              head["pt"]["loglik_median"], rule)
+    want, want_shapes = pt_launches(R, n, PT_PROTOCOL["pilot_sweeps"])
+    check_counts("PT (pilot, rounds, cold loglik)", pt_counts, want)
+    check_shapes("PT", pt_shapes, want_shapes)
+
+    # the geometric ladder: finiteness and launches
+    g_res, g_counts, g_shapes, _, g_rounds_s, g_msgs = out["pt geometric"]
+    ng, Rg = PT_GEOMETRIC["tot_mcmc_iters"], PT_GEOMETRIC["n_replicas"]
+    check(g_res.ladder is None and np.all(np.isfinite(g_res.loglik))
+          and all(np.all(np.isfinite(v)) for v in g_res.traces.values()),
+          "PT geometric: result malformed or not finite")
+    want, want_shapes = pt_launches(Rg, ng, 0)
+    check_counts(f"PT geometric ({Rg} replicas, {ng} rounds)", g_counts,
+                 want)
+    check_shapes("PT geometric", g_shapes, want_shapes)
+    print(f"  PT geometric: swap rate {g_res.swap_rate:.4f}"
+          + (f" ({len(g_msgs)} warning: {g_msgs[0][:60]}...)" if g_msgs
+             else ""))
+
+    # SMC from the prior, no device given: the data's
+    kernels.reset_launch_counts()
+    with ShapeProbe() as shapes:
+        t0 = time.perf_counter()
+        sres = api.fit_smc(data=data, K=dp["K"], M=dp["M"], **SMC_PROTOCOL)
+        torch.cuda.synchronize()
+        smc_s = time.perf_counter() - t0
+    smc_counts, smc_shapes = counters(), dict(shapes.counts)
+    ns, Np = sres["n_stages"], SMC_PROTOCOL["n_particles"]
+    check(sres["final_beta"] == 1.0, f"SMC ended at beta "
+                                     f"{sres['final_beta']}")
+    check(sres["particles"].Z.device.type == "cuda",
+          "SMC: the particles are not on the card")
+    for f, v in state_to_numpy(sres["particles"]).items():
+        check(v.shape[0] == Np and np.all(np.isfinite(v)),
+              f"SMC: particles' {f} malformed")
+    w = sres["weights"].astype(np.float64)
+    s2 = float(np.sum(w * state_to_numpy(sres["particles"])["sigma2"]))
+    print(f"  SMC: {ns} stages to beta {sres['final_beta']}, weight-ESS "
+          f"{1.0 / np.sum(w * w):.1f} of {Np}")
+    in_limits("SMC stages", ns, head["smc"]["n_stages"], rule)
+    in_limits("SMC log-evidence", sres["log_evidence"],
+              head["smc"]["log_evidence"], rule)
+    in_limits("SMC weighted sigma2", s2, head["smc"]["sigma2"], rule)
+    want, want_shapes = smc_launches(Np, ns, SMC_PROTOCOL["n_mutation_sweeps"])
+    check_counts(f"SMC ({ns} stages)", smc_counts, want)
+    check_shapes("SMC", smc_shapes, want_shapes)
+
+    # where a round's and a stage's time goes on the card
+    hp, c = Priors(), torch.full((dp["K"],), 10.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    ladder = torch.as_tensor(lad, device=dev)
+    pt = tempering.pt_init(take_chains(res.final_state, torch.zeros(
+        R, dtype=torch.long, device=dev)))
+    flags = api.PRODUCTION_FLAGS
+    # a stage from beta 0.5 each time, at the particles SMC ended with
+    box = {"pt": pt, "smc": (sres["particles"], torch.zeros(Np, device=dev))}
+    half, zero = (torch.tensor(v, device=dev) for v in (0.5, 0.0))
+
+    def pt_round():
+        box["pt"] = tempering.pt_step(g, box["pt"], data, hp, c, ladder,
+                                      parity=0, **flags)
+
+    def smc_round():
+        box["smc"] = smc.smc_stage(
+            g, *box["smc"], half, zero, data, hp, c,
+            n_mutation_sweeps=SMC_PROTOCOL["n_mutation_sweeps"],
+            target_cess=0.7, ess_threshold=0.5, **flags)[:2]
+
+    # profiled after the kernels' timings, as the sweeps are: a trace of
+    # thousands of kernels just before them cost the next traces records
+    rounds = {"PT round": (f"PT round, {R} replicas", pt_round,
+                           pt_rounds_s / n * 1e3),
+              "SMC stage": (f"SMC stage, {Np} particles", smc_round,
+                            smc_s / ns * 1e3)}
+    times = {k: v[2] for k, v in rounds.items()}
+    print(f"  PT on {card}: fit_pt {pt_s:.3f} s ({pt_rounds_s:.3f} s for "
+          f"{n} rounds of {R} replicas: {times['PT round']:.3f} ms a round, "
+          f"{R * n / pt_rounds_s:.1f} replica-sweeps/s; pilot, set-up and "
+          f"copies {pt_s - pt_rounds_s:.3f} s); geometric "
+          f"{g_rounds_s / ng * 1e3:.3f} ms a round of {Rg}; SMC {smc_s:.3f} s "
+          f"({times['SMC stage']:.3f} ms a stage, "
+          f"{Np * ns * SMC_PROTOCOL['n_mutation_sweeps'] / smc_s:.1f} "
+          f"particle-sweeps/s)")
+    return ({"pt": pt_counts, "pt geometric": g_counts, "smc": smc_counts},
+            pt_shapes, R, rounds)
+
+
+def round_profiles(rounds):
+    """Kernels and device-busy ms of a PT round and an SMC stage beside
+    their ms on the host's clock."""
+    prof = {}
+    for k, (what, fn, ms) in rounds.items():
+        v = prof[k] = dict(profile_calls(what, fn), ms=ms)
+        print(f"  {k}: {ms:.3f} ms on the host's clock, "
+              f"{v['kernels']:.0f} kernels and {v['device_ms']:.3f} ms of "
+              f"device time ({100 * v['device_ms'] / ms:.1f} % busy)")
+    return prof
+
+
+def profile_calls(what, fn, reps=3):
+    """Kernels and device-busy ms of one call of ``fn``, under the
+    profiler (which slows the host; the host ms of the runs are their
+    own)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    data, cfg = family_data(dev, name)
-    flags = dict(flags, covariate_mean=cfg.covariate_mean,
-                 covariate_cov=cfg.covariate_cov)
-    g = torch.Generator(device=dev).manual_seed(5)
-    c = torch.full((cfg.K,), 10.0, device=dev)
-    st = init_state(g, cfg, data, chains=chains)
     for _ in range(2):
-        st = gibbs.sweep_full(g, st, data, Priors(), c, **flags)
+        fn()
     torch.cuda.synchronize()
-    reps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            st = gibbs.sweep_full(g, st, data, Priors(), c, **flags)
+            fn()
         torch.cuda.synchronize()
     events = [ev for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA]
     n = sum(ev.count for ev in events) / reps
     busy = sum(ev.self_device_time_total for ev in events) / reps / 1e3
     top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:4]
-    print(f"  {name}, {chains} chains: {n:.0f} kernels and {busy:.3f} ms of "
-          f"device time a sweep; most of it in "
-          + ", ".join(f"{ev.key[:48]} {ev.self_device_time_total / reps / 1e3:.3f} ms"
+    print(f"  {what}: {n:.0f} kernels and {busy:.3f} ms of device time a "
+          f"call; most of it in "
+          + ", ".join(f"{ev.key[:48]} "
+                      f"{ev.self_device_time_total / reps / 1e3:.3f} ms"
                       for ev in top))
-    check(n > 0 and busy > 0, f"{name}: the profiler saw no device work")
+    check(n > 0 and busy > 0, f"{what}: the profiler saw no device work")
     return {"kernels": n, "device_ms": busy}
+
+
+def sweep_profile(dev, name, chains, flags):
+    """Kernels and device-busy ms of one sweep_full of ``chains`` chains
+    from a random state, under the profiler."""
+    data, cfg = family_data(dev, name)
+    flags = dict(flags, covariate_mean=cfg.covariate_mean,
+                 covariate_cov=cfg.covariate_cov)
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = torch.full((cfg.K,), 10.0, device=dev)
+    box = [init_state(g, cfg, data, chains=chains)]
+
+    def sweep():
+        box[0] = gibbs.sweep_full(g, box[0], data, Priors(), c, **flags)
+
+    return profile_calls(f"{name}, {chains} chains, a sweep", sweep)
 
 
 def main():
@@ -1480,6 +1786,19 @@ def main():
     print("phase 9 slice 9 path (the reference-named API and its "
           "post-processing, CPO on the card): ok")
 
+    t10 = time.perf_counter()
+    slice10, pt_shapes, R, rounds = tempering_phase(dev, card)
+    # the kernels at the auto ladder's own length, if phases 2-4 missed it
+    if R not in (1, 8, PT_PROTOCOL["max_replicas"]):
+        for jitter in (0.0, 1e-6):
+            k1_err = max(k1_err, *k1_case(dev, g, R, 96, jitter))
+        k2_err = max(k2_err, k2_phase(dev, g, [(R, 100, 100, 8, None),
+                                               (2 * R, 100, 100, 8, None)]))
+        k3_err = max(k3_err, k3_phase(dev, g, [(3 * R, 100, 8)]))
+    print(f"  the phase {time.perf_counter() - t10:.1f} s")
+    print("phase 10 slice 10 paths (parallel tempering and SMC through "
+          "api.fit_pt and api.fit_smc): ok")
+
     x = main_path_inputs(dev)
     C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
     fn1 = (kernels.chol_solve, kernels.chol_solve_plain, library_chol_solve)
@@ -1535,6 +1854,16 @@ def main():
                                    *fn3, c4_shapes),
         "weighted_gram_hd_r256": ("weighted_gram", dict(R=256, N=64, P=16),
                                   *fn3, c5_shapes),
+        # slice 10: PT's R replicas (K1, K2 on R and 2R rows, K3 on 3R) and
+        # its pilot's one chain (K1)
+        "chol_solve_pt": ("chol_solve", dict(C=R, D=96), *fn1, pt_shapes),
+        "chol_solve_c1": ("chol_solve", dict(C=1, D=96), *fn1, pt_shapes),
+        "mean_rss_pt": ("mean_rss", dict(C=R, N=N, L=100, P=P), *fn2,
+                        pt_shapes),
+        "mean_rss_pt_2r": ("mean_rss", dict(C=2 * R, N=N, L=100, P=P),
+                           *fn2, pt_shapes),
+        "weighted_gram_pt": ("weighted_gram", dict(R=3 * R, N=N, P=P), *fn3,
+                             pt_shapes),
     }
     launches6 = {}
     for name, (base, shape, *fns, by_shape) in timed6.items():
@@ -1556,7 +1885,11 @@ def main():
                  "empty": lambda: kernels.empty_launch(dev)}
         if library is not None:
             cands["library"] = lambda: library(*x[name])
-        t = {k: v["device_ms"] for k, v in in_turns(cands, rounds=3).items()}
+        try:
+            t = {k: v["device_ms"]
+                 for k, v in in_turns(cands, rounds=3).items()}
+        except RuntimeError as e:
+            raise RuntimeError(f"timing {name} {shape}: {e}") from e
         t["paced"] = paced_ms(cands["kernel"])
         t["paced_plain"] = paced_ms(cands["plain"])
         t.update(kernels.kernel_bound(base, **shape))
@@ -1566,7 +1899,7 @@ def main():
     jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
         jitter_ops)
     n = PROTOCOL["sweeps"]
-    print(f"phase 10 timings on {card}: slice 1 "
+    print(f"phase 11 timings on {card}: slice 1 "
           f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
           f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
           f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
@@ -1596,6 +1929,7 @@ def main():
         "config1": sweep_profile(dev, "config1", 4, api.PRODUCTION_FLAGS),
         "config5": sweep_profile(dev, "config5", 64, api.PRODUCTION_FLAGS),
     }
+    rounds = round_profiles(rounds)
     for name, v in profiles.items():
         v["ms_per_sweep"] = sweeps6[name]
         print(f"  {name}: {sweeps6[name]:.3f} ms a sweep on the host's "
@@ -1609,7 +1943,8 @@ def main():
     ERRS = {"chol_solve": k1_err, "mean_rss": k2_err, "weighted_gram": k3_err}
 
     def shape_entry(name):
-        """One of slice 6's shapes: the keys every kernel entry has."""
+        """One of slice 6's and slice 10's shapes: the keys every kernel
+        entry has."""
         base, shape = timed[name][0], timed[name][1]
         t = ms[name]
         return {"name": name, "route": "cuda",
@@ -1638,7 +1973,9 @@ def main():
                                      **{f"reference_api {ph}": c[name]
                                         for ph, c in ref_counts.items()},
                                      **{f"reference_api {cfg}": c[name]
-                                        for cfg, c in fam_counts.items()}},
+                                        for cfg, c in fam_counts.items()},
+                                     **{path: c[name]
+                                        for path, c in slice10.items()}},
                 "ms": t["kernel"], "plain_ms": t["plain"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t.get("library"),
@@ -1660,7 +1997,7 @@ def main():
         entry("chol_solve", "chol_solve_c7", "chol_solve.cu", 228, k1_err),
         k2, entry("weighted_gram", "weighted_gram_r24", "weighted_gram.cu",
                   122, k3_err), *(shape_entry(name) for name in timed6)],
-        "sweeps": profiles}))
+        "sweeps": profiles, "rounds": rounds}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -518,7 +518,7 @@ def test_what_is_not_ported_names_its_roadmap_item():
                      device="cpu", **KNOTS)
     assert r.config.covariate_mean and r.config.D == 1
     assert np.abs(r.traces["eta"][-1]).max() > 0
-    for name in ("fit_pt", "fit_smc", "fit_hmc", "fit_advi_init"):
+    for name in ("fit_hmc", "fit_advi_init"):
         assert not hasattr(api, name)
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         gibbs.sweep_full(None, r.final_state, r.data, Priors(), None,

@@ -507,3 +507,152 @@ def test_cpo_without_a_device_needs_the_card(tmp_path, monkeypatch):
         reference_api.ConditionalPredictiveOrdinates(*args)
     assert reference_api.ConditionalPredictiveOrdinates(
         *args, device="cpu").shape == (6,)
+
+
+# ---------------------------------------------------------------------------
+# Parallel tempering and SMC: per-chain temperatures on the card
+# ---------------------------------------------------------------------------
+
+def _small_model(device, C, D=0):
+    from bayesfmmm_torch.config import ModelConfig
+    from bayesfmmm_torch.models.state import init_state
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=4, N=20, K=3, P=8, M=4, D=D,
+                                  n_time=(30, 40), with_eta=D > 0,
+                                  with_xi=D > 0, device=device)
+    st = init_state(torch.Generator(device=device).manual_seed(1),
+                    ModelConfig(K=3, P=8, M=4, D=D, covariate_mean=D > 0,
+                                covariate_cov=D > 0), data, chains=C)
+    return data, st, dict(covariate_mean=D > 0, covariate_cov=D > 0)
+
+
+@pytest.mark.parametrize("census", ["reference", "production"])
+@pytest.mark.parametrize("D", [0, 1])
+def test_equal_tensor_beta_gives_the_float_bits_on_the_card(dev, census, D):
+    """Two sweeps at a (C,) beta of equal entries b and at the float b give
+    the same bits on the card, K1, K2 and K3 all launched."""
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.config import Priors
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    from bayesfmmm_torch.ops import gibbs
+
+    flags = api.PRODUCTION_FLAGS if census == "production" else {}
+    data, st, cov = _small_model(dev, 6, D)
+    c = torch.full((3,), 10.0, device=dev)
+    b = 0.375
+    out = []
+    kernels.reset_launch_counts()
+    for beta in (b, torch.full((6,), b, device=dev)):
+        g = torch.Generator(device=dev).manual_seed(7)
+        s = st
+        for _ in range(2):
+            s = gibbs.sweep_full(g, s, data, Priors(), c, beta=beta, **cov,
+                                 **flags)
+        out.append(s)
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
+
+
+@pytest.mark.parametrize("name", ["z", "phi", "nu", "z_chi", "mgp_scale",
+                                  "noise_scale", "phi_mala"])
+def test_mixed_beta_gives_each_chain_its_float_on_the_card(dev, name):
+    """At a mixed (C,) beta on the card, chain i is chain i of the
+    same-seed call at the float beta[i], to f32 rounding."""
+    from bayesfmmm_torch.config import Priors
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    from bayesfmmm_torch.ops import gibbs
+    from bayesfmmm_torch.ops.mean import build_cache
+
+    fns = {
+        "z": gibbs.update_z, "phi": gibbs.update_phi, "nu": gibbs.update_nu,
+        "z_chi": gibbs.update_z_chi, "mgp_scale": gibbs.update_mgp_scale,
+        "noise_scale": gibbs.update_noise_scale,
+        "phi_mala": gibbs.update_phi_mala}
+    data, st, _ = _small_model(dev, 4)
+    betas = (0.25, 1.0, 0.5, 0.75)
+    v = torch.tensor(betas, device=dev)
+
+    def run(beta):
+        return fns[name](torch.Generator(device=dev).manual_seed(3), st,
+                         data, Priors(), build_cache(data, st), beta)
+
+    mixed = run(v)
+    for i, b in enumerate(betas):
+        one = run(b)
+        for f in STATE_FIELDS:
+            torch.testing.assert_close(getattr(mixed[0], f)[i],
+                                       getattr(one[0], f)[i], rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_swap_and_resampling_helpers_on_the_card_match_the_cpu(dev):
+    """The swap phase, systematic resampling (an index past the last
+    particle clamped by take_chains, no device assert), the ESS and the
+    next-beta bisection: the card's results are the CPU's."""
+    from bayesfmmm_torch.models.state import take_chains
+    from bayesfmmm_torch.parallel import tempering
+    from bayesfmmm_torch.samplers import smc
+
+    g = torch.Generator().manual_seed(0)
+    E = torch.randn(9, generator=g) * 3 - 500
+    ladder = tempering.geometric_ladder(9, 0.3)
+    u = torch.rand(9, generator=g)
+    for parity in (0, 1):
+        cpu = tempering.swap_phase(E, ladder, parity, u)
+        gpu = tempering.swap_phase(E.to(dev), ladder.to(dev), parity,
+                                   u.to(dev))
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+    ll = torch.randn(256, generator=g) * 40 - 9000
+    for beta in (0.0, 0.2, 0.9):
+        b = torch.tensor(beta)
+        assert torch.equal(smc._next_beta(b, ll, 0.7, 256),
+                           smc._next_beta(b.to(dev), ll.to(dev), 0.7,
+                                          256).cpu())
+    lw = torch.randn(256, generator=g)
+    torch.testing.assert_close(smc.ess_from_log_weights(lw.to(dev)).cpu(),
+                               smc.ess_from_log_weights(lw), rtol=1e-5,
+                               atol=0)
+    torch.testing.assert_close(
+        smc.resample_from_uniform(torch.tensor(0.3, device=dev),
+                                  lw.to(dev)).cpu(),
+        smc.resample_from_uniform(torch.tensor(0.3), lw))
+    # an index of N (a float32 sum ending below the last position)
+    data, st, _ = _small_model(dev, 5)
+    out = take_chains(st, torch.tensor([4, 5, 0], device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out.sigma2, st.sigma2[[4, 4, 0]])
+
+
+def test_fit_pt_and_fit_smc_run_on_the_card_by_default(dev):
+    """A short fit_pt from phase results on the card and a short fit_smc
+    with no device given: results on the card, finite, beta at 1."""
+    import warnings
+
+    import numpy as np
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.utils.simulate import functional_lists, \
+        simulate_functional
+
+    data, _ = simulate_functional(seed=3, N=20, K=2, P=5, M=2,
+                                  n_time=(20, 25))
+    assert data.device.type == "cuda"
+    r1 = api.fit_nu_z(data=data, K=2, M=2, tot_mcmc_iters=100)
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = api.fit_pt(r1, r2, tot_mcmc_iters=100, max_replicas=6,
+                         beta_min=0.5, kernels="production")
+    assert res.final_state.Z.device.type == "cuda"
+    assert np.all(np.isfinite(res.loglik)) and res.traces["Z"].shape[0] == 100
+    assert 2 <= len(res.ladder) <= 6 and 0.0 <= res.swap_rate <= 1.0
+    Y, t = functional_lists(data, seed=3, n_time=(20, 25))
+    s = api.fit_smc(Y, t, K=2, M=2, n_particles=32, internal_knots=[0.5],
+                    boundary_knots=[0, 1], basis_degree=2)
+    assert s["data"].device.type == "cuda"
+    assert s["particles"].Z.device.type == "cuda"
+    assert s["final_beta"] == 1.0 and np.isfinite(s["log_evidence"])
