@@ -24,7 +24,12 @@ Besides the three-phase pipeline, ``api.fit_pt`` runs phase 3 as
 replica-exchange parallel tempering (``parallel/tempering.py``: replicas
 are the chain axis of one sweep, each at its own temperature) and
 ``api.fit_smc`` anneals a particle cloud from the prior by adaptive
-tempered SMC (``samplers/smc.py``).
+tempered SMC (``samplers/smc.py``), and ``api.fit_hmc`` samples the whole
+model by jittered HMC or iterative NUTS on the unconstrained log-joint
+(``models/logjoint.py``, ``samplers/hmc.py``, ``samplers/nuts.py``; all
+chains in one batch).  The log-joint's gradient reaches the likelihood
+through K2's backward kernel (``ops/kernels.py::MeanRSS``).  ``fit_hmc``
+moves the data it is given to its ``device``: the card when None.
 
 ``reference_api`` holds the reference R package's 33 exported names over
 ``api`` and ``post/``: the nine ``B{F,MV,HDF}MMM_*`` fitters with their

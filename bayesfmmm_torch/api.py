@@ -16,13 +16,15 @@ chain is still selected by mean log-likelihood of the last 100 draws
 Every function that makes tensors places them on the CUDA card unless
 ``device="cpu"`` is passed (models/state.py::default_device) and raises
 where there is no card; ``fit_theta``, ``fit_warm_start`` and ``fit_pt``
-take the device from the data of the result they are given.  Traces and
-estimates are host NumPy arrays; states are tensors on the device with a
-leading chain axis.
+take the device from the data of the result they are given, and
+``fit_hmc`` moves the data it is given to its ``device`` (the card when
+None).  Traces and estimates are host NumPy arrays; states are tensors on
+the device with a leading chain axis.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -31,14 +33,15 @@ import torch
 from bayesfmmm_torch import validation
 from bayesfmmm_torch.config import ModelConfig, Priors
 from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
-                                          init_state, make_functional_data,
+                                          default_device, init_state,
+                                          make_functional_data,
                                           make_hd_functional_data,
                                           make_multivariate_data)
 from bayesfmmm_torch.samplers import drivers
 
 __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
-           "fit_warm_start", "fit_pt", "fit_smc", "export_traces", "fit",
-           "PRODUCTION_FLAGS"]
+           "fit_warm_start", "fit_pt", "fit_smc", "fit_hmc", "export_traces",
+           "fit", "PRODUCTION_FLAGS"]
 
 # kernels="production": the bench's production census of ``sweep_full``.
 # All five are named because the port's ``sweep_full`` has MALA off by
@@ -336,7 +339,7 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
                                  "data=...")
             data = theta_result.data
         states, generator, it0, cfg = load_checkpoint(
-            resume_from, data.device, seed=seed)
+            resume_from, data.device, seed=seed, dtype=data.y.dtype)
         if cfg is None:
             # a file without a configuration says nothing of covariates,
             # and the shape of xi does not either
@@ -607,6 +610,120 @@ def fit_smc(Y=None, time=None, *, data=None, K, M=1, X=None,
             "n_stages": int(result.n_stages),
             "final_beta": float(result.final_beta),
             "estimates": est, "config": cfg, "data": data}
+
+
+def _on_device(data, device):
+    """``data`` with every tensor on ``device``."""
+    if data.device == device:
+        return data
+    return dataclasses.replace(data, **{
+        f.name: getattr(data, f.name).to(device)
+        for f in dataclasses.fields(data)
+        if isinstance(getattr(data, f.name), torch.Tensor)})
+
+
+def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
+            n_chains=4, n_leapfrog=24, init="spectral", method="hmc",
+            max_depth=8, priors: Priors | None = None, seed=0, device=None):
+    """Whole-model HMC/NUTS on the unconstrained log-joint
+    (models/logjoint.py, samplers/hmc.py, samplers/nuts.py).
+
+    method: 'hmc' (jittered fixed-length trajectories) or 'nuts'
+    (iterative No-U-Turn with ``max_depth``; adaptive trajectory length).
+    init: 'spectral' (the archetypal warm start mapped through from_state,
+    with per-chain jitter), 'random', or a GibbsState of one chain (or of
+    ``n_chains``) to start every chain from.  The data goes to ``device``
+    (the card when None).  With X and ``covariate_cov=False`` the xi tower
+    stays at zero: the JAX package samples it (ROADMAP F13).
+
+    Returns a FitResult whose traces are the post-warmup draws of the best
+    chain (by mean log-likelihood over its last 100 draws), in natural
+    parameterization, with ``hmc_diagnostics`` (per-chain arrays: the JAX
+    package's, and each iteration's trajectory length ``n_steps`` or tree
+    ``depth``) and ``all_chain_loglik`` (chains, samples): the
+    post-processing layer takes it as it takes the Gibbs fits'.
+    """
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.models.likelihood import log_likelihood
+    from bayesfmmm_torch.samplers import hmc as hmc_mod
+    from bayesfmmm_torch.samplers import nuts as nuts_mod
+
+    validation.validate_fit_args(K=K, n_eigen=M)
+    hp = (priors or Priors()).validate()
+    validation.validate_c(hp.c_vector(K), K)
+    if method not in ("hmc", "nuts"):
+        raise ValueError(f"unknown method {method!r}; use 'hmc' or 'nuts'")
+    if isinstance(init, str) and init not in ("spectral", "random"):
+        raise ValueError(f"unknown init {init!r}; use 'spectral', 'random' "
+                         f"or a GibbsState")
+    data = _on_device(data, default_device(device))
+    covm = data.D > 0
+    covc = covariate_cov and data.D > 0
+    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=int(data.D),
+                      family=data.family, covariate_mean=covm,
+                      covariate_cov=covc)
+    dtype = data.y.dtype
+    c_vec = _c_tensor(hp, K, data)
+    generator = _generator(data, seed)
+    lj = logjoint.make_log_joint(data, hp, c_vec)
+
+    if init == "spectral":
+        from bayesfmmm_torch.utils.init_strategies import spectral_init
+        sp = {k: torch.as_tensor(np.asarray(v), dtype=dtype,
+                                 device=data.device)[None]
+              for k, v in spectral_init(data, K, M).items()}
+        base = init_state(generator, cfg, data, chains=1, dtype=dtype)
+        base = base.replace(Z=sp["Z"].clamp(1e-4, 1 - 1e-4), nu=sp["nu"],
+                            chi=sp["chi"], Phi=sp["Phi"] + 1e-3,
+                            sigma2=sp["sigma2"].reshape(1))
+        unc0 = logjoint.from_state(base)
+        uncs = logjoint.UncState(**{
+            f: t + 0.01 * torch.randn((n_chains,) + t.shape[1:],
+                                      generator=generator, dtype=dtype,
+                                      device=data.device)
+            for f, t in vars(unc0).items()})
+    elif init == "random":
+        uncs = logjoint.init_unc(generator, cfg, data, n_chains, dtype=dtype)
+    else:
+        unc0 = logjoint.from_state(init)
+        uncs = logjoint.UncState(**{
+            f: t.to(data.device, dtype).expand((n_chains,) + t.shape[1:])
+            .contiguous() for f, t in vars(unc0).items()})
+    if not covc:
+        # F13: the xi tower is no part of this model; it stays at xi = 0
+        uncs = uncs.replace(**{f: torch.zeros_like(getattr(uncs, f))
+                               for f in logjoint.XI_TOWER})
+    like = logjoint.UncState(**{f: t[:1] for f, t in vars(uncs).items()})
+
+    def log_joint_flat(q):
+        return lj(logjoint.unflatten(q, like, covc))
+
+    q0 = logjoint.flatten(uncs, covc)
+    if method == "nuts":
+        trace, diag = nuts_mod.run_nuts(
+            generator, log_joint_flat, q0, n_warmup=n_warmup,
+            n_samples=n_samples, max_depth=max_depth)
+    else:
+        trace, diag = hmc_mod.run_hmc(
+            generator, log_joint_flat, q0, n_warmup=n_warmup,
+            n_samples=n_samples, n_leapfrog=n_leapfrog)
+
+    def states(q):
+        return logjoint.to_state(logjoint.unflatten(q, like, covc))
+
+    with torch.no_grad():
+        ll = log_likelihood(states(trace.reshape(n_chains * n_samples, -1)),
+                            data).reshape(n_chains, n_samples).cpu().numpy()
+        best = drivers.best_chain(ll, window=min(100, n_samples))
+        drawn = states(trace[best])
+        traces = {f: getattr(drawn, f).cpu().numpy() for f in STATE_FIELDS}
+        final = states(trace[best, -1:])
+    res = FitResult(traces, ll[best], final, best)
+    res.data = data
+    res.config = cfg
+    res.hmc_diagnostics = {k: v.cpu().numpy() for k, v in diag.items()}
+    res.all_chain_loglik = ll
+    return res
 
 
 # trace field -> reference file stem (BFMMM.h:1720-1730)

@@ -63,6 +63,34 @@ def state_to_numpy(state: GibbsState) -> dict:
             for f in STATE_FIELDS}
 
 
+def unc_from_jax(leaves, chains=None, device=None, dtype=torch.float32):
+    """The port's batched ``UncState`` (models/logjoint.py) from the leaves
+    of a JAX ``UncState`` (or a dict of them): one chain's leaves are
+    broadcast over ``chains`` chains (1 if not given), a batch of chains
+    (a vmapped state) is taken as it is.  On ``device``: the CUDA card
+    when None."""
+    from bayesfmmm_torch.models.logjoint import UNC_FIELDS, UncState
+    device = default_device(device)
+    get = leaves.__getitem__ if isinstance(leaves, Mapping) \
+        else lambda f: getattr(leaves, f)
+    # log_sigma2 has no axis of its own: a batch shows as one axis there
+    batched = np.ndim(get("log_sigma2")) == 1
+    out = {}
+    for f in UNC_FIELDS:
+        a = np.asarray(get(f))
+        if not batched:
+            a = np.broadcast_to(a, (chains or 1,) + a.shape)
+        elif chains is not None and a.shape[0] != chains:
+            raise ValueError(f"{f}: {a.shape[0]} chains, not {chains}")
+        out[f] = torch.tensor(a, dtype=dtype, device=device)
+    return UncState(**out)
+
+
+def unc_to_numpy(unc) -> dict:
+    """Dict of (C, ...) NumPy arrays, one per ``UncState`` field."""
+    return {f: t.detach().cpu().numpy() for f, t in vars(unc).items()}
+
+
 def fit_result_from_jax(jres, data, device=None):
     """The port's ``FitResult`` holding a JAX ``FitResult``'s traces, loglik
     and final state (as NumPy), so that the port's ``fit_theta`` and
@@ -79,6 +107,9 @@ def fit_result_from_jax(jres, data, device=None):
     res.data = data
     res.config = ModelConfig(**{f: getattr(jres.config, f) for f in (
         "K", "P", "M", "D", "family", "covariate_mean", "covariate_cov")})
+    for k in ("hmc_diagnostics", "all_chain_loglik"):
+        if hasattr(jres, k):
+            setattr(res, k, _host_tree(getattr(jres, k)))
     return res
 
 
@@ -113,10 +144,19 @@ def _host(x):
     return np.asarray(x)
 
 
+def _host_tree(x):
+    """A dict of arrays (any package, any device) or one array, on the
+    host."""
+    if isinstance(x, Mapping):
+        return {k: _host(v) for k, v in x.items()}
+    return _host(x)
+
+
 def fit_result_to_numpy(res, burnin_prop=0.8) -> dict:
     """A ``FitResult`` of either package as host arrays: its traces, loglik
     and per-element posterior medians; a parallel-tempering result
-    (``fit_pt``) adds its ``swap_rate`` and ``ladder``."""
+    (``fit_pt``) adds its ``swap_rate`` and ``ladder``, an HMC/NUTS result
+    (``fit_hmc``) its ``hmc_diagnostics`` and ``all_chain_loglik``."""
     out = {"traces": {k: np.asarray(v) for k, v in res.traces.items()},
            "loglik": np.asarray(res.loglik),
            "estimates": {k: np.asarray(v) for k, v in
@@ -124,6 +164,9 @@ def fit_result_to_numpy(res, burnin_prop=0.8) -> dict:
     if hasattr(res, "swap_rate"):
         out["swap_rate"] = float(res.swap_rate)
         out["ladder"] = None if res.ladder is None else _host(res.ladder)
+    for k in ("hmc_diagnostics", "all_chain_loglik"):
+        if hasattr(res, k):
+            out[k] = _host_tree(getattr(res, k))
     return out
 
 

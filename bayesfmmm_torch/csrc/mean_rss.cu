@@ -51,6 +51,26 @@
 //     any kind: the same input gives the same bits on every run.
 // The TPU kernel's per-tile partial sums, added by its caller, become the
 // scratch buffer and the second kernel.
+//
+// K2's backward (mean_rss_grad): the gradient of rss with respect to w, for
+// an upstream gradient g (C,) of the rss,
+//   grad_w[c, n, p] = -2 g[c] sum_l B[n, l, p] (y[n, l] - mu[c, n, l]),
+// which XLA forms by differentiating the JAX package's einsum
+// (bayesfmmm_tpu/ops/mean.py:100-101) and the TPU kernel does not have.  It
+// recomputes the residual rather than keeping mu from the forward pass, so
+// the forward writes nothing more than before.  Bound: operations, barely
+// (4P + 1 FLOP per chain and point against the forward's bytes and grad_w:
+// at the HMC path's C = 64, N = L = 100, P = 8, 0.32 us of f32 arithmetic
+// and 0.23 us of bytes), so in practice the launch.  Design, simple first:
+// a block owns one observation n (blockIdx.x) and a tile of TC chains
+// (blockIdx.y; TC * P <= BFMMM_K2_GRAD_OUTPUTS outputs, a few a thread).  The
+// tile's w[c, n, :] goes to shared memory; then, a chunk of LC points at a
+// time, every thread forms residuals of (chain, point) pairs into shared
+// memory (the P-term dot product in the order p = 0..P-1, as the forward),
+// and after a barrier each thread adds B[n, l, p] r[c, l] over the chunk's
+// points, in index order, into its outputs' accumulators in registers.  No
+// atomics: the same input gives the same bits on every run.
+// The tile sizes and the grid come from ops/kernels.py::mean_rss_grad_plan.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -197,6 +217,70 @@ void launch_tile(int pv, const float* B, const float* y, const float* w,
         B, y, w, partial, mu, C, N, L, P, TN);
 }
 
+// Outputs a block of mean_rss_grad owns at most: ops/kernels.py's
+// K2_GRAD_OUTPUTS, given on nvcc's command line.  A thread keeps kGradOuts.
+constexpr int kGradOuts = BFMMM_K2_GRAD_OUTPUTS / kThreads;
+static_assert(kGradOuts * kThreads == BFMMM_K2_GRAD_OUTPUTS,
+              "BFMMM_K2_GRAD_OUTPUTS must be a multiple of kThreads");
+
+__global__ void __launch_bounds__(kThreads)
+mean_rss_grad_kernel(const float* __restrict__ B, const float* __restrict__ y,
+                     const float* __restrict__ w, const float* __restrict__ g,
+                     float* __restrict__ grad, int C, int N, int L, int P,
+                     int TC, int LC) {
+  extern __shared__ __align__(16) float sm[];
+  float* ws = sm;                 // (tc, P): the tile's w[c, n, :]
+  float* rs = sm + TC * P;        // (tc, LC): one chunk's residuals
+  const int tid = threadIdx.x;
+  const int n = blockIdx.x, c0 = blockIdx.y * TC;
+  const int tc = min(TC, C - c0);
+  const int nout = tc * P;
+  const float* Bn = B + (size_t)n * L * P;
+  const float* yn = y + (size_t)n * L;
+  for (int i = tid; i < nout; i += kThreads) {
+    const int c = i / P, p = i - c * P;
+    ws[i] = w[((size_t)(c0 + c) * N + n) * P + p];
+  }
+  float acc[kGradOuts];
+#pragma unroll
+  for (int k = 0; k < kGradOuts; ++k) acc[k] = 0.0f;
+
+  for (int l0 = 0; l0 < L; l0 += LC) {
+    const int lc = min(LC, L - l0);
+    __syncthreads();              // ws is written; the last chunk is read
+    for (int i = tid; i < tc * lc; i += kThreads) {
+      const int c = i / lc, l = i - c * lc;
+      const float* Bp = Bn + (size_t)(l0 + l) * P;
+      const float* wp = ws + c * P;
+      float m = 0.0f;
+      for (int q = 0; q < P; ++q) m = fmaf(__ldg(Bp + q), wp[q], m);
+      rs[c * LC + l] = __ldg(yn + l0 + l) - m;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kGradOuts; ++k) {
+      const int o = tid + k * kThreads;
+      if (o < nout) {
+        const int c = o / P, p = o - c * P;
+        const float* rp = rs + c * LC;
+        const float* Bp = Bn + (size_t)l0 * P + p;
+        float s = acc[k];
+        for (int l = 0; l < lc; ++l)
+          s = fmaf(__ldg(Bp + (size_t)l * P), rp[l], s);
+        acc[k] = s;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kGradOuts; ++k) {
+    const int o = tid + k * kThreads;
+    if (o < nout) {
+      const int c = o / P, p = o - c * P;
+      grad[((size_t)(c0 + c) * N + n) * P + p] = (-2.0f * g[c0 + c]) * acc[k];
+    }
+  }
+}
+
 }  // namespace
 
 // B (N, L, P), y (N, L), w (C, N, P), rss (C,), mu (C, N, L) or null, all
@@ -243,5 +327,24 @@ extern "C" int bfmmm_mean_rss(const float* B, const float* y, const float* w,
   if (rc != cudaSuccess) return (int)rc;
   mean_rss_sum_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       partial, rss, C, T);
+  return (int)cudaGetLastError();
+}
+
+// K2's backward: B (N, L, P), y (N, L), w (C, N, P), g (C,) in, grad
+// (C, N, P) out, all contiguous float32.  TC and LC are the plan's chain
+// tile and chunk of points: TC * P <= BFMMM_K2_GRAD_OUTPUTS outputs a block;
+// the block's w and residuals, (TC * P + TC * LC) floats, must fit the
+// shared memory a block has without opting in, or the launch fails.
+extern "C" int bfmmm_mean_rss_grad(const float* B, const float* y,
+                                   const float* w, const float* g,
+                                   float* grad, int C, int N, int L, int P,
+                                   int TC, int LC, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  if (TC < 1 || LC < 1 || TC * P > BFMMM_K2_GRAD_OUTPUTS)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(N, (C + TC - 1) / TC);
+  const size_t smem = (size_t)(TC * P + TC * LC) * sizeof(float);
+  mean_rss_grad_kernel<<<grid, kThreads, smem, stream>>>(B, y, w, g, grad, C,
+                                                         N, L, P, TC, LC);
   return (int)cudaGetLastError();
 }

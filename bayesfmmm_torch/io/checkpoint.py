@@ -49,8 +49,10 @@ def save_checkpoint(path, state: GibbsState, generator: torch.Generator,
     np.savez(_npz_path(path), **arrs)
 
 
-def load_checkpoint(path, device, seed=None):
-    """Returns (state, generator, iteration, config) on ``device``.
+def load_checkpoint(path, device, seed=None, dtype=torch.float32):
+    """Returns (state, generator, iteration, config) on ``device``, the
+    state's fields in ``dtype`` (the data's: a float64 fit resumes in
+    float64).
 
     ``config`` is None for a file without one (one the JAX package wrote).
     The generator is a new ``torch.Generator(device=device)`` set to the
@@ -60,8 +62,8 @@ def load_checkpoint(path, device, seed=None):
     device = torch.device(device)
     with np.load(_npz_path(path)) as z:
         state = GibbsState(**{
-            f: torch.tensor(z[f"state__{f}"], dtype=torch.float32,
-                            device=device) for f in STATE_FIELDS})
+            f: torch.tensor(z[f"state__{f}"], dtype=dtype, device=device)
+            for f in STATE_FIELDS})
         iteration = int(z["iteration"])
         fields = [f.name for f in dataclasses.fields(ModelConfig)]
         config = None

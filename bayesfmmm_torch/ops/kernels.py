@@ -7,7 +7,9 @@ Counterpart of ``bayesfmmm_tpu/ops/pallas_kernels.py``:
     ``chol_solve_batch_minor``).  Source: csrc/chol_solve.cu.
   * K2 ``mean_rss``   — mu = B w and rss = sum (y - mu)^2 in one pass over
     B, batched over chains (replaces ``fused_mean_rss``).  Source:
-    csrc/mean_rss.cu.
+    csrc/mean_rss.cu.  Its backward ``mean_rss_grad`` (the gradient of rss
+    with respect to w, in the same file) serves ``MeanRSS``, the
+    ``torch.autograd.Function`` the log-joint's gradient goes through.
   * K3 ``weighted_gram`` — sum_n W[r, n] G[n] for every row r of W, the
     data-precision block of the blocked updates (replaces
     ``weighted_gram``).  Source: csrc/weighted_gram.cu.
@@ -47,8 +49,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
+# K2's backward: the outputs grad_w[c, n, p] one block owns at most, 8 a
+# thread of 256; csrc/mean_rss.cu takes it from nvcc's command line.
+K2_GRAD_OUTPUTS = 2048
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DBFMMM_K2_GRAD_OUTPUTS={K2_GRAD_OUTPUTS}")
 
 # Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1's
 # blocked kernel keeps the lower triangle of the (D, D) matrix there.
@@ -62,7 +68,8 @@ SM_COUNT = 132
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-LAUNCHES = {"chol_solve": 0, "mean_rss": 0, "weighted_gram": 0}
+LAUNCHES = {"chol_solve": 0, "mean_rss": 0, "mean_rss_grad": 0,
+            "weighted_gram": 0}
 
 _lib = None
 
@@ -186,6 +193,9 @@ def _library():
         lib.bfmmm_chol_solve.restype = i
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
+        lib.bfmmm_mean_rss_grad.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            p]
+        lib.bfmmm_mean_rss_grad.restype = i
         lib.bfmmm_weighted_gram.argtypes = [p, p, p, i, i, i, i, p]
         lib.bfmmm_weighted_gram.restype = i
         lib.bfmmm_empty.argtypes = [p]
@@ -240,7 +250,8 @@ def kernel_bound(name, **shape):
     K1's symmetric A the one triangle that defines it); the bound is the
     larger of bytes over ``PEAK_BYTES_PER_S`` and FLOP over
     ``PEAK_F32_FLOP_PER_S``.  Shapes by keyword: ``chol_solve`` C, D;
-    ``mean_rss`` C, N, L, P and want_mu; ``weighted_gram`` R, N, P.
+    ``mean_rss`` C, N, L, P and want_mu; ``mean_rss_grad`` C, N, L, P;
+    ``weighted_gram`` R, N, P.
     Returns {"bytes", "flop", "bound_ms", "bound_by"}.
     """
     if name == "chol_solve":
@@ -257,6 +268,14 @@ def kernel_bound(name, **shape):
         # per chain and point: P multiply-adds, the residual, its square
         # and the sum
         flop = C * N * L * (2 * P + 3)
+    elif name == "mean_rss_grad":
+        C, N, L, P = (shape[k] for k in "CNLP")
+        # B, y, w and g in; grad_w out
+        floats = N * L * P + N * L + 2 * C * N * P + C
+        # per chain and point: the residual's P multiply-adds and its
+        # difference, then P multiply-adds into grad_w (the -2 g scaling
+        # is once an output)
+        flop = C * N * L * (4 * P + 1)
     elif name == "weighted_gram":
         R, N, P = shape["R"], shape["N"], shape["P"]
         floats = R * N + N * P * P + R * P * P         # W, G in; out
@@ -534,6 +553,83 @@ def mean_rss(B, y, w, want_mu=False):
             torch.cuda.current_stream().cuda_stream)
     _launched("mean_rss", rc)
     return rss, mu
+
+
+# The widest P a K2 block's tile of w takes: one row of the smallest chain
+# tile within K2_W_SMEM.  The backward refuses what the forward refuses.
+K2_MAX_P = K2_W_SMEM // (4 * K2_CHAIN_TILES[0])
+# K2's backward: the chains a block may own at most, and the floats of one
+# chunk of residuals (with the tile's w within the 48 KB of shared memory a
+# block has without opting in).
+K2_GRAD_CHAIN_TILE = 32
+K2_GRAD_RESIDUALS = 4096
+
+
+def mean_rss_grad_plan(C, N, L, P):
+    """Tiles of K2's backward for w (C, N, P), B (N, L, P): a block owns one
+    observation and ``TC`` chains (TC * P outputs, at most
+    ``K2_GRAD_OUTPUTS``) and takes the points ``LC`` at a time (TC * LC
+    residuals in shared memory).  A P above ``K2_MAX_P`` raises
+    NotImplementedError, as the forward does.  Returns {"TC", "LC"}; the
+    launch forms the grid (observations, chain tiles) and the shared
+    memory, TC * (P + LC) floats."""
+    if min(C, N, L, P) < 1:
+        raise ValueError(f"mean_rss_grad_plan: empty shape {(C, N, L, P)}")
+    if P > K2_MAX_P:
+        raise NotImplementedError(
+            f"mean_rss_grad: P={P} is wider than K2 serves ({K2_MAX_P})")
+    TC = max(1, min(C, K2_GRAD_CHAIN_TILE, K2_GRAD_OUTPUTS // P))
+    LC = max(1, min(L, K2_GRAD_RESIDUALS // TC))
+    return {"TC": TC, "LC": LC}
+
+
+def mean_rss_grad_plain(B, y, w, g):
+    """grad_w (C, N, P) of rss = sum (y - B w)^2 for an upstream gradient g
+    (C,): -2 g[c] sum_l B[n, l, p] (y[n, l] - mu[c, n, l]), the residual
+    formed anew as the kernel does."""
+    r = y - torch.einsum("nlp,cnp->cnl", B, w)
+    return (-2.0 * g)[:, None, None] * torch.einsum("nlp,cnl->cnp", B, r)
+
+
+def mean_rss_grad(B, y, w, g):
+    """K2's backward: B (N, L, P) and y (N, L) shared, w (C, N, P), g (C,)
+    -> grad_w (C, N, P), the gradient of g . rss with respect to w."""
+    if not _route("mean_rss_grad", w):
+        return mean_rss_grad_plain(B, y, w, g)
+    N, L, P = B.shape
+    C = w.shape[0]
+    _check_cuda("mean_rss_grad", (B, y, w, g),
+                ((N, L, P), (N, L), (C, N, P), (C,)))
+    if min(C, N, L, P) == 0:                 # empty sums; nothing to launch
+        return torch.zeros_like(w)
+    plan = mean_rss_grad_plan(C, N, L, P)
+    grad = torch.empty_like(w)
+    with torch.cuda.device(w.device):
+        rc = _library().bfmmm_mean_rss_grad(
+            B.data_ptr(), y.data_ptr(), w.data_ptr(), g.data_ptr(),
+            grad.data_ptr(), C, N, L, P, plan["TC"], plan["LC"],
+            torch.cuda.current_stream().cuda_stream)
+    _launched("mean_rss_grad", rc)
+    return grad
+
+
+class MeanRSS(torch.autograd.Function):
+    """rss (C,) of ``mean_rss`` with a gradient for w: forward K2 (the
+    same bits as ``mean_rss``), backward ``mean_rss_grad``; none for B and
+    y, which are data.  On CPU tensors both run their plain versions.  Each
+    reads the current stream when it launches, so the backward, which runs
+    on the autograd engine's thread, launches where the engine put it."""
+
+    @staticmethod
+    def forward(ctx, B, y, w):
+        ctx.save_for_backward(B, y, w)
+        return mean_rss(B, y, w)[0]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        B, y, w = ctx.saved_tensors
+        return None, None, mean_rss_grad(B, y, w, g.contiguous())
 
 
 # ---------------------------------------------------------------------------

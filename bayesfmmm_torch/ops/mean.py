@@ -9,9 +9,10 @@ so mu_n = B_n w_n.  Linear terms of the sweep stay in Gram space
 (B_n' r_n = u_n - G_n w_n); squared residual norms go through the length-L
 residual, because the Gram identity yy - 2 u.w + w'Gw cancels in f32.
 For CUDA tensors that residual pass is kernel K2 (ops/kernels.py), which
-forms mu and the RSS in one pass over B for all chains.  With the identity
-basis of the multivariate family mu is w itself and the RSS needs no pass
-over an (N, P, P) identity, so K2 is not launched there.
+forms mu and the RSS in one pass over B for all chains, and whose backward
+kernel gives the RSS's gradient with respect to w (the log-joint's).  With
+the identity basis of the multivariate family mu is w itself and the RSS
+needs no pass over an (N, P, P) identity, so K2 is not launched there.
 """
 
 from __future__ import annotations
@@ -59,11 +60,16 @@ def build_cache(data, state) -> SweepCache:
 
 def rss_from_coeffs(data, w):
     """Per-chain sum_n ||y_n - B_n w_n||^2 (C,), in residual space.  B rows
-    and y are zero at padded points, so no mask is needed."""
+    and y are zero at padded points, so no mask is needed.  When w needs a
+    gradient the RSS goes through ``kernels.MeanRSS``, whose backward is
+    K2's backward kernel on the card."""
     if data.identity_basis:
         r = data.y - w
         return (r * r).sum((1, 2))
-    return kernels.mean_rss(data.B, data.y, w.contiguous())[0]
+    w = w.contiguous()
+    if torch.is_grad_enabled() and w.requires_grad:
+        return kernels.MeanRSS.apply(data.B, data.y, w)
+    return kernels.mean_rss(data.B, data.y, w)[0]
 
 
 def rss_rows_from_coeffs(data, w):

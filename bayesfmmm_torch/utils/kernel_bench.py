@@ -63,10 +63,11 @@ def card_line():
 
 
 # Launched at the start of every trace and left out of its records: once a
-# process has run long on the card (the smoke's PT and SMC paths), the
-# profiler drops the first five records of every trace, 5 of 50 or of 200
-# calls alike (chip_smoke.py, NVIDIA H100 80GB HBM3); these absorb that.
-_PAD_LAUNCHES = 16
+# process has run long on the card, the profiler drops the first records
+# of every trace, 5 of 50 or of 200 calls alike after the smoke's PT and
+# SMC paths, ~27 after its HMC and NUTS fits as well (chip_smoke.py,
+# NVIDIA H100 80GB HBM3); these absorb that.
+_PAD_LAUNCHES = 64
 _PAD_KERNEL = "spin_kernel"        # torch.cuda._sleep's
 
 

@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch port (bayesfmmm_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py --phases k2,hmc     # the build and these only
 
-Phases, one line each, any failure exits non-zero:
+Phases, one line each, any failure exits non-zero (``--phases`` names a
+subset by the names in brackets; the build always runs, and the timings
+only with every other phase, whose launch counts they read):
 
-  1. build the CUDA kernels from bayesfmmm_torch/csrc with nvcc;
-  2. K1 chol_solve against its plain version (torch.linalg) at the main
+  1. [build] build the CUDA kernels from bayesfmmm_torch/csrc with nvcc;
+  2. [k1] K1 chol_solve against its plain version (torch.linalg) at the main
      paths' shapes (D = 96; D = 256 at 16, 64 and 256 chains, the joint xi
      and hd Phi draws; D = 60 and 72), at shapes that take each of its two
      kernels, odd D of the blocked one, its smallest and its largest, and at
@@ -15,24 +18,24 @@ Phases, one line each, any failure exits non-zero:
      blocked kernel's first two chains also against its own plain version
      (which repeats its arithmetic a panel at a time) on the card; and a D
      above every kernel, which must raise and launch nothing;
-  3. K2 mean_rss against its plain version (einsum + sum) at the main
+  3. [k2] K2 mean_rss against its plain version (einsum + sum) at the main
      paths' shapes (C and the MGP-scale moves' 2C chain rows; the hd
      family's P = 16, L = 144) and a padded one, with and without mu, the
      same bits from two calls;
-  4. K3 weighted_gram against its plain version (einsum) at the main
+  4. [k3] K3 weighted_gram against its plain version (einsum) at the main
      paths' shapes (update_nu's R = C K, update_eta's R = C D K, the
      sequential scan's R = C K M D, the hd family's P = 16), a ragged one
      and one with P > 16 (the chunked kernel), the same bits from two calls;
-  5. slice 1's path: phase_warm_start in the reference kernel census at the
-     headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps with the
-     first 200 annealed from beta 0.1, held against the JAX package's
-     result for the same protocol (tests/data/torch_slice_reference.json),
-     with the kernels' launch counts read around that run;
-  6. slice 2's path, the bench's production census (collapsed Z/chi, gauge,
-     MGP- and noise-scale interweaves, Phi MALA), same protocol, held
-     against tests/data/torch_production_reference.json, launch counts
+  5. [slice] slice 1's path: phase_warm_start in the reference kernel census at
+     the headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps with the
+     first 200 annealed from beta 0.1, held against the JAX package's result
+     for the same protocol (tests/data/torch_slice_reference.json), with the
+     kernels' launch counts read around that run;
+  6. [production] slice 2's path, the bench's production census (collapsed
+     Z/chi, gauge, MGP- and noise-scale interweaves, Phi MALA), same protocol,
+     held against tests/data/torch_production_reference.json, launch counts
      read around it;
-  7. slice 5's path, the three-phase fit pipeline through api.fit at the
+  7. [fit] slice 5's path, the three-phase fit pipeline through api.fit at the
      headline width: phase 1 (8 restart chains) and phase 2 (7) of 300
      sweeps each from the spectral init, phase 3 with 256 chains of the
      production census for 400 sweeps with a tempered excursion every 100,
@@ -43,7 +46,7 @@ Phases, one line each, any failure exits non-zero:
      from the checkpoint (the same bits), a run split at the checkpoint
      against the unbroken run (the same bits), and the exported directory
      reloaded (the same numbers);
-  8. slice 6's paths, the repo's own configurations 4, 3, 1 and 5
+  8. [families] slice 6's paths, the repo's own configurations 4, 3, 1 and 5
      (benchmarks/suite.py; data seed 7) at their full widths, each held
      against tests/data/torch_families_reference.json (JAX, several seeds):
      config 4 (functional, K=2, P=8, M=16, N=80, D=1, eta and xi) through
@@ -60,34 +63,51 @@ Phases, one line each, any failure exits non-zero:
      K2, no K3), counted shape by shape; and the fit smoke's phase 3
      once more from the JAX package's own phase-1/2 medians, inside the
      tight limits of tests/data/torch_fit_reference.json;
-  9. slice 9's path, the reference-named API (bayesfmmm_torch.reference_api)
-     on the card, no device given: BFMMM_Nu_Z_multiple_try,
-     BFMMM_Theta_est in the reference-literal form and BFMMM_warm_start
-     (with excursions, exporting its traces) at the headline width from the
-     raw Y / time lists of bench.py's data, the launch counts of each phase
-     and the R lists' layouts; then every post-processing name on the
-     directory it wrote (FMeanCI, FCovCI, ZCI, SigmaCI, FDIC, FAIC, FBIC,
+  9. [refapi] slice 9's path, the reference-named API
+     (bayesfmmm_torch.reference_api) on the card, no device given:
+     BFMMM_Nu_Z_multiple_try, BFMMM_Theta_est in the reference-literal form and
+     BFMMM_warm_start (with excursions, exporting its traces) at the headline
+     width from the raw Y / time lists of bench.py's data, the launch counts of
+     each phase and the R lists' layouts; then every post-processing name on
+     the directory it wrote (FMeanCI, FCovCI, ZCI, SigmaCI, FDIC, FAIC, FBIC,
      FLLik against the warm start's own loglik trace, FSamplePaths' band
      coverage, the six Read*, and ConditionalPredictiveOrdinates on the card,
      timed on the host's clock and the device's); CPO on the card, DIC, AIC,
-     BIC and the loglik trace held against the JAX package's on traces
-     rebuilt from tests/data/torch_post_reference.json's seeds (the headline
-     widths and config 4's, eta and xi); and the multivariate and hd mirrors
-     at configs 1 and 5's widths, 100 sweeps a phase, with MVMeanCI,
-     MVCovCI, MVDIC, MVAIC, MVBIC, MVLLik, HDFMeanCI and HDFCovCI;
- 10. slice 10's paths, parallel tempering and SMC at the headline width (no
-     device given, so on the card): api.fit_pt from the JAX package's own
-     phase-1/2 medians (tests/data/torch_fit_reference.json) with the auto
-     ladder (a pilot of 50 sweeps of one chain, up to 64 replicas, 400
-     rounds), then 100 rounds on a geometric ladder of 8; api.fit_smc from
-     the prior with 256 particles; the ladder, the swap rate, the cold
-     chain's median loglik, SMC's stage count, log-evidence and weighted
-     sigma2 against tests/data/torch_tempering_reference.json (JAX, five
-     seeds each), the launch counts as the code predicts them, shape by
-     shape (K1 at 1 and R replicas, K2 at 1, 2, R, 2R, 256, 512 rows and the
-     cold chain's log-likelihood over the rounds, K3 at 3 and 3R), and ms,
-     kernels and device-busy ms a PT round and an SMC stage;
- 11. timings: chain-sweeps/s of both paths, and each kernel at the main
+     BIC and the loglik trace held against the JAX package's on traces rebuilt
+     from tests/data/torch_post_reference.json's seeds (the headline widths and
+     config 4's, eta and xi); and the multivariate and hd mirrors at configs 1
+     and 5's widths, 100 sweeps a phase, with MVMeanCI, MVCovCI, MVDIC, MVAIC,
+     MVBIC, MVLLik, HDFMeanCI and HDFCovCI;
+ 10. [tempering] slice 10's paths, parallel tempering and SMC at the headline
+     width (no device given, so on the card): api.fit_pt from the JAX package's
+     own phase-1/2 medians (tests/data/torch_fit_reference.json) with the auto
+     ladder (a pilot of 50 sweeps of one chain, up to 64 replicas, 400 rounds),
+     then 100 rounds on a geometric ladder of 8; api.fit_smc from the prior
+     with 256 particles; the ladder, the swap rate, the cold chain's median
+     loglik, SMC's stage count, log-evidence and weighted sigma2 against
+     tests/data/torch_tempering_reference.json (JAX, five seeds each), the
+     launch counts as the code predicts them, shape by shape (K1 at 1 and R
+     replicas, K2 at 1, 2, R, 2R, 256, 512 rows and the cold chain's
+     log-likelihood over the rounds, K3 at 3 and 3R), and ms, kernels and
+     device-busy ms a PT round and an SMC stage;
+ 11. [hmc] slice 11's path, the gradient samplers at the headline width
+     (no device given, so on the card): K2's backward (mean_rss_grad)
+     against its plain version and against autograd through K2's plain
+     forward, the same bits from two calls and through MeanRSS, at 64 and
+     one chain (N = L = 100, P = 8) and config 5's P = 16, L = 144; the
+     log-joint's value and gradient on the card against the CPU at one
+     point of 64 chains, one evaluation launching K2 forward and backward
+     once each and no plain version; api.fit_hmc with 64 chains from the
+     spectral init, method "hmc" (300 + 200 iterations of up to 24 steps)
+     and "nuts" (150 + 100 to depth 6), the best chain's mean loglik over
+     its last 100 draws, its median sigma2, the pooled accept_mean and the
+     median eps against tests/data/torch_hmc_reference.json (JAX, twelve
+     seeds), K2 forward and backward launched once a gradient evaluation as
+     the run's own trajectory lengths predict (K1 and K3 never); ms a
+     gradient evaluation and an iteration, kernels and device-busy ms a
+     leapfrog step, mean_rss_grad's time beside its bound and its plain
+     version;
+ 12. [timings] chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
      the one PyTorch call for the same function where there is one (K1: the
@@ -135,7 +155,8 @@ from bayesfmmm_torch.parallel import tempering
 from bayesfmmm_torch.post import model_selection
 from bayesfmmm_torch.samplers import drivers, smc
 from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
-from bayesfmmm_torch.utils.kernel_bench import (card_line, device_launches,
+from bayesfmmm_torch.utils.kernel_bench import (_PAD_KERNEL, _PAD_LAUNCHES,
+                                                card_line, device_launches,
                                                 device_ms, device_ms_by_kernel,
                                                 in_turns,
                                                 library_chol_solve,
@@ -244,6 +265,32 @@ SMC_PROTOCOL = dict(n_particles=256, n_mutation_sweeps=2,
 # the short run on a fixed ladder: finiteness and launch counts only
 PT_GEOMETRIC = dict(kernels="production", ladder="geometric", n_replicas=8,
                     beta_min=0.3, tot_mcmc_iters=100)
+
+# Slice 11: the log-joint and api.fit_hmc at the headline width
+# (bench.py:115-117), 64 chains from the spectral init; the protocol must
+# equal the one its JAX reference was made with
+# (tests/data/make_torch_hmc_reference.py).
+HMC_REFERENCE = DATA / "torch_hmc_reference.json"
+HMC_PROTOCOL = dict(
+    data=dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100]),
+    fit=dict(K=3, M=4, n_chains=64, init="spectral"),
+    hmc=dict(method="hmc", n_warmup=200, n_samples=100, n_leapfrog=24),
+    nuts=dict(method="nuts", n_warmup=100, n_samples=100, max_depth=5))
+HMC_STATS = ("loglik_tail_mean", "sigma2_median", "accept_mean",
+             "eps_median")
+# K2's backward (C, N, L, P): the HMC path's 64 chains and one chain at the
+# headline width, and config 5's P = 16, L = 144 (N = 64)
+K2_GRAD_SHAPES = ((64, 100, 100, 8), (1, 100, 100, 8), (64, 64, 144, 16),
+                  (1, 64, 144, 16))
+# max |kernel - reference| over max |reference|: float32 sums of L
+# products of order 1-10 each, taken in another order
+K2_GRAD_TOL = 2e-5
+# the log-joint on the card against the CPU: tests/test_torch_hmc.py's
+# float32 tolerances (value relative; gradient relative norm per chain)
+LOGJOINT_TOL = {"value": 1e-4, "grad": 1e-3}
+# the phases, in the order they run; all by default
+PHASES = ("build", "k1", "k2", "k3", "slice", "production", "fit",
+          "families", "refapi", "tempering", "hmc", "timings")
 
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
 K2_TOL = {"rss_rtol": 1e-5, "mu": 2e-5}     # tests/test_pallas_kernels.py
@@ -482,7 +529,7 @@ def path_phase(dev, name):
                                    betas=betas, **flags)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
+    counts = counters()
 
     final = state_to_numpy(res.final_state)
     for f, v in final.items():
@@ -540,8 +587,12 @@ def fit_launches(p):
 
 
 def counters():
-    """The launch counts ops/kernels.py keeps, as a dict of its own."""
-    return dict(kernels.LAUNCHES)
+    """The launch counts of K1, K2 and K3 that ops/kernels.py keeps, as a
+    dict of its own; the Gibbs paths that read them launch no backward
+    kernel."""
+    check(kernels.LAUNCHES["mean_rss_grad"] == 0,
+          "a Gibbs path launched K2's backward")
+    return {k: kernels.LAUNCHES[k] for k in KERNEL_NAMES}
 
 
 class ShapeProbe:
@@ -673,7 +724,7 @@ def fit_phase(dev, card):
                     every=1, printer=lambda m: print(f"    {m}")),
                 checkpoint_to=ck, directory=trace_dir, **warm)
             torch.cuda.synchronize()
-            counts = dict(kernels.LAUNCHES)
+            counts = counters()
         check([c[0] for c in probe.calls] == list(PhaseProbe.NAMES),
               f"api.fit ran {[c[0] for c in probe.calls]}")
         (r1, s1, c1), (r2, s2, c2), (r3, s3, c3) = (
@@ -1662,6 +1713,273 @@ def tempering_phase(dev, card):
             pt_shapes, R, rounds)
 
 
+def k2_grad_phase(dev, g):
+    """K2's backward against its plain version and against autograd
+    through K2's plain forward, the same bits from two calls and through
+    MeanRSS (K2 forward and backward, as the log-joint reaches them);
+    returns the worst |kernel - plain|."""
+    worst = 0.0
+    for C, N, L, P in K2_GRAD_SHAPES:
+        B = torch.randn(N, L, P, generator=g, device=dev)
+        y = torch.randn(N, L, generator=g, device=dev)
+        w = torch.randn(C, N, P, generator=g, device=dev)
+        gv = torch.randn(C, generator=g, device=dev)
+        before = dict(kernels.LAUNCHES)
+        got = kernels.mean_rss_grad(B, y, w, gv)
+        got2 = kernels.mean_rss_grad(B, y, w, gv)
+        wf = w.clone().requires_grad_()
+        rss = kernels.MeanRSS.apply(B, y, wf)
+        via_fn, = torch.autograd.grad((rss * gv).sum(), wf)
+        plain = kernels.mean_rss_grad_plain(B, y, w, gv)
+        wa = w.clone().requires_grad_()
+        auto, = torch.autograd.grad(
+            (kernels.mean_rss_plain(B, y, wa)[0] * gv).sum(), wa)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES["mean_rss_grad"] - before["mean_rss_grad"] == 3
+              and kernels.LAUNCHES["mean_rss"] - before["mean_rss"] == 1,
+              f"K2's backward at {(C, N, L, P)}: launches "
+              f"{kernels.LAUNCHES} after {before}")
+        check(torch.equal(got, got2) and torch.equal(got, via_fn)
+              and torch.equal(rss.detach(), kernels.mean_rss(B, y, w)[0]),
+              f"K2's backward gave other bits on a second call or through "
+              f"MeanRSS at {(C, N, L, P)}")
+        scale = plain.abs().max().item()
+        e_plain = (got - plain).abs().max().item()
+        e_auto = (got - auto).abs().max().item()
+        print(f"  K2 mean_rss_grad C={C} N={N} L={L} P={P}: max|grad-plain|"
+              f"={e_plain:.3e}, max|grad-autograd|={e_auto:.3e} of max|grad|"
+              f" {scale:.3e} (tol {K2_GRAD_TOL} of it)")
+        check(max(e_plain, e_auto) <= K2_GRAD_TOL * scale,
+              f"K2's backward disagrees at {(C, N, L, P)}")
+        worst = max(worst, e_plain)
+    return worst
+
+
+def hmc_data(dev):
+    d = HMC_PROTOCOL["data"]
+    return simulate_functional(seed=d["seed"], N=d["N"], K=d["K"], P=d["P"],
+                               M=d["M"], n_time=tuple(d["n_time"]),
+                               device=dev)[0]
+
+
+def hmc_point(data, chains):
+    """(log_joint_flat, q) at the headline width: ``chains`` chains of a
+    random unconstrained start (made on the CPU, so both devices get the
+    same numbers) on ``data``'s device."""
+    from bayesfmmm_torch.models import logjoint
+    K, M = HMC_PROTOCOL["fit"]["K"], HMC_PROTOCOL["fit"]["M"]
+    unc = logjoint.init_unc(torch.Generator().manual_seed(11),
+                            ModelConfig(K=K, P=data.P, M=M),
+                            hmc_data(torch.device("cpu")), chains)
+    unc = logjoint.UncState(**{f: t.to(data.device)
+                               for f, t in vars(unc).items()})
+    lj = logjoint.make_log_joint(data, Priors(), torch.full(
+        (K,), 10.0, device=data.device))
+    return (lambda q: lj(logjoint.unflatten(q, unc))), logjoint.flatten(unc)
+
+
+def logjoint_phase(dev):
+    """The log-joint's value and gradient on the card against the CPU at
+    one point, 64 chains at the headline width; on the card one gradient
+    evaluation launches K2 forward and backward once each, and the plain
+    versions are not called."""
+    from bayesfmmm_torch.samplers import hmc
+    C = HMC_PROTOCOL["fit"]["n_chains"]
+    lj_cpu, q_cpu = hmc_point(hmc_data(torch.device("cpu")), C)
+    v_cpu, g_cpu = hmc.value_and_grad(lj_cpu, q_cpu)
+    lj, q = hmc_point(hmc_data(dev), C)
+    check(torch.equal(q.cpu(), q_cpu), "log-joint: the two points differ")
+
+    def refuse(*a, **kw):
+        raise RuntimeError("a plain K2 version ran on the card")
+
+    plains = kernels.mean_rss_plain, kernels.mean_rss_grad_plain
+    kernels.mean_rss_plain = kernels.mean_rss_grad_plain = refuse
+    try:
+        kernels.reset_launch_counts()
+        v, grad = hmc.value_and_grad(lj, q)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+    finally:
+        kernels.mean_rss_plain, kernels.mean_rss_grad_plain = plains
+    want = {"chol_solve": 0, "mean_rss": 1, "mean_rss_grad": 1,
+            "weighted_gram": 0}
+    check(counts == want, f"log-joint: one gradient evaluation launched "
+                          f"{counts}, expected {want}")
+    e_v = ((v.cpu() - v_cpu).abs() / v_cpu.abs()).max().item()
+    e_g = ((grad.cpu() - g_cpu).norm(dim=1) / g_cpu.norm(dim=1)).max().item()
+    print(f"  log-joint on the card vs the CPU, {C} chains at the headline "
+          f"width (dim {q.shape[1]}): max relative value error {e_v:.3e} "
+          f"(tol {LOGJOINT_TOL['value']}), max relative gradient error "
+          f"{e_g:.3e} (tol {LOGJOINT_TOL['grad']}); launches {counts}")
+    check(bool(torch.isfinite(v).all()) and bool(torch.isfinite(grad).all())
+          and e_v <= LOGJOINT_TOL["value"] and e_g <= LOGJOINT_TOL["grad"],
+          "log-joint: the card disagrees with the CPU")
+    return lj, q
+
+
+def hmc_evaluations(diag, method):
+    """Gradient evaluations a run makes, from its own trajectories: one at
+    the start, then the longest of the chains' lengths an iteration (HMC)
+    or 2^D - 1 leaves for the deepest tree D of the batch (NUTS)."""
+    if method == "hmc":
+        return 1 + int(diag["n_steps"].max(0).sum())
+    return 1 + int((2 ** diag["depth"].max(0).astype(np.int64) - 1).sum())
+
+
+def hmc_fit(dev, method, ref):
+    """api.fit_hmc at the headline width, no device given (so on the card):
+    launch counts as its trajectories predict them, the statistics inside
+    the JAX limits.  Returns (counts, numbers)."""
+    p = HMC_PROTOCOL
+    data = hmc_data(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = api.fit_hmc(data, seed=0, **p["fit"], **p[method])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    diag = res.hmc_diagnostics
+    C, S = p["fit"]["n_chains"], p[method]["n_samples"]
+    iters = p[method]["n_warmup"] + S
+    evals = hmc_evaluations(diag, method)
+    # K2 forward and backward once a gradient evaluation, and one forward
+    # for the loglik of every kept draw
+    want = {"chol_solve": 0, "mean_rss": evals + 1, "mean_rss_grad": evals,
+            "weighted_gram": 0}
+    print(f"  fit_hmc {method}: {C} chains, {iters} iterations in "
+          f"{seconds:.3f} s ({1e3 * seconds / iters:.3f} ms an iteration, "
+          f"{evals} gradient evaluations: {1e3 * seconds / evals:.3f} ms "
+          f"each with the sampler's own work); launches {counts}")
+    check(counts == want, f"fit_hmc {method}: launches {counts}, expected "
+                          f"{want} from its trajectories")
+    check(res.all_chain_loglik.shape == (C, S)
+          and np.all(np.isfinite(res.all_chain_loglik))
+          and all(np.all(np.isfinite(v)) for v in res.traces.values()),
+          f"fit_hmc {method}: non-finite draws")
+    got = {"loglik_tail_mean": float(res.loglik[-100:].mean()),
+           "sigma2_median": float(np.median(res.traces["sigma2"])),
+           "accept_mean": float(diag["accept_mean"].mean()),
+           "eps_median": float(np.median(diag["eps"]))}
+    for stat in HMC_STATS:
+        lim = ref[method][stat]
+        lo, hi = lim["limits"]
+        print(f"  fit_hmc {method} {stat}: port {got[stat]:.6g}; JAX "
+              + ", ".join(f"{v:.6g}" for v in lim["values"])
+              + f"; limits [{lo:.6g}, {hi:.6g}]")
+        check(lo <= got[stat] <= hi, f"fit_hmc {method}: {stat} "
+                                     f"{got[stat]} outside [{lo}, {hi}]")
+    extra = ({"mean_depth": float(diag["mean_depth"].mean()),
+              "n_divergent": int(diag["n_divergent"].sum())}
+             if method == "nuts" else {})
+    return counts, dict(got, seconds=seconds, iterations=iters,
+                        evaluations=evals,
+                        ms_per_iteration=1e3 * seconds / iters,
+                        ms_per_evaluation_in_run=1e3 * seconds / evals,
+                        best_chain=res.chain_index, **extra)
+
+
+def hmc_phase(dev, g, card):
+    """Slice 11: K2's backward, the log-joint on the card, api.fit_hmc
+    ("hmc" and "nuts"), and the numbers of the gradient path.  Returns
+    (launch counts by method, numbers, the mean_rss_grad entry of the
+    kernels line)."""
+    from bayesfmmm_torch.samplers import hmc, nuts
+    ref = json.loads(HMC_REFERENCE.read_text())["headline"]
+    check({k: v for k, v in ref["protocol"].items() if k != "seeds"}
+          == HMC_PROTOCOL, f"{HMC_REFERENCE.name}: protocol "
+          f"{ref['protocol']} != {HMC_PROTOCOL}")
+    err = k2_grad_phase(dev, g)
+    lj, q = logjoint_phase(dev)
+    counts, numbers = {}, {}
+    for method in ("hmc", "nuts"):
+        counts[method], numbers[method] = hmc_fit(dev, method, ref)
+
+    # ms a gradient evaluation on the host's clock, ending in a synchronise
+    for _ in range(3):
+        hmc.value_and_grad(lj, q)
+    torch.cuda.synchronize()
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        hmc.value_and_grad(lj, q)
+    torch.cuda.synchronize()
+    ms_eval = 1e3 * (time.perf_counter() - t0) / reps
+    # kernels and device-busy ms a leapfrog step, from the profiler: 8
+    # steps of HMC's leapfrog and a NUTS subtree of 8 leaves
+    C, steps = q.shape[0], 8
+    logp, grad = hmc.value_and_grad(lj, q)
+    p0 = torch.randn(q.shape, generator=g, device=dev)
+    eps = torch.full((C,), 0.03, device=dev)
+    inv_mass = torch.ones_like(q)
+    vg = lambda x: hmc.value_and_grad(lj, x)          # noqa: E731
+    energy0 = -logp + 0.5 * (p0 * p0).sum(1)
+    live = torch.ones(C, dtype=torch.bool, device=dev)
+    step_prof = {
+        "hmc": profile_calls(
+            f"HMC, {steps} leapfrog steps of {C} chains",
+            lambda: hmc._leapfrog(vg, q, p0, grad, logp, eps, inv_mass,
+                                  torch.full((C,), steps, device=dev))),
+        "nuts": profile_calls(
+            f"NUTS, a subtree of {steps} leaves of {C} chains",
+            lambda: nuts._build_subtree(g, vg, q, p0, grad, eps, 3,
+                                        inv_mass, energy0, 6, live))}
+    for method, v in step_prof.items():
+        n = numbers[method]
+        n["kernels_per_step"] = v["kernels"] / steps
+        n["device_ms_per_step"] = v["device_ms"] / steps
+        n["ms_per_evaluation"] = ms_eval
+        busy = 100 * n["device_ms_per_step"] / n["ms_per_evaluation_in_run"]
+        print(f"  fit_hmc {method} on {card}: {ms_eval:.3f} ms a gradient "
+              f"evaluation alone (host's clock), "
+              f"{n['ms_per_evaluation_in_run']:.3f} ms in the run, "
+              f"{n['ms_per_iteration']:.3f} ms an iteration; a leapfrog step "
+              f"{n['kernels_per_step']:.1f} kernels and "
+              f"{n['device_ms_per_step']:.4f} ms of device time "
+              f"({busy:.1f} % busy)")
+
+    # mean_rss_grad beside its bound and its plain version, at the path's
+    # 64 chains and at one chain
+    data = hmc_data(dev)
+    t = {}
+    for C_ in (C, 1):
+        x = (data.B, data.y, torch.randn(C_, data.N, data.P, generator=g,
+                                         device=dev),
+             torch.randn(C_, generator=g, device=dev))
+        cands = {"kernel": lambda: kernels.mean_rss_grad(*x),
+                 "plain": lambda: kernels.mean_rss_grad_plain(*x),
+                 "empty": lambda: kernels.empty_launch(dev)}
+        v = {k: r["device_ms"] for k, r in in_turns(cands, rounds=3).items()}
+        v["paced"] = paced_ms(cands["kernel"])
+        v.update(kernels.kernel_bound("mean_rss_grad", C=C_, N=data.N,
+                                      L=data.L, P=data.P))
+        t[C_] = v
+        print(f"  mean_rss_grad (C={C_}, N={data.N}, L={data.L}, "
+              f"P={data.P}): device {1e3 * v['kernel']:.2f} us vs plain "
+              f"{1e3 * v['plain']:.2f} us, empty kernel "
+              f"{1e3 * v['empty']:.2f} us; bound {1e3 * v['bound_ms']:.3f} us"
+              f" by {v['bound_by']} ({v['bytes']} bytes, {v['flop']:.0f} "
+              f"FLOP; {100 * v['bound_ms'] / v['kernel']:.2f} % of it "
+              f"reached); host-paced {1e3 * v['paced']:.2f} us")
+    main_t, one = t[C], t[1]
+    entry = {"name": "mean_rss_grad", "route": "cuda",
+             "source": "bayesfmmm_torch/csrc/mean_rss.cu",
+             "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:68",
+             "backward_of": "mean_rss",
+             "launches": sum(c["mean_rss_grad"] for c in counts.values()),
+             "launches_by_path": {f"fit_hmc {m}": c["mean_rss_grad"]
+                                  for m, c in counts.items()},
+             "max_abs_err": err, "ms": main_t["kernel"],
+             "plain_ms": main_t["plain"], "bound_ms": main_t["bound_ms"],
+             "bound_by": main_t["bound_by"], "library_ms": None,
+             "shape": dict(C=C, N=data.N, L=data.L, P=data.P),
+             "bytes": main_t["bytes"], "flop": main_t["flop"],
+             "empty_ms": main_t["empty"],
+             "at_one_chain": {k: one[k] for k in (
+                 "kernel", "plain", "bound_ms", "bound_by")}}
+    return counts, numbers, entry
+
+
 def round_profiles(rounds):
     """Kernels and device-busy ms of a PT round and an SMC stage beside
     their ms on the host's clock."""
@@ -1685,11 +2003,15 @@ def profile_calls(what, fn, reps=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the records the profiler drops at a trace's start, left out
+        for _ in range(_PAD_LAUNCHES):
+            torch.cuda._sleep(1)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     events = [ev for ev in prof.key_averages()
-              if ev.device_type == DeviceType.CUDA]
+              if ev.device_type == DeviceType.CUDA
+              and _PAD_KERNEL not in ev.key]
     n = sum(ev.count for ev in events) / reps
     busy = sum(ev.self_device_time_total for ev in events) / reps / 1e3
     top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:4]
@@ -1718,7 +2040,32 @@ def sweep_profile(dev, name, chains, flags):
     return profile_calls(f"{name}, {chains} chains, a sweep", sweep)
 
 
-def main():
+def parse_phases(argv):
+    """The phases to run.  ``--phases`` names them, comma-separated (they
+    run in ``PHASES``' order); every phase by default.  The build runs
+    whatever is asked.  The timings read every path's launch counts and
+    shapes, so they run only with every phase."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="chip_smoke.py",
+        description="Smoke run of bayesfmmm_torch on one NVIDIA GPU.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated, of: " + ", ".join(PHASES)
+                    + " (default: all)")
+    asked = {x.strip() for x in ap.parse_args(argv).phases.split(",")
+             if x.strip()}
+    if asked - set(PHASES):
+        ap.error(f"unknown phases {sorted(asked - set(PHASES))}; the phases "
+                 f"are {', '.join(PHASES)}")
+    asked.add("build")
+    if "timings" in asked and asked != set(PHASES):
+        ap.error("the timings read every path's launch counts: run them "
+                 "with every phase")
+    return asked
+
+
+def main(argv=None):
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one NVIDIA GPU",
               file=sys.stderr)
@@ -1728,6 +2075,14 @@ def main():
     card = card_line()
 
     t0 = time.perf_counter()
+    took, mark = {}, [t0]
+
+    def lap(name):
+        """Seconds since the last phase ended, under the phase's name."""
+        now = time.perf_counter()
+        took[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     lib = kernels.build()
     ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
              .splitlines() if "registers" in ln or "spill" in ln] \
@@ -1735,269 +2090,323 @@ def main():
     print(f"phase 1 build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     for ln in ptxas:
         print(f"  ptxas {ln}")
+    lap("build")
 
     g = torch.Generator(device=dev).manual_seed(123)
-    k1_err = k1_phase(dev, g)
-    print("phase 2 K1 chol_solve vs plain: ok")
-    k2_err = k2_phase(dev, g)
-    print("phase 3 K2 mean_rss vs plain: ok")
-    k3_err = k3_phase(dev, g)
-    print("phase 4 K3 weighted_gram vs plain: ok")
+    k1_err = k2_err = k3_err = 0.0
+    if "k1" in phases:
+        k1_err = k1_phase(dev, g)
+        print("phase 2 K1 chol_solve vs plain: ok")
+        lap("k1")
+    if "k2" in phases:
+        k2_err = k2_phase(dev, g)
+        print("phase 3 K2 mean_rss vs plain: ok")
+        lap("k2")
+    if "k3" in phases:
+        k3_err = k3_phase(dev, g)
+        print("phase 4 K3 weighted_gram vs plain: ok")
+        lap("k3")
 
-    s_seconds, s_counts = path_phase(dev, "slice")
-    print("phase 5 slice 1 path (reference census): ok")
-    p_seconds, p_counts = path_phase(dev, "production")
-    print("phase 6 slice 2 path (production census): ok")
-    counts, fit_counts = fit_phase(dev, card)
-    print("phase 7 slice 5 path (three-phase fit through api.fit): ok")
+    if "slice" in phases:
+        s_seconds, s_counts = path_phase(dev, "slice")
+        print("phase 5 slice 1 path (reference census): ok")
+        lap("slice")
+    if "production" in phases:
+        p_seconds, p_counts = path_phase(dev, "production")
+        print("phase 6 slice 2 path (production census): ok")
+        lap("production")
+    if "fit" in phases:
+        counts, fit_counts = fit_phase(dev, card)
+        print("phase 7 slice 5 path (three-phase fit through api.fit): ok")
+        lap("fit")
 
-    c4_path, c4_shapes, ms4 = config4_phase(dev, card)
-    print("phase 8 slice 6 path, config 4 (eta and xi through api.fit, K1 "
-          "at D = 256): ok")
-    c3, c3_shapes, ms3 = config3_phase(dev, card)
-    print("phase 8 slice 6 path, config 3 (eta, sweep_full): ok")
-    c1, _, ms1 = config1_phase(dev, card)
-    print("phase 8 slice 6 path, config 1 (multivariate through api.fit): ok")
-    c5, c5_shapes, ms5 = config5_phase(dev, card)
-    print("phase 8 slice 6 path, config 5 (hd through api.fit): ok")
-    slice6 = {"config4": c4_path, "config3": c3, "config1": c1, "config5": c5}
-    for k in KERNEL_NAMES:
-        check(c4_path[k] > 0, f"config 4's path never launched {k}")
+    if "families" in phases:
+        c4_path, c4_shapes, ms4 = config4_phase(dev, card)
+        print("phase 8 slice 6 path, config 4 (eta and xi through api.fit, K1 "
+              "at D = 256): ok")
+        c3, c3_shapes, ms3 = config3_phase(dev, card)
+        print("phase 8 slice 6 path, config 3 (eta, sweep_full): ok")
+        c1, _, ms1 = config1_phase(dev, card)
+        print("phase 8 slice 6 path, config 1 (multivariate through "
+              "api.fit): ok")
+        c5, c5_shapes, ms5 = config5_phase(dev, card)
+        print("phase 8 slice 6 path, config 5 (hd through api.fit): ok")
+        slice6 = {"config4": c4_path, "config3": c3, "config1": c1,
+                  "config5": c5}
+        for k in KERNEL_NAMES:
+            check(c4_path[k] > 0, f"config 4's path never launched {k}")
+        lap("families")
 
-    t9 = time.perf_counter()
-    ref_counts, ref_times = ref_api_functional(dev, card)
-    post_reference_phase(dev)
-    fam_counts, fam_seconds = ref_api_families(dev)
-    ph = ref_times["phase_s"]
-    print(f"  reference API on {card}: R-named phases "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in ph.items())
-          + f" (headline; phase 1 {REF_API['n_try'] + 1} chains, phase 2 "
-          f"{REF_API['n_try']}, phase 3 one); configs 1 and 5, phases 1 / 2 / "
-          f"3: "
-          + ", ".join(f"{k} " + " / ".join(f"{s:.3f}" for s in v) + " s"
-                      for k, v in fam_seconds.items())
-          + f"; CPO at (draws, N) = {ref_times['cpo_shape']}: "
-          f"{ref_times['cpo_host_ms']:.3f} ms a call on the host's clock, "
-          f"{ref_times['cpo_device_ms']:.4f} ms of device time (most in "
-          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in ref_times["cpo_top"])
-          + "); the NumPy "
-          f"post-processing (FMeanCI .. Read*) {ref_times['numpy_s']:.3f} s; "
-          f"the phase {time.perf_counter() - t9:.1f} s")
-    print("phase 9 slice 9 path (the reference-named API and its "
-          "post-processing, CPO on the card): ok")
+    if "refapi" in phases:
+        t9 = time.perf_counter()
+        ref_counts, ref_times = ref_api_functional(dev, card)
+        post_reference_phase(dev)
+        fam_counts, fam_seconds = ref_api_families(dev)
+        ph = ref_times["phase_s"]
+        print(f"  reference API on {card}: R-named phases "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in ph.items())
+              + f" (headline; phase 1 {REF_API['n_try'] + 1} chains, phase 2 "
+              f"{REF_API['n_try']}, phase 3 one); configs 1 and 5, phases "
+              f"1 / 2 / 3: "
+              + ", ".join(f"{k} " + " / ".join(f"{s:.3f}" for s in v) + " s"
+                          for k, v in fam_seconds.items())
+              + f"; CPO at (draws, N) = {ref_times['cpo_shape']}: "
+              f"{ref_times['cpo_host_ms']:.3f} ms a call on the host's clock, "
+              f"{ref_times['cpo_device_ms']:.4f} ms of device time (most in "
+              + ", ".join(f"{k[:40]} {v:.4f}" for k, v in ref_times["cpo_top"])
+              + "); the NumPy "
+              f"post-processing (FMeanCI .. Read*) "
+              f"{ref_times['numpy_s']:.3f} s; the phase "
+              f"{time.perf_counter() - t9:.1f} s")
+        print("phase 9 slice 9 path (the reference-named API and its "
+              "post-processing, CPO on the card): ok")
+        lap("refapi")
 
-    t10 = time.perf_counter()
-    slice10, pt_shapes, R, rounds = tempering_phase(dev, card)
-    # the kernels at the auto ladder's own length, if phases 2-4 missed it
-    if R not in (1, 8, PT_PROTOCOL["max_replicas"]):
-        for jitter in (0.0, 1e-6):
-            k1_err = max(k1_err, *k1_case(dev, g, R, 96, jitter))
-        k2_err = max(k2_err, k2_phase(dev, g, [(R, 100, 100, 8, None),
-                                               (2 * R, 100, 100, 8, None)]))
-        k3_err = max(k3_err, k3_phase(dev, g, [(3 * R, 100, 8)]))
-    print(f"  the phase {time.perf_counter() - t10:.1f} s")
-    print("phase 10 slice 10 paths (parallel tempering and SMC through "
-          "api.fit_pt and api.fit_smc): ok")
+    if "tempering" in phases:
+        t10 = time.perf_counter()
+        slice10, pt_shapes, R, rounds = tempering_phase(dev, card)
+        # the kernels at the auto ladder's own length, if phases 2-4 missed it
+        if R not in (1, 8, PT_PROTOCOL["max_replicas"]):
+            for jitter in (0.0, 1e-6):
+                k1_err = max(k1_err, *k1_case(dev, g, R, 96, jitter))
+            k2_err = max(k2_err, k2_phase(dev, g, [
+                (R, 100, 100, 8, None), (2 * R, 100, 100, 8, None)]))
+            k3_err = max(k3_err, k3_phase(dev, g, [(3 * R, 100, 8)]))
+        print(f"  the phase {time.perf_counter() - t10:.1f} s")
+        print("phase 10 slice 10 paths (parallel tempering and SMC through "
+              "api.fit_pt and api.fit_smc): ok")
+        lap("tempering")
 
-    x = main_path_inputs(dev)
-    C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
-    fn1 = (kernels.chol_solve, kernels.chol_solve_plain, library_chol_solve)
-    fn2 = (kernels.mean_rss, kernels.mean_rss_plain, None)
-    fn3 = (kernels.weighted_gram, kernels.weighted_gram_plain,
-           library_weighted_gram)
-    # inputs' name -> (kernel, shape, kernel, plain version, the one PyTorch
-    # call or None); the last three are the fit's restart phases
-    timed = {
-        "chol_solve": ("chol_solve", dict(C=C, D=96), *fn1),
-        "mean_rss": ("mean_rss", dict(C=C, N=N, L=100, P=P), *fn2),
-        "mean_rss_2c": ("mean_rss", dict(C=2 * C, N=N, L=100, P=P), *fn2),
-        "weighted_gram": ("weighted_gram", dict(R=C * K, N=N, P=P), *fn3),
-        "chol_solve_c7": ("chol_solve", dict(C=7, D=96), *fn1),
-        "mean_rss_c8": ("mean_rss", dict(C=8, N=N, L=100, P=P), *fn2),
-        "weighted_gram_r24": ("weighted_gram", dict(R=8 * K, N=N, P=P), *fn3),
-    }
-    # slice 6's shapes: K1 at D = 256 with the jitter the sweep passes, beside
-    # the three torch.linalg calls; K2 of the hd family (P = 16, L = 144) at
-    # 64 chains and the MGP-scale moves' 128 rows, and of config 4 (N = 80);
-    # K3 of update_eta (R = C D K: configs 3 and 4) and of the hd family
-    g6 = torch.Generator(device=dev).manual_seed(321)
+    line = {"kernels": []}
+    if "hmc" in phases:
+        t11 = time.perf_counter()
+        hmc_counts, line["hmc"], grad_entry = hmc_phase(dev, g, card)
+        print(f"  the phase {time.perf_counter() - t11:.1f} s")
+        print("phase 11 slice 11 path (K2's backward, the log-joint on the "
+              "card, HMC and NUTS through api.fit_hmc): ok")
+        lap("hmc")
 
-    def k2_inputs(C6, N6, L6, P6):
-        return (torch.randn(N6, L6, P6, generator=g6, device=dev),
-                torch.randn(N6, L6, generator=g6, device=dev),
-                torch.randn(C6, N6, P6, generator=g6, device=dev))
+    if "timings" in phases:
+        x = main_path_inputs(dev)
+        C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
+        fn1 = (kernels.chol_solve, kernels.chol_solve_plain,
+               library_chol_solve)
+        fn2 = (kernels.mean_rss, kernels.mean_rss_plain, None)
+        fn3 = (kernels.weighted_gram, kernels.weighted_gram_plain,
+               library_weighted_gram)
+        # inputs' name -> (kernel, shape, kernel, plain version, the one
+        # PyTorch call or None); the last three are the fit's restart phases
+        timed = {
+            "chol_solve": ("chol_solve", dict(C=C, D=96), *fn1),
+            "mean_rss": ("mean_rss", dict(C=C, N=N, L=100, P=P), *fn2),
+            "mean_rss_2c": ("mean_rss", dict(C=2 * C, N=N, L=100, P=P), *fn2),
+            "weighted_gram": ("weighted_gram", dict(R=C * K, N=N, P=P), *fn3),
+            "chol_solve_c7": ("chol_solve", dict(C=7, D=96), *fn1),
+            "mean_rss_c8": ("mean_rss", dict(C=8, N=N, L=100, P=P), *fn2),
+            "weighted_gram_r24": ("weighted_gram", dict(R=8 * K, N=N, P=P),
+                                  *fn3),
+        }
+        # slice 6's shapes: K1 at D = 256 with the jitter the sweep passes,
+        # beside the three torch.linalg calls; K2 of the hd family (P = 16,
+        # L = 144) at 64 chains and the MGP-scale moves' 128 rows, and of
+        # config 4 (N = 80);
+        # K3 of update_eta (R = C D K: configs 3 and 4) and of the hd family
+        g6 = torch.Generator(device=dev).manual_seed(321)
 
-    def k3_inputs(R6, N6, P6):
-        return (torch.rand(R6, N6, generator=g6, device=dev),
-                torch.randn(N6, P6, P6, generator=g6, device=dev))
+        def k2_inputs(C6, N6, L6, P6):
+            return (torch.randn(N6, L6, P6, generator=g6, device=dev),
+                    torch.randn(N6, L6, generator=g6, device=dev),
+                    torch.randn(C6, N6, P6, generator=g6, device=dev))
 
-    fn1j = (lambda A, b, z: kernels.chol_solve(A, b, z, 1e-6),
-            lambda A, b, z: kernels.chol_solve_plain(A, b, z, 1e-6),
-            library_chol_solve)
-    # name -> (..., the launches at each shape of the path that has it)
-    timed6 = {
-        "chol_solve_c16_d256": ("chol_solve", dict(C=16, D=256), *fn1j,
-                                c4_shapes),
-        "chol_solve_c64_d256": ("chol_solve", dict(C=64, D=256), *fn1j,
-                                c5_shapes),
-        "chol_solve_c256_d256": ("chol_solve", dict(C=C, D=256), *fn1j,
-                                 c4_shapes),
-        "mean_rss_hd_c64": ("mean_rss", dict(C=64, N=64, L=144, P=16), *fn2,
-                            c5_shapes),
-        "mean_rss_hd_c128": ("mean_rss", dict(C=128, N=64, L=144, P=16),
-                             *fn2, c5_shapes),
-        "mean_rss_n80_c256": ("mean_rss", dict(C=C, N=80, L=100, P=8), *fn2,
-                              c4_shapes),
-        "weighted_gram_eta_r48": ("weighted_gram", dict(R=48, N=100, P=8),
-                                  *fn3, c3_shapes),
-        "weighted_gram_eta_r512": ("weighted_gram", dict(R=2 * C, N=80, P=8),
-                                   *fn3, c4_shapes),
-        "weighted_gram_hd_r256": ("weighted_gram", dict(R=256, N=64, P=16),
-                                  *fn3, c5_shapes),
-        # slice 10: PT's R replicas (K1, K2 on R and 2R rows, K3 on 3R) and
-        # its pilot's one chain (K1)
-        "chol_solve_pt": ("chol_solve", dict(C=R, D=96), *fn1, pt_shapes),
-        "chol_solve_c1": ("chol_solve", dict(C=1, D=96), *fn1, pt_shapes),
-        "mean_rss_pt": ("mean_rss", dict(C=R, N=N, L=100, P=P), *fn2,
-                        pt_shapes),
-        "mean_rss_pt_2r": ("mean_rss", dict(C=2 * R, N=N, L=100, P=P),
-                           *fn2, pt_shapes),
-        "weighted_gram_pt": ("weighted_gram", dict(R=3 * R, N=N, P=P), *fn3,
-                             pt_shapes),
-    }
-    launches6 = {}
-    for name, (base, shape, *fns, by_shape) in timed6.items():
-        launched = by_shape.get((base, tuple(shape.values())), 0)
-        check(launched > 0, f"{name}: its path never launched {base} at "
-                            f"{shape}")
-        if base == "chol_solve":
-            x[name] = spd(g6, shape["C"], shape["D"], dev)
-        elif base == "mean_rss":
-            x[name] = k2_inputs(*(shape[k] for k in "CNLP"))
-        else:
-            x[name] = k3_inputs(*(shape[k] for k in "RNP"))
-        timed[name] = (base, shape, *fns)
-        launches6[name] = launched
-    ms = {}
-    for name, (base, shape, kern, plain, library) in timed.items():
-        cands = {"kernel": lambda: kern(*x[name]),
-                 "plain": lambda: plain(*x[name]),
-                 "empty": lambda: kernels.empty_launch(dev)}
-        if library is not None:
-            cands["library"] = lambda: library(*x[name])
-        try:
-            t = {k: v["device_ms"]
-                 for k, v in in_turns(cands, rounds=3).items()}
-        except RuntimeError as e:
-            raise RuntimeError(f"timing {name} {shape}: {e}") from e
-        t["paced"] = paced_ms(cands["kernel"])
-        t["paced_plain"] = paced_ms(cands["plain"])
-        t.update(kernels.kernel_bound(base, **shape))
-        ms[name] = t
-    def jitter_ops():
-        return kernels.add_jitter(x["chol_solve"][0], 1e-6)
-    jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
-        jitter_ops)
-    n = PROTOCOL["sweeps"]
-    print(f"phase 11 timings on {card}: slice 1 "
-          f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
-          f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
-          f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
-          f"({p_seconds / n * 1e3:.3f} ms per sweep), {CHAINS} chains, "
-          f"loglik every sweep")
-    print(f"  the jitter ops K1 absorbed (A + jitter * scale * I in PyTorch, "
-          f"C={C} D=96): {jitter_launches} kernels, "
-          f"{jitter_ms:.4f} ms of device time a call")
-    for name, (_, shape, *_) in timed.items():
-        t = ms[name]
-        lib_ms = f"{t['library']:.4f} ms" if "library" in t else "none"
-        print(f"  {name} {shape}: device {t['kernel']:.4f} ms vs plain "
-              f"{t['plain']:.4f} ms, one PyTorch call {lib_ms}, empty kernel "
-              f"{t['empty']:.4f} ms; bound {t['bound_ms']:.6f} ms by "
-              f"{t['bound_by']} ({t['bytes']} bytes, {t['flop']:.0f} FLOP; "
-              f"{100 * t['bound_ms'] / t['kernel']:.2f} % of it reached); "
-              f"host-paced {t['paced']:.4f} ms vs plain "
-              f"{t['paced_plain']:.4f} ms")
+        def k3_inputs(R6, N6, P6):
+            return (torch.rand(R6, N6, generator=g6, device=dev),
+                    torch.randn(N6, P6, P6, generator=g6, device=dev))
 
-    # slice 6: ms, kernels and device-busy ms a sweep of each configuration
-    sweeps6 = {**ms4, **ms3, **ms1, **ms5}
-    profiles = {
-        "config4 16 chains": sweep_profile(dev, "config4", 16, {}),
-        "config4 256 chains": sweep_profile(dev, "config4", CHAINS,
-                                            api.PRODUCTION_FLAGS),
-        "config3": sweep_profile(dev, "config3", 8, {}),
-        "config1": sweep_profile(dev, "config1", 4, api.PRODUCTION_FLAGS),
-        "config5": sweep_profile(dev, "config5", 64, api.PRODUCTION_FLAGS),
-    }
-    rounds = round_profiles(rounds)
-    for name, v in profiles.items():
-        v["ms_per_sweep"] = sweeps6[name]
-        print(f"  {name}: {sweeps6[name]:.3f} ms a sweep on the host's "
-              f"clock, {v['kernels']:.0f} kernels and {v['device_ms']:.3f} "
-              f"ms of device time a sweep "
-              f"({100 * v['device_ms'] / sweeps6[name]:.1f} % busy)")
+        fn1j = (lambda A, b, z: kernels.chol_solve(A, b, z, 1e-6),
+                lambda A, b, z: kernels.chol_solve_plain(A, b, z, 1e-6),
+                library_chol_solve)
+        # name -> (..., the launches at each shape of the path that has it)
+        timed6 = {
+            "chol_solve_c16_d256": ("chol_solve", dict(C=16, D=256), *fn1j,
+                                    c4_shapes),
+            "chol_solve_c64_d256": ("chol_solve", dict(C=64, D=256), *fn1j,
+                                    c5_shapes),
+            "chol_solve_c256_d256": ("chol_solve", dict(C=C, D=256), *fn1j,
+                                     c4_shapes),
+            "mean_rss_hd_c64": ("mean_rss", dict(C=64, N=64, L=144, P=16),
+                                *fn2, c5_shapes),
+            "mean_rss_hd_c128": ("mean_rss", dict(C=128, N=64, L=144, P=16),
+                                 *fn2, c5_shapes),
+            "mean_rss_n80_c256": ("mean_rss", dict(C=C, N=80, L=100, P=8),
+                                  *fn2, c4_shapes),
+            "weighted_gram_eta_r48": ("weighted_gram", dict(R=48, N=100, P=8),
+                                      *fn3, c3_shapes),
+            "weighted_gram_eta_r512": ("weighted_gram",
+                                       dict(R=2 * C, N=80, P=8), *fn3,
+                                       c4_shapes),
+            "weighted_gram_hd_r256": ("weighted_gram", dict(R=256, N=64, P=16),
+                                      *fn3, c5_shapes),
+            # slice 10: PT's R replicas (K1, K2 on R and 2R rows, K3 on 3R) and
+            # its pilot's one chain (K1)
+            "chol_solve_pt": ("chol_solve", dict(C=R, D=96), *fn1, pt_shapes),
+            "chol_solve_c1": ("chol_solve", dict(C=1, D=96), *fn1, pt_shapes),
+            "mean_rss_pt": ("mean_rss", dict(C=R, N=N, L=100, P=P), *fn2,
+                            pt_shapes),
+            "mean_rss_pt_2r": ("mean_rss", dict(C=2 * R, N=N, L=100, P=P),
+                               *fn2, pt_shapes),
+            "weighted_gram_pt": ("weighted_gram", dict(R=3 * R, N=N, P=P),
+                                 *fn3, pt_shapes),
+        }
+        launches6 = {}
+        for name, (base, shape, *fns, by_shape) in timed6.items():
+            launched = by_shape.get((base, tuple(shape.values())), 0)
+            check(launched > 0, f"{name}: its path never launched {base} at "
+                                f"{shape}")
+            if base == "chol_solve":
+                x[name] = spd(g6, shape["C"], shape["D"], dev)
+            elif base == "mean_rss":
+                x[name] = k2_inputs(*(shape[k] for k in "CNLP"))
+            else:
+                x[name] = k3_inputs(*(shape[k] for k in "RNP"))
+            timed[name] = (base, shape, *fns)
+            launches6[name] = launched
+        ms = {}
+        for name, (base, shape, kern, plain, library) in timed.items():
+            cands = {"kernel": lambda: kern(*x[name]),
+                     "plain": lambda: plain(*x[name]),
+                     "empty": lambda: kernels.empty_launch(dev)}
+            if library is not None:
+                cands["library"] = lambda: library(*x[name])
+            try:
+                t = {k: v["device_ms"]
+                     for k, v in in_turns(cands, rounds=3).items()}
+            except RuntimeError as e:
+                raise RuntimeError(f"timing {name} {shape}: {e}") from e
+            t["paced"] = paced_ms(cands["kernel"])
+            t["paced_plain"] = paced_ms(cands["plain"])
+            t.update(kernels.kernel_bound(base, **shape))
+            ms[name] = t
 
-    SOURCES = {"chol_solve": ("chol_solve.cu", 228),
-               "mean_rss": ("mean_rss.cu", 68),
-               "weighted_gram": ("weighted_gram.cu", 122)}
-    ERRS = {"chol_solve": k1_err, "mean_rss": k2_err, "weighted_gram": k3_err}
+        def jitter_ops():
+            return kernels.add_jitter(x["chol_solve"][0], 1e-6)
+        jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
+            jitter_ops)
+        n = PROTOCOL["sweeps"]
+        print(f"phase 12 timings on {card}: slice 1 "
+              f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
+              f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
+              f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
+              f"({p_seconds / n * 1e3:.3f} ms per sweep), {CHAINS} chains, "
+              f"loglik every sweep")
+        print(f"  the jitter ops K1 absorbed (A + jitter * scale * I in "
+              f"PyTorch, C={C} D=96): {jitter_launches} kernels, "
+              f"{jitter_ms:.4f} ms of device time a call")
+        for name, (_, shape, *_) in timed.items():
+            t = ms[name]
+            lib_ms = f"{t['library']:.4f} ms" if "library" in t else "none"
+            print(f"  {name} {shape}: device {t['kernel']:.4f} ms vs plain "
+                  f"{t['plain']:.4f} ms, one PyTorch call {lib_ms}, empty "
+                  f"kernel {t['empty']:.4f} ms; bound {t['bound_ms']:.6f} "
+                  f"ms by {t['bound_by']} ({t['bytes']} bytes, "
+                  f"{t['flop']:.0f} FLOP; "
+                  f"{100 * t['bound_ms'] / t['kernel']:.2f} % of it reached); "
+                  f"host-paced {t['paced']:.4f} ms vs plain "
+                  f"{t['paced_plain']:.4f} ms")
 
-    def shape_entry(name):
-        """One of slice 6's and slice 10's shapes: the keys every kernel
-        entry has."""
-        base, shape = timed[name][0], timed[name][1]
-        t = ms[name]
-        return {"name": name, "route": "cuda",
-                "source": f"bayesfmmm_torch/csrc/{SOURCES[base][0]}",
-                "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:"
-                            f"{SOURCES[base][1]}",
-                "launches": launches6[name], "max_abs_err": ERRS[base],
-                "ms": t["kernel"], "plain_ms": t["plain"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t.get("library"), "shape": shape,
-                "bytes": t["bytes"], "flop": t["flop"],
-                "empty_ms": t["empty"]}
+        # slice 6: ms, kernels and device-busy ms a sweep of each
+        # configuration
+        sweeps6 = {**ms4, **ms3, **ms1, **ms5}
+        profiles = {
+            "config4 16 chains": sweep_profile(dev, "config4", 16, {}),
+            "config4 256 chains": sweep_profile(dev, "config4", CHAINS,
+                                                api.PRODUCTION_FLAGS),
+            "config3": sweep_profile(dev, "config3", 8, {}),
+            "config1": sweep_profile(dev, "config1", 4, api.PRODUCTION_FLAGS),
+            "config5": sweep_profile(dev, "config5", 64, api.PRODUCTION_FLAGS),
+        }
+        rounds = round_profiles(rounds)
+        for name, v in profiles.items():
+            v["ms_per_sweep"] = sweeps6[name]
+            print(f"  {name}: {sweeps6[name]:.3f} ms a sweep on the host's "
+                  f"clock, {v['kernels']:.0f} kernels and "
+                  f"{v['device_ms']:.3f} ms of device time a sweep "
+                  f"({100 * v['device_ms'] / sweeps6[name]:.1f} % busy)")
 
-    def entry(name, small, source, line, err):
-        t = ms[name]
-        return {"name": name, "route": "cuda",
-                "source": f"bayesfmmm_torch/csrc/{source}",
-                "replaces": f"bayesfmmm_tpu/ops/pallas_kernels.py:{line}",
-                "launches": counts[name], "max_abs_err": err,
-                "launches_by_path": {"slice": s_counts[name],
-                                     "production": p_counts[name],
-                                     **{f"fit {ph}": c[name]
-                                        for ph, c in fit_counts.items()},
-                                     **{cfg: c[name]
-                                        for cfg, c in slice6.items()},
-                                     **{f"reference_api {ph}": c[name]
-                                        for ph, c in ref_counts.items()},
-                                     **{f"reference_api {cfg}": c[name]
-                                        for cfg, c in fam_counts.items()},
-                                     **{path: c[name]
-                                        for path, c in slice10.items()}},
-                "ms": t["kernel"], "plain_ms": t["plain"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t.get("library"),
-                "launches_per_sweep": {
-                    **{path: per[name] for path, (_, _, per) in PATHS.items()},
-                    **{ph: per[name] for ph, per in PHASE_LAUNCHES.items()}},
-                "empty_ms": t["empty"],
-                "at_restart_chains": {
-                    **{k: ms[small][k] for k in (
-                        "kernel", "plain", "bound_ms", "bound_by")},
-                    "library": ms[small].get("library")}}
+        SOURCES = {"chol_solve": ("chol_solve.cu", 228),
+                   "mean_rss": ("mean_rss.cu", 68),
+                   "weighted_gram": ("weighted_gram.cu", 122)}
+        ERRS = {"chol_solve": k1_err, "mean_rss": k2_err,
+                "weighted_gram": k3_err}
 
-    k2 = entry("mean_rss", "mean_rss_c8", "mean_rss.cu", 68, k2_err)
-    # the MGP-scale moves' 2C chain rows, 4 of the production sweep's 7
-    k2["at_2c_rows"] = {k: ms["mean_rss_2c"][k]
-                        for k in ("kernel", "plain", "bound_ms", "bound_by")}
+        def shape_entry(name):
+            """One of slice 6's and slice 10's shapes: the keys every kernel
+            entry has."""
+            base, shape = timed[name][0], timed[name][1]
+            t = ms[name]
+            return {"name": name, "route": "cuda",
+                    "source": f"bayesfmmm_torch/csrc/{SOURCES[base][0]}",
+                    "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:"
+                                f"{SOURCES[base][1]}",
+                    "launches": launches6[name], "max_abs_err": ERRS[base],
+                    "ms": t["kernel"], "plain_ms": t["plain"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t.get("library"), "shape": shape,
+                    "bytes": t["bytes"], "flop": t["flop"],
+                    "empty_ms": t["empty"]}
+
+        def entry(name, small, source, line, err):
+            t = ms[name]
+            return {"name": name, "route": "cuda",
+                    "source": f"bayesfmmm_torch/csrc/{source}",
+                    "replaces": f"bayesfmmm_tpu/ops/pallas_kernels.py:{line}",
+                    "launches": counts[name], "max_abs_err": err,
+                    "launches_by_path": {"slice": s_counts[name],
+                                         "production": p_counts[name],
+                                         **{f"fit {ph}": c[name]
+                                            for ph, c in fit_counts.items()},
+                                         **{cfg: c[name]
+                                            for cfg, c in slice6.items()},
+                                         **{f"reference_api {ph}": c[name]
+                                            for ph, c in ref_counts.items()},
+                                         **{f"reference_api {cfg}": c[name]
+                                            for cfg, c in fam_counts.items()},
+                                         **{path: c[name]
+                                            for path, c in slice10.items()},
+                                         **{f"fit_hmc {m}": c[name]
+                                            for m, c in hmc_counts.items()}},
+                    "ms": t["kernel"], "plain_ms": t["plain"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t.get("library"),
+                    "launches_per_sweep": {
+                        **{path: per[name]
+                           for path, (_, _, per) in PATHS.items()},
+                        **{ph: per[name]
+                           for ph, per in PHASE_LAUNCHES.items()}},
+                    "empty_ms": t["empty"],
+                    "at_restart_chains": {
+                        **{k: ms[small][k] for k in (
+                            "kernel", "plain", "bound_ms", "bound_by")},
+                        "library": ms[small].get("library")}}
+
+        k2 = entry("mean_rss", "mean_rss_c8", "mean_rss.cu", 68, k2_err)
+        # the MGP-scale moves' 2C chain rows, 4 of the production sweep's 7
+        k2["at_2c_rows"] = {k: ms["mean_rss_2c"][k] for k in (
+            "kernel", "plain", "bound_ms", "bound_by")}
+        line["kernels"] = [
+            entry("chol_solve", "chol_solve_c7", "chol_solve.cu", 228, k1_err),
+            k2, entry("weighted_gram", "weighted_gram_r24", "weighted_gram.cu",
+                      122, k3_err), *(shape_entry(name) for name in timed6)]
+        line.update(sweeps=profiles, rounds=rounds)
+    if "hmc" in phases:
+        line["kernels"].append(grad_entry)
+    if "timings" in phases:
+        lap("timings")
+    line["phase_seconds"] = took
+    print(f"phases' seconds on the host's clock: "
+          + ", ".join(f"{k} {v}" for k, v in took.items())
+          + f"; {time.perf_counter() - t0:.1f} s from the build on")
     print(card)
-    print(json.dumps({"kernels": [
-        entry("chol_solve", "chol_solve_c7", "chol_solve.cu", 228, k1_err),
-        k2, entry("weighted_gram", "weighted_gram_r24", "weighted_gram.cu",
-                  122, k3_err), *(shape_entry(name) for name in timed6)],
-        "sweeps": profiles, "rounds": rounds}))
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -363,3 +363,32 @@ def test_batched_run_writes_the_covariate_files(tmp_path, small_cov):
     back = armaio.load_trace_dir(d)
     assert back["Xi"].shape == (100, 2, 5, 1, 2)
     np.testing.assert_allclose(back["Eta"], res.traces["eta"], rtol=1e-6)
+
+
+def test_float64_fit_resumes_from_its_checkpoint(tmp_path):
+    """A float64 fit resumes in float64 from its own checkpoint (ROADMAP
+    fault D: the state came back as float32 and the first sweep raised),
+    and 100 + 100 sweeps through the checkpoint give the bits of one
+    200-sweep run."""
+    data, _ = simulate_functional(seed=5, N=8, K=2, P=5, M=2, n_time=(8, 10),
+                                  dtype=torch.float64, device="cpu")
+    r1 = api.fit_nu_z(data=data, K=2, M=2, tot_mcmc_iters=100, seed=0)
+    r2 = api.fit_theta(r1, tot_mcmc_iters=100, seed=1)
+    ck = str(tmp_path / "f64.npz")
+    kw = dict(n_chains=2, kernels="production", progress=False, seed=7, **TT)
+    whole = api.fit_warm_start(r1, r2, tot_mcmc_iters=200, **kw)
+    a = api.fit_warm_start(r1, r2, tot_mcmc_iters=100, checkpoint_to=ck, **kw)
+    st, _, it, _ = load_checkpoint(ck, "cpu", dtype=torch.float64)
+    assert it == 100 and all(getattr(st, f).dtype == torch.float64
+                             for f in STATE_FIELDS)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(st, f), getattr(a.ensemble_state, f)), f
+    b = api.fit_warm_start(resume_from=ck, data=data, tot_mcmc_iters=100,
+                           kernels="production", progress=False, **TT)
+    assert b.ensemble_state.sigma2.dtype == torch.float64
+    np.testing.assert_array_equal(
+        np.concatenate([a.all_chain_loglik, b.all_chain_loglik], 1),
+        whole.all_chain_loglik)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(b.ensemble_state, f),
+                           getattr(whole.ensemble_state, f)), f

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions.
+"""The CUDA kernels K1, K2 (and K2's backward) and K3 on the card, against
+their plain versions.
 
 These need an NVIDIA card with nvcc and skip elsewhere.  The file imports no
 JAX, so on a machine without it run it as
@@ -161,6 +162,10 @@ def test_kernel_wrappers_refuse_float64_on_the_card(dev):
     with pytest.raises(ValueError, match="weighted_gram.*float32"):
         kernels.weighted_gram(torch.ones(2, 3, **f64),
                               torch.ones(3, 8, 8, **f64))
+    with pytest.raises(ValueError, match="mean_rss_grad.*float32"):
+        kernels.mean_rss_grad(torch.ones(3, 4, 8, **f64),
+                              torch.ones(3, 4, **f64),
+                              torch.ones(2, 3, 8, **f64), torch.ones(2, **f64))
     mean, _ = kernels.chol_solve(torch.eye(8, dtype=torch.float64)[None] * 2,
                                  torch.ones(1, 8, dtype=torch.float64),
                                  torch.ones(1, 8, dtype=torch.float64))
@@ -232,6 +237,114 @@ def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
     assert torch.equal(rss, rss2)      # deterministic: same bits
     torch.testing.assert_close(rss, rss_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(mu, mu_p, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("C,N,L,P", [(64, 100, 100, 8), (1, 100, 100, 8),
+                                     (64, 64, 144, 16), (37, 7, 1500, 8),
+                                     (300, 5, 3, 5), (3, 4, 9, 1280)])
+def test_mean_rss_grad_kernel_matches_plain(dev, C, N, L, P):
+    """K2's backward at the HMC path's shapes (64 chains and one), config
+    5's P = 16, more points than a chunk, more chains than a tile, and the
+    widest P K2 serves: against its plain version and autograd through the
+    plain forward, the same bits from two calls and through MeanRSS, one
+    launch counted a call."""
+    g = torch.Generator(device=dev).manual_seed(C + P)
+    B = torch.randn(N, L, P, generator=g, device=dev)
+    y = torch.randn(N, L, generator=g, device=dev)
+    w = torch.randn(C, N, P, generator=g, device=dev)
+    gv = torch.randn(C, generator=g, device=dev)
+    before = kernels.LAUNCHES["mean_rss_grad"]
+    got = kernels.mean_rss_grad(B, y, w, gv)
+    assert torch.equal(got, kernels.mean_rss_grad(B, y, w, gv))
+    wf = w.clone().requires_grad_()
+    via_fn, = torch.autograd.grad(
+        (kernels.MeanRSS.apply(B, y, wf) * gv).sum(), wf)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mean_rss_grad"] == before + 3
+    assert torch.equal(via_fn, got)
+    wa = w.clone().requires_grad_()
+    auto, = torch.autograd.grad(
+        (kernels.mean_rss_plain(B, y, wa)[0] * gv).sum(), wa)
+    scale = auto.abs().max().item()
+    for ref in (kernels.mean_rss_grad_plain(B, y, w, gv), auto):
+        assert (got - ref).abs().max().item() <= 2e-5 * scale
+
+
+def test_mean_rss_grad_wide_p_raises_on_the_card(dev):
+    B = torch.zeros(4, 5, 1281, device=dev)
+    kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="P=1281"):
+        kernels.mean_rss_grad(B, torch.zeros(4, 5, device=dev),
+                              torch.zeros(2, 4, 1281, device=dev),
+                              torch.ones(2, device=dev))
+    assert kernels.LAUNCHES["mean_rss_grad"] == 0
+
+
+def test_log_joint_gradient_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """The log-joint's value and gradient on the card equal the CPU's at
+    one point (float32: 1e-4 relative, 1e-3 relative norm), one evaluation
+    launching K2 forward and backward once each, no plain version."""
+    from bayesfmmm_torch.config import ModelConfig, Priors
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.samplers import hmc
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    def evaluate(where):
+        data, _ = simulate_functional(seed=7, N=30, K=3, P=8, M=4,
+                                      n_time=(40, 50), device=where)
+        lj = logjoint.make_log_joint(data, Priors(),
+                                     torch.full((3,), 10.0, device=where))
+        u = logjoint.UncState(**{f: t.to(where) for f, t in vars(unc).items()})
+        return hmc.value_and_grad(lambda q: lj(logjoint.unflatten(q, u)),
+                                  logjoint.flatten(u))
+
+    cpu_data, _ = simulate_functional(seed=7, N=30, K=3, P=8, M=4,
+                                      n_time=(40, 50), device="cpu")
+    unc = logjoint.init_unc(torch.Generator().manual_seed(1),
+                            ModelConfig(K=3, P=8, M=4), cpu_data, 16)
+    v0, g0 = evaluate("cpu")
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(kernels, "mean_rss_plain", refuse)
+    monkeypatch.setattr(kernels, "mean_rss_grad_plain", refuse)
+    kernels.reset_launch_counts()
+    v1, g1 = evaluate(dev)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 1,
+                                "mean_rss_grad": 1, "weighted_gram": 0}
+    v1, g1 = v1.cpu(), g1.cpu()
+    assert ((v1 - v0).abs() / v0.abs()).max() < 1e-4
+    assert ((g1 - g0).norm(dim=1) / g0.norm(dim=1)).max() < 1e-3
+
+
+def test_fit_hmc_runs_on_the_card_by_default(dev):
+    """A short fit_hmc with no device given, both methods: the data goes to
+    the card, K2 forward and backward launch once a gradient evaluation,
+    K1 and K3 never, and the draws are finite."""
+    import numpy as np
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=91, N=24, K=2, P=6, M=2,
+                                  n_time=(25, 30), device="cpu")
+    for method in ("hmc", "nuts"):
+        kernels.reset_launch_counts()
+        res = api.fit_hmc(data, K=2, M=2, n_warmup=20, n_samples=10,
+                          n_chains=4, n_leapfrog=8, max_depth=4,
+                          method=method)
+        torch.cuda.synchronize()
+        assert res.data.device.type == "cuda"
+        assert res.final_state.Z.device.type == "cuda"
+        d = res.hmc_diagnostics
+        evals = 1 + int(d["n_steps"].max(0).sum() if method == "hmc" else
+                        (2 ** d["depth"].max(0).astype(np.int64) - 1).sum())
+        assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": evals + 1,
+                                    "mean_rss_grad": evals,
+                                    "weighted_gram": 0}
+        assert np.isfinite(res.all_chain_loglik).all()
 
 
 def test_mean_rss_kernel_takes_unaligned_views(dev):
@@ -551,7 +664,10 @@ def test_equal_tensor_beta_gives_the_float_bits_on_the_card(dev, census, D):
                                  **flags)
         out.append(s)
     torch.cuda.synchronize()
-    assert all(n > 0 for n in kernels.LAUNCHES.values()), kernels.LAUNCHES
+    assert all(kernels.LAUNCHES[k] > 0 for k in ("chol_solve", "mean_rss",
+                                                  "weighted_gram")), \
+        kernels.LAUNCHES
+    assert kernels.LAUNCHES["mean_rss_grad"] == 0
     for f in STATE_FIELDS:
         assert torch.equal(getattr(out[0], f), getattr(out[1], f)), f
 

@@ -50,8 +50,11 @@ def test_cpu_tensors_route_to_plain_versions():
     G = torch.randn(5, 3, 3, generator=rng)
     assert torch.equal(kernels.weighted_gram(W, G),
                        kernels.weighted_gram_plain(W, G))
+    g = torch.randn(2, generator=rng)
+    assert torch.equal(kernels.mean_rss_grad(B, y, w, g),
+                       kernels.mean_rss_grad_plain(B, y, w, g))
     assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 0,
-                                "weighted_gram": 0}
+                                "mean_rss_grad": 0, "weighted_gram": 0}
 
 
 def test_cuda_build_without_nvcc_raises(tmp_path, monkeypatch):

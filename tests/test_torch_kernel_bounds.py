@@ -480,4 +480,4 @@ def test_reset_launch_counts_clears_every_counter():
         kernels.LAUNCHES[name] = 3
     kernels.reset_launch_counts()
     assert kernels.LAUNCHES == {"chol_solve": 0, "mean_rss": 0,
-                                "weighted_gram": 0}
+                                "mean_rss_grad": 0, "weighted_gram": 0}
