@@ -40,8 +40,8 @@ from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
 from bayesfmmm_torch.samplers import drivers
 
 __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
-           "fit_warm_start", "fit_pt", "fit_smc", "fit_hmc", "export_traces",
-           "fit", "PRODUCTION_FLAGS"]
+           "fit_warm_start", "fit_pt", "fit_smc", "fit_hmc", "fit_advi_init",
+           "export_traces", "fit", "PRODUCTION_FLAGS"]
 
 # kernels="production": the bench's production census of ``sweep_full``.
 # All five are named because the port's ``sweep_full`` has MALA off by
@@ -724,6 +724,68 @@ def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
     res.hmc_diagnostics = {k: v.cpu().numpy() for k, v in diag.items()}
     res.all_chain_loglik = ll
     return res
+
+
+def fit_advi_init(data, *, K, M, covariate_cov=False, warm_iters=2000,
+                  advi_steps=600, advi_lr=0.03, n_chains=4, thinning_num=1,
+                  n_temp_trans=0, beta_N_t=1.0, N_t=1,
+                  priors: Priors | None = None, directory=None, seed=0,
+                  device=None):
+    """ADVI-initialized production sampler: the fast alternative to the
+    three-phase restart pipeline (ADVI takes the role of the Nu_Z -> Theta
+    warm-start search).
+
+    Runs mean-field ADVI on the whole-model unconstrained log-joint
+    (samplers/advi.py), then ``n_chains`` chains of ``phase_warm_start`` in
+    the reference census from draws of q, as one batch.  The data goes to
+    ``device`` (the card when None).  With X and ``covariate_cov=False`` the
+    xi tower stays at zero, in q and in every sweep: the JAX package moves
+    it in q and then never again (ROADMAP F14).  The result carries
+    ``elbo_trace`` and ``all_chain_loglik`` besides the best chain's traces.
+    """
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.samplers import advi as advi_mod
+
+    validation.validate_fit_args(tot_mcmc_iters=warm_iters, K=K, n_eigen=M)
+    validation.validate_warm_start_args(
+        thinning_num=thinning_num, beta_N_t=beta_N_t, N_t=N_t,
+        n_temp_trans=n_temp_trans)
+    hp = (priors or Priors()).validate()
+    validation.validate_c(hp.c_vector(K), K)
+    data = _on_device(data, default_device(device))
+    covm = data.D > 0
+    covc = covariate_cov and data.D > 0
+    cfg = ModelConfig(K=K, P=int(data.P), M=M, D=int(data.D),
+                      family=data.family, covariate_mean=covm,
+                      covariate_cov=covc)
+    c_vec = _c_tensor(hp, K, data)
+    generator = _generator(data, seed)
+    lj = logjoint.make_log_joint(data, hp, c_vec)
+    # init_unc holds the xi tower at xi = 0 (gamma_xi, delta_xi, A_xi = 1)
+    unc0 = logjoint.init_unc(generator, cfg, data, 1, dtype=data.y.dtype)
+    res = advi_mod.run_advi(generator, lj, unc0, n_steps=advi_steps,
+                            learning_rate=advi_lr, covariate_cov=covc)
+    with torch.no_grad():
+        states = logjoint.to_state(advi_mod.sample_from_advi(
+            generator, res, n_samples=n_chains))
+    states = GibbsState(**{f: getattr(states, f).contiguous()
+                           for f in STATE_FIELDS})
+    out = drivers.phase_warm_start(
+        generator, states, data, hp, c_vec, n_iters=warm_iters,
+        thin=thinning_num, n_temp_trans=n_temp_trans, beta_N_t=beta_N_t,
+        N_t=N_t, covariate_mean=covm, covariate_cov=covc)
+    loglik = out.loglik.cpu().numpy()
+    best = drivers.best_chain(loglik, window=min(100, warm_iters))
+    traces = {k: v[best].cpu().numpy() for k, v in out.traces.items()}
+    result = FitResult(traces, loglik[best], _one_chain(out.final_state, best),
+                       best)
+    result.data = data
+    result.config = cfg
+    result.elbo_trace = res.elbo_trace.cpu().numpy()
+    result.all_chain_loglik = loglik
+    if directory is not None:
+        export_traces(directory, result.traces, cfg)
+    return result
 
 
 # trace field -> reference file stem (BFMMM.h:1720-1730)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState, ModelData,
-                                          default_device)
+                                          default_device, penalty_rank)
 
 
 def data_from_jax(jdata, device=None, dtype=torch.float32) -> ModelData:
@@ -29,7 +29,8 @@ def data_from_jax(jdata, device=None, dtype=torch.float32) -> ModelData:
         y=dev("y"), mask=dev("mask"), B=dev("B"), X=dev("X"), G=dev("G"),
         pen=dev("pen"), u=dev("u"), yy=dev("yy"),
         n_obs=float(np.sum(np.asarray(jdata.mask, dtype=np.float64))),
-        identity_basis=bool(jdata.identity_basis), family=str(jdata.family))
+        identity_basis=bool(jdata.identity_basis), family=str(jdata.family),
+        pen_rank=penalty_rank(np.asarray(jdata.pen), dtype))
 
 
 def state_from_numpy(leaves, chains=None, device=None,
@@ -84,6 +85,32 @@ def unc_from_jax(leaves, chains=None, device=None, dtype=torch.float32):
             raise ValueError(f"{f}: {a.shape[0]} chains, not {chains}")
         out[f] = torch.tensor(a, dtype=dtype, device=device)
     return UncState(**out)
+
+
+def advi_from_jax(jres, like, covariate_cov=True, device=None,
+                  dtype=torch.float32):
+    """The port's ``ADVIResult`` (samplers/advi.py) holding a JAX
+    ``ADVIResult``'s mean (one chain's UncState leaves), ``log_sd_flat``
+    and ELBO trace, as NumPy.  ``like`` is the port's one-chain UncState
+    that stands for the fields outside the position (say the ``init_unc``
+    the JAX run started from, through ``unc_from_jax``).  The JAX package's
+    q always holds the xi tower, so with ``covariate_cov=False`` the two
+    layouts agree only without covariates (D = 0); otherwise this raises."""
+    from bayesfmmm_torch.models.logjoint import flatten
+    from bayesfmmm_torch.samplers.advi import ADVIResult
+    device = default_device(device)
+    like = type(like)(**{f: t.to(device, dtype) for f, t in vars(like).items()})
+    dim = flatten(like, covariate_cov).shape[1]
+    if np.asarray(jres.log_sd_flat).shape != (dim,):
+        raise ValueError(f"a JAX q of {np.shape(jres.log_sd_flat)} "
+                         f"coordinates, the port's layout has {dim}")
+
+    def dev(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return ADVIResult(unc_from_jax(jres.mean, device=device, dtype=dtype),
+                      dev(jres.log_sd_flat), dev(jres.elbo_trace), like,
+                      covariate_cov)
 
 
 def unc_to_numpy(unc) -> dict:

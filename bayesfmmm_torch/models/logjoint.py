@@ -34,10 +34,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
-from bayesfmmm_torch.models.state import GibbsState
+from bayesfmmm_torch.models.state import GibbsState, penalty_rank
 from bayesfmmm_torch.ops.distributions import log_multi_beta
 from bayesfmmm_torch.ops.mean import feature_offsets, rss_from_coeffs
 
@@ -211,8 +210,9 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
     and the model mean is formed as Z times ``ops/mean.py::
     feature_offsets``, with products of two operands.
     """
-    if pen_rank is None:        # once, on the host
-        pen_rank = int(np.linalg.matrix_rank(data.pen.detach().cpu().numpy()))
+    if pen_rank is None:        # taken once per data, on the host
+        pen_rank = (data.pen_rank if data.pen_rank is not None
+                    else penalty_rank(data.pen, data.pen.dtype))
     n_obs = data.n_obs
     N, D = data.N, data.D
     kw = dict(dtype=data.y.dtype, device=data.device)

@@ -42,6 +42,8 @@ class ModelData:
                           # the sigma2 shape needs no device read
     identity_basis: bool = False   # B_n = I: the updaters skip B and G
     family: str = "functional"
+    pen_rank: int | None = None    # rank of pen, taken once on the host
+                                   # (the log-joint's normalizing power)
 
     @property
     def N(self):
@@ -225,7 +227,16 @@ def _finalize_data(y, mask, B, X, pen, dtype, device, identity_basis=False,
     return ModelData(y=dev(y), mask=dev(mask), B=dev(Bm), X=dev(X), G=dev(G),
                      pen=dev(pen), u=dev(u), yy=dev(yy),
                      n_obs=float(mask.sum()), identity_basis=identity_basis,
-                     family=family)
+                     family=family, pen_rank=penalty_rank(pen, dtype))
+
+
+def penalty_rank(pen, dtype=torch.float32) -> int:
+    """Rank of the penalty as the data holds it (``pen`` in ``dtype``), on
+    the host: the power of the smoothness prior's normalizer."""
+    if isinstance(pen, torch.Tensor):
+        pen = pen.detach().cpu()
+    return int(np.linalg.matrix_rank(
+        torch.as_tensor(np.array(pen), dtype=dtype).numpy()))
 
 
 def init_state(generator, cfg: ModelConfig, data: ModelData, chains: int,

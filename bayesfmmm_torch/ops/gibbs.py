@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from bayesfmmm_torch.models import logjoint
 from bayesfmmm_torch.ops import kernels
 from bayesfmmm_torch.ops.distributions import (
     chol_precision,
@@ -64,6 +65,7 @@ from bayesfmmm_torch.ops.mean import (
     gram_vec,
     rss_from_coeffs,
 )
+from bayesfmmm_torch.samplers.hmc import _leapfrog, value_and_grad
 
 # Joint draw of a whole blocked family (all K*M(*D) blocks of Phi or xi) up
 # to this dimension, as in the JAX package; above it the dense joint
@@ -691,19 +693,24 @@ def _row_lprior(state, Z2):
             * torch.log(Z2)).sum(-1)
 
 
+def _categorical(generator, logits):
+    """One draw per column of an unnormalized log-probability table
+    (K, ...) -> (...), by the Gumbel maximum (as jax.random.categorical)."""
+    u = _uniform(generator, logits, logits.shape)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=0)
+
+
 def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
-                 p_indep=0.3, anchor_prop=False):
+                 p_indep=0.3, anchor_prop=False, anchor_conc=300.0):
     """Collapsed (Z, chi) block update.
 
     Proposal per row: with probability ``p_indep`` an independence draw
     from Dir(alpha3 pi), else the Dirichlet random walk Dir(a_Z_PM Z_i);
     the Hastings ratio uses the mixture density both ways.  Then a
     label-swap stage proposes exchanging two coordinates of each row (a
-    symmetric involution), and finally chi | Z is drawn jointly."""
-    if anchor_prop:
-        raise NotImplementedError(
-            "update_z_chi(anchor_prop=True): ROADMAP item 13 'gradient "
-            "samplers and default-off kernels'")
+    symmetric involution); with ``anchor_prop`` an anchor-guided
+    independence stage follows (below); and finally chi | Z is drawn
+    jointly."""
     s = _tempered_precision(beta, state.sigma2)
     Z = state.Z
     C, N, K = Z.shape
@@ -754,6 +761,42 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     Z, a, U, L, Fr = (
         _where_rows(acc_s, n_, o_) for n_, o_ in zip(
             (Z_swap, a_s[0], U_s[0], L_s[0], Fr_s[0]), (Z, a, U, L, Fr)))
+
+    if anchor_prop:
+        # anchor-guided independence stage (JAX gibbs.py:429-480): each
+        # row's chi-marginal log-likelihood at the K corners e_k (state-
+        # independent points, so the anchor weights P(a) serve both
+        # directions) picks an anchor a, and z' ~ Dir(conc e_a + 1/2); the
+        # Hastings ratio uses the mixture q(z) = sum_a P(a) Dir(z; conc e_a
+        # + 1/2) both ways (the shared normalizer cancels).  Rows on the
+        # simplex boundary are excluded (q is improper at exact zeros).
+        ml_cur = torch.where(acc_s, ml_s, ml_cur)
+        lpr_cur = torch.where(acc_s, lpr_s, lpr_cur)
+        corners = torch.eye(K, dtype=Z.dtype, device=Z.device)
+        _, _, L_c, Fr_c, rr_c = _row_stats(
+            state, data, corners[:, None, None, :].expand(K, C, N, K), s)
+        ml_c = _marg_loglik(s, L_c, Fr_c, rr_c)                # (K, C, N)
+        log_pa = torch.log(torch.softmax(ml_c, 0) + 1e-38)
+        a_sel = _categorical(generator, ml_c)                  # (C, N)
+        Z_anchor = rdirichlet(generator, anchor_conc * corners[a_sel] + 0.5)
+
+        def log_q_anchor(z):
+            """log sum_a P(a) Dir_unnorm(z; conc e_a + 1/2) per row: the
+            exponent at anchor a is -1/2 sum_k log z_k + conc log z_a."""
+            lz = torch.log(z)                                  # (C, N, K)
+            per_a = -0.5 * lz.sum(-1) + anchor_conc * lz.permute(2, 0, 1)
+            return torch.logsumexp(per_a + log_pa, 0)          # (C, N)
+
+        a_a, U_a, L_a, Fr_a, rr_a = _row_stats(state, data, Z_anchor[None], s)
+        ml_a = _marg_loglik(s, L_a, Fr_a, rr_a)[0]
+        lpr_a = _row_lprior(state, Z_anchor[None])[0]
+        log_acc_a = ((ml_a + lpr_a) - (ml_cur + lpr_cur)
+                     + log_q_anchor(Z) - log_q_anchor(Z_anchor))
+        acc_a = (Z > 0.0).all(-1) & _mh_accept(
+            log_acc_a, _uniform(generator, Z, (C, N)))
+        Z, a, U, L, Fr = (
+            _where_rows(acc_a, n_, o_) for n_, o_ in zip(
+                (Z_anchor, a_a[0], U_a[0], L_a[0], Fr_a[0]), (Z, a, U, L, Fr)))
 
     # exact joint chi | Z draw: precision Q = I + s U'GU, linear s U'(u - Ga)
     chi = _chi_draw(generator, L, s[:, None, None] * Fr)
@@ -1028,19 +1071,99 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
 # gradient of their sum is each chain's own).
 # ---------------------------------------------------------------------------
 
-def _mala_potential(Phi, Z, data, s, ur, sum_rr0, pri, U_xi=None):
-    """-(beta-tempered chi-marginal loglik + MGP log prior of Phi) per
-    chain (C,); ur = u - G a and sum_rr0 = ||y - B a||^2 for the mean-only
+def _chi_marginal_ll(Phi, Z, data, s, ur, sum_rr0, U_xi=None):
+    """beta-tempered chi-marginal log-likelihood per chain (C,), up to a
+    constant; ur = u - G a and sum_rr0 = ||y - B a||^2 for the mean-only
     coefficients a, U_xi the covariate part sum_k Z_nk xi_k x_n of the
-    eigen directions (a constant of the move; None at D = 0)."""
+    eigen directions (a constant of the Phi moves; None at D = 0)."""
     U = torch.einsum("cnk,ckpm->cnpm", Z, Phi)
     if U_xi is not None:
         U = U + U_xi
     L = _chi_factor(U, gram_dirs(data, U), s)
     v = small_solve_lower(L, torch.einsum("cnpm,cnp->cnm", U, ur))
-    ll = -0.5 * (small_chol_logdet(L).sum(-1) + s * sum_rr0
-                 - s * s * (v * v).sum((1, 2)))
+    return -0.5 * (small_chol_logdet(L).sum(-1) + s * sum_rr0
+                   - s * s * (v * v).sum((1, 2)))
+
+
+def _phi_move_terms(state, data, beta):
+    """What the Phi moves hold fixed: (s, a, ur, sum_rr0, U_xi) for the
+    mean-only coefficients a (kernel K2 for sum_rr0 on CUDA)."""
+    s = _tempered_precision(beta, state.sigma2)
+    a = _mean_only_coeffs(state, data.X)
+    ur = data.u - gram_vec(data, a)
+    sum_rr0 = rss_from_coeffs(data, a)                        # kernel K2
+    # xi is held fixed by the moves: its part of U enters as a constant
+    # that carries no graph
+    U_xi = (torch.einsum("cnk,ckpdm,nd->cnpm", state.Z, state.xi,
+                         data.X).detach() if data.D > 0 else None)
+    return s, a, ur, sum_rr0, U_xi
+
+
+def _mala_potential(Phi, Z, data, s, ur, sum_rr0, pri, U_xi=None):
+    """-(beta-tempered chi-marginal loglik + MGP log prior of Phi) per
+    chain (C,)."""
+    ll = _chi_marginal_ll(Phi, Z, data, s, ur, sum_rr0, U_xi)
     return -(ll - 0.5 * (pri * Phi * Phi).sum((1, 2, 3)))
+
+
+# ---------------------------------------------------------------------------
+# Phi column moves under the chi-marginal target (JAX gibbs.py:1435-1558):
+# MH on single columns (k, m) of Phi with chi integrated out, the MGP prior
+# term of the column, then one exact joint chi | Phi redraw.  Each chain
+# draws its own column each move: gathers and one-hot masks per chain.
+# ---------------------------------------------------------------------------
+
+def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
+                   *, sigma_rw=0.1, n_moves=6):
+    """``n_moves`` chi-marginal MH column moves on Phi, then the joint chi
+    redraw.
+
+    Proposal: a uniform column (k, m); step N(0, sigma_rw^2 col_scale^2 I)
+    with col_scale = (||Phi_k[:, m]|| + 0.1) / sqrt(N).  The scale depends
+    on the column's norm, so the proposal is not symmetric and the Hastings
+    ratio evaluates both directions' Gaussian densities."""
+    C, K, P, M = state.Phi.shape
+    dt, dev = state.Phi.dtype, state.Phi.device
+    s, a, ur, sum_rr0, U_xi = _phi_move_terms(state, data, beta)
+
+    def cols(x):
+        """(C, K, P, M) -> (C, K M, P): column j = k M + m."""
+        return x.permute(0, 1, 3, 2).reshape(C, K * M, P)
+
+    pri_cols = torch.cumprod(state.delta, dim=2).reshape(C, K * M, 1) \
+        * cols(state.gamma)
+    rows = torch.arange(C, device=dev)
+    j_all = torch.arange(K * M, device=dev)
+    sqrt_n = math.sqrt(data.N)
+    Phi = state.Phi
+    ll = _chi_marginal_ll(Phi, state.Z, data, s, ur, sum_rr0, U_xi)
+    for _ in range(n_moves):
+        j = torch.randint(0, K * M, (C,), generator=generator, device=dev)
+        noise = torch.randn((C, P), generator=generator, dtype=dt,
+                            device=dev)
+        u = _uniform(generator, Phi, (C,))
+        col = cols(Phi)[rows, j]                               # (C, P)
+        sc = (torch.linalg.vector_norm(col, dim=1) + 0.1) / sqrt_n
+        step = sigma_rw * sc[:, None] * noise
+        col_new = col + step
+        sc_new = (torch.linalg.vector_norm(col_new, dim=1) + 0.1) / sqrt_n
+        ss = (step * step).sum(1)
+        lq_fwd = -P * torch.log(sc) - ss / (2.0 * (sigma_rw * sc) ** 2)
+        lq_bwd = -P * torch.log(sc_new) - ss / (2.0 * (sigma_rw * sc_new) ** 2)
+        sel = (j_all == j[:, None]).view(C, K, 1, M)
+        Phi_new = torch.where(sel, col_new[:, None, :, None], Phi)
+        ll_new = _chi_marginal_ll(Phi_new, state.Z, data, s, ur, sum_rr0,
+                                  U_xi)
+        dpri = -0.5 * (pri_cols[rows, j] * (col_new ** 2 - col ** 2)).sum(1)
+        ok = _mh_accept(ll_new - ll + dpri + lq_bwd - lq_fwd, u)
+        Phi = _where_rows(ok, Phi_new, Phi)
+        ll = torch.where(ok, ll_new, ll)
+
+    U = torch.einsum("cnk,ckpm->cnpm", state.Z, Phi)
+    if U_xi is not None:
+        U = U + U_xi
+    chi, w = _redraw_chi(generator, data, s, U, a)
+    return state.replace(Phi=Phi, chi=chi), cache.replace(w=w)
 
 
 def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
@@ -1049,15 +1172,8 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
     redraw.  Nothing leaves this function attached to a graph."""
     C, K, P, M = state.Phi.shape
     dt, dev = state.Phi.dtype, state.Phi.device
-    s = _tempered_precision(beta, state.sigma2)
     pri = torch.cumprod(state.delta, dim=2)[:, :, None, :] * state.gamma
-    a = _mean_only_coeffs(state, data.X)
-    ur = data.u - gram_vec(data, a)
-    sum_rr0 = rss_from_coeffs(data, a)                        # kernel K2
-    # xi is held fixed by the move: its part of U enters the potential as a
-    # constant that carries no graph
-    U_xi = (torch.einsum("cnk,ckpdm,nd->cnpm", state.Z, state.xi,
-                         data.X).detach() if data.D > 0 else None)
+    s, a, ur, sum_rr0, U_xi = _phi_move_terms(state, data, beta)
 
     def pot_grad(x):
         x = x.detach().requires_grad_()
@@ -1092,6 +1208,60 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
         U = U + U_xi
     chi, w = _redraw_chi(generator, data, s, U, a)
     return state.replace(Phi=x, chi=chi), cache.replace(w=w)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model HMC inside the sweep (JAX gibbs.py:1680-1747): one jittered-
+# length trajectory on the unconstrained log-joint (models/logjoint.py) per
+# chain.  The target is the same posterior, so the composition with the
+# Gibbs kernels is invariant.  Every chain draws its own length in
+# [1, n_leapfrog]; the batch runs n_leapfrog masked steps with no host read,
+# a chain past its length frozen.  A rejected chain gets its ORIGINAL state
+# back, not the round trip through the unconstrained space (whose clipping
+# would nudge exact-zero Z entries).  The xi tower is moved only with
+# ``covariate_cov``; otherwise it keeps its value, where the JAX package
+# moves it whenever X has columns (ROADMAP F14).
+# ---------------------------------------------------------------------------
+
+def update_hmc_joint(generator, state, data, hp, c, beta=1.0, *, eps=0.01,
+                     n_leapfrog=8, inv_mass=None, covariate_cov=False):
+    """One jittered-length HMC trajectory of every chain on the whole
+    unconstrained model.  ``inv_mass``: a flat diagonal inverse mass (dim,)
+    in ``logjoint.flatten`` order, shared by every chain (say warm-frozen
+    posterior variances); ones when None.  The gradient goes through
+    ``kernels.MeanRSS``: K2 forward and backward once an evaluation on the
+    card, 1 + n_leapfrog evaluations; the penalty's rank is the data's
+    (``ModelData.pen_rank``), so nothing is read on the host."""
+    lj = logjoint.make_log_joint(data, hp, c, temperature=beta)
+    unc = logjoint.from_state(state)
+    q0 = logjoint.flatten(unc, covariate_cov)
+    C, dim = q0.shape
+    kw = dict(dtype=q0.dtype, device=q0.device)
+    inv_mass = (torch.ones(dim, **kw) if inv_mass is None
+                else torch.as_tensor(inv_mass, **kw))
+
+    def vg(q):
+        return value_and_grad(
+            lambda x: lj(logjoint.unflatten(x, unc, covariate_cov)), q)
+
+    logp0, grad0 = vg(q0)
+    p0 = torch.randn((C, dim), generator=generator, **kw) \
+        / torch.sqrt(inv_mass)
+    n = torch.randint(1, n_leapfrog + 1, (C,), generator=generator,
+                      device=q0.device)
+    q, p, _, logp1 = _leapfrog(vg, q0, p0, grad0, logp0,
+                               torch.full((C,), eps, **kw), inv_mass, n,
+                               n_max=n_leapfrog)
+    ke0 = 0.5 * (inv_mass * p0 * p0).sum(1)
+    ke1 = 0.5 * (inv_mass * p * p).sum(1)
+    ok = _mh_accept((logp1 - ke1) - (logp0 - ke0), _uniform(generator, q0,
+                                                           (C,)))
+    with torch.no_grad():
+        new = logjoint.to_state(logjoint.unflatten(q, unc, covariate_cov))
+    if not covariate_cov:       # the held-out tower keeps its very bits
+        new = new.replace(xi=state.xi, gamma_xi=state.gamma_xi,
+                          delta_xi=state.delta_xi, A_xi=state.A_xi)
+    return select_state(ok, new, state)
 
 
 # ---------------------------------------------------------------------------
@@ -1159,9 +1329,10 @@ def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
 
 def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                covariate_cov=False, beta=1.0, collapsed_z=False,
-               gauge=False, p_indep=0.3, phi_mala_steps=0,
-               phi_mala_step=0.05, phi_chi_moves=0, z_anchor=False,
-               hmc_steps=0):
+               gauge=False, p_indep=0.3, phi_chi_moves=0,
+               phi_chi_sigma=0.1, phi_mala_steps=0, phi_mala_step=0.05,
+               z_anchor=False, hmc_steps=0, hmc_eps=0.01,
+               hmc_inv_mass=None):
     """One phase-3 sweep of every chain.
 
     Reference order (BFMMM.h:1500-1554): Z, pi, alpha3, Phi, delta, A,
@@ -1174,6 +1345,14 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
     phi_mala_step=0.05.  MALA is off by default here, where the JAX
     package turns it on for every gauge caller (ROADMAP F3).
 
+    The default-off kernels, as in the JAX package: ``z_anchor`` adds the
+    anchor-guided stage to the collapsed (Z, chi) block (``collapsed_z``
+    only); under ``gauge``, ``phi_chi_moves`` > 0 runs that many Phi column
+    moves (``phi_chi_sigma``) before MALA, and ``hmc_steps`` > 0 one
+    whole-model HMC trajectory of up to that many steps (``hmc_eps``,
+    ``hmc_inv_mass``) after it.  The HMC step moves the xi tower only with
+    ``covariate_cov`` (ROADMAP F14).
+
     ``beta`` < 1 tempers the data-likelihood kernels, as in the JAX
     package: a float tempers every chain alike, a (C,) tensor on the
     state's device gives each chain its own temperature (parallel
@@ -1181,20 +1360,13 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
     chain's draw is then the one a float at its entry would give: the
     random numbers drawn do not depend on beta's values, except sigma^2's
     gamma variate, whose shape beta sets.  A tensor whose entries all equal
-    a float32 value b gives the bits of the float b.  The flags of kernels
-    not ported yet raise."""
+    a float32 value b gives the bits of the float b."""
     _check_beta(beta, state)
-    for flag, on in (("z_anchor", z_anchor), ("phi_chi_moves", phi_chi_moves),
-                     ("hmc_steps", hmc_steps)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: ROADMAP item 13 'gradient samplers and default-off "
-                f"kernels'")
     use_full_f32()
     cache = build_cache(data, state)
     if collapsed_z:
         state, cache = update_z_chi(generator, state, data, hp, cache, beta,
-                                    p_indep=p_indep)
+                                    p_indep=p_indep, anchor_prop=z_anchor)
     else:
         state, cache = update_z(generator, state, data, hp, cache, beta)
     state = update_pi(generator, state, hp, c)
@@ -1220,8 +1392,17 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                                         build_cache(data, state), beta)
         state, cache = update_noise_scale(generator, state, data, hp, cache,
                                           beta)
+        if phi_chi_moves > 0:
+            state, cache = update_phi_chi(generator, state, data, hp, cache,
+                                          beta, sigma_rw=phi_chi_sigma,
+                                          n_moves=phi_chi_moves)
         if phi_mala_steps > 0:
             state, cache = update_phi_mala(generator, state, data, hp, cache,
                                            beta, step=phi_mala_step,
                                            n_steps=phi_mala_steps)
+        if hmc_steps > 0:
+            state = update_hmc_joint(generator, state, data, hp, c, beta,
+                                     eps=hmc_eps, n_leapfrog=hmc_steps,
+                                     inv_mass=hmc_inv_mass,
+                                     covariate_cov=covariate_cov)
     return state

@@ -60,14 +60,16 @@ def _rows(mask, a, b):
     return torch.where(mask.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
-def _leapfrog(grad_fn, q, p, grad, logp, eps, inv_mass, n_steps):
+def _leapfrog(grad_fn, q, p, grad, logp, eps, inv_mass, n_steps,
+              n_max=None):
     """Chain c takes ``n_steps[c]`` leapfrog steps of size eps[c] (C,);
     ``grad_fn(q) -> (logp, grad)``.  The batch runs the longest length,
-    read once; a chain past its own keeps its state.  Returns (q, p, grad,
-    logp)."""
+    read once, or ``n_max`` steps without a read when it is given (a bound
+    on every length); a chain past its own keeps its state.  Returns (q, p,
+    grad, logp)."""
     half_e = 0.5 * eps[:, None]
     e_im = eps[:, None] * inv_mass
-    for i in range(int(n_steps.max())):
+    for i in range(int(n_steps.max()) if n_max is None else n_max):
         p1 = torch.addcmul(p, half_e, grad)
         q1 = torch.addcmul(q, e_im, p1)
         logp1, grad1 = grad_fn(q1)

@@ -1,4 +1,4 @@
-"""Observability: progress streams and NaN debugging.
+"""Observability: progress streams, profiling, NaN debugging.
 
 Port of ``bayesfmmm_tpu/utils/observability.py``.  The reference's
 observability is Rcpp::Rcout prints of iteration count and rolling mean
@@ -6,21 +6,24 @@ log-likelihood (BFMMM.h:200-204, :870-875):
 
   * ``ProgressStream``      — rolling-loglik diagnostic stream as a
     first-class callback (host-side, fed with each chunk's loglik)
-  * ``assert_finite_state`` — host-side NaN/Inf check of a sampler state
-
-The JAX package's ``trace_profile`` and ``debug_nans`` wrap JAX's profiler
-and configuration and have no counterpart here yet.
+  * ``trace_profile``       — a torch.profiler region written as a Chrome
+    trace
+  * ``assert_finite_state`` / ``debug_nans`` — NaN debugging hooks
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
+import torch
 
 from bayesfmmm_torch.models.state import STATE_FIELDS
 
-__all__ = ["ProgressStream", "assert_finite_state", "rolling_loglik"]
+__all__ = ["ProgressStream", "trace_profile", "assert_finite_state",
+           "debug_nans", "rolling_loglik"]
 
 
 class ProgressStream:
@@ -52,6 +55,43 @@ def rolling_loglik(loglik_trace, window=5):
     if len(ll) < window:
         return float(ll.mean())
     return float(ll[-window:].mean())
+
+
+@contextlib.contextmanager
+def trace_profile(logdir: str):
+    """Profile a region with torch.profiler (the host, and the CUDA card
+    when there is one) and write it into ``logdir`` as a Chrome trace,
+    ``trace_<pid>_<ns>.json`` (chrome://tracing, Perfetto).  Yields the
+    profiler, whose ``key_averages()`` tabulate the region."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def debug_nans(enable=True):
+    """Scoped autograd anomaly detection (the JAX package's scoped
+    jax_debug_nans).  Inside, a backward function that returns a NaN
+    raises a RuntimeError naming it, with the traceback of the forward
+    operation that made it: the log-joint's gradient in HMC, NUTS, ADVI
+    and the Phi MALA.  Forward values are not checked (use
+    ``assert_finite_state``).  The previous setting comes back on exit."""
+    prev = (torch.is_anomaly_enabled(), torch.is_anomaly_check_nan_enabled())
+    torch.autograd.set_detect_anomaly(enable)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(*prev)
 
 
 def assert_finite_state(state, where=""):

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (bayesfmmm_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one card
-    python3 chip_smoke.py --phases k2,hmc     # the build and these only
+    python3 chip_smoke.py --phases k2,advi    # the build and these only
 
 Phases, one line each, any failure exits non-zero (``--phases`` names a
 subset by the names in brackets; the build always runs, and the timings
@@ -27,7 +27,7 @@ only with every other phase, whose launch counts they read):
      sequential scan's R = C K M D, the hd family's P = 16), a ragged one
      and one with P > 16 (the chunked kernel), the same bits from two calls;
   5. [slice] slice 1's path: phase_warm_start in the reference kernel census at
-     the headline width (K=3, P=8, M=4, N=100, 256 chains), 500 sweeps with the
+     the headline width (K=3, P=8, M=4, N=100, 256 chains), 300 sweeps with the
      first 200 annealed from beta 0.1, held against the JAX package's result
      for the same protocol (tests/data/torch_slice_reference.json), with the
      kernels' launch counts read around that run;
@@ -98,8 +98,8 @@ only with every other phase, whose launch counts they read):
      log-joint's value and gradient on the card against the CPU at one
      point of 64 chains, one evaluation launching K2 forward and backward
      once each and no plain version; api.fit_hmc with 64 chains from the
-     spectral init, method "hmc" (300 + 200 iterations of up to 24 steps)
-     and "nuts" (150 + 100 to depth 6), the best chain's mean loglik over
+     spectral init, method "hmc" (100 + 100 iterations of up to 16 steps)
+     and "nuts" (80 + 80 to depth 4), the best chain's mean loglik over
      its last 100 draws, its median sigma2, the pooled accept_mean and the
      median eps against tests/data/torch_hmc_reference.json (JAX, twelve
      seeds), K2 forward and backward launched once a gradient evaluation as
@@ -107,7 +107,24 @@ only with every other phase, whose launch counts they read):
      gradient evaluation and an iteration, kernels and device-busy ms a
      leapfrog step, mean_rss_grad's time beside its bound and its plain
      version;
- 12. [timings] chain-sweeps/s of both paths, and each kernel at the main
+ 12. [advi] slice 12's paths at the headline width (no device given, so on
+     the card): K2 and its backward at ADVI's 4 rows against their plain
+     versions; api.fit_advi_init (600 ADVI steps of 4 draws, then 4 chains
+     of the reference census for 300 sweeps, cut from 2,000), its mean
+     ELBO of the last 50 steps, the ELBO's rise from the first 50, the best
+     chain's mean loglik over its last 100 draws and median sigma2 against
+     tests/data/torch_advi_reference.json (JAX, five seeds), its launches
+     (K2 forward and backward once an ADVI step, then the census's 1/2/1 a
+     sweep); the production sweep with every default-off kernel on
+     (z_anchor, phi_chi_moves=2, hmc_steps=2 with bench.py's hmc_eps and an
+     inverse mass from the ensemble's variance, 64 chains, 100 sweeps
+     after 100 of the production census from the JAX package's
+     phase-1/2 medians), its ensemble medians against the same file, its
+     launches (K1 1, K2 11, K2's backward 3, K3 1 a sweep), and
+     update_hmc_joint's log-joint at its ensemble on the card against the
+     CPU; ms, kernels and device-busy ms an ADVI step and a default-off
+     sweep, K2 and its backward at 4 rows beside their bounds;
+ 13. [timings] chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
      the one PyTorch call for the same function where there is one (K1: the
@@ -175,7 +192,7 @@ DATA = ROOT / "tests" / "data"
 # The protocol both paths run; must equal the one the JAX references were
 # made with.
 PROTOCOL = dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100],
-                sweeps=500, anneal=200, beta0=0.1, z_jitter=0.02)
+                sweeps=300, anneal=200, beta0=0.1, z_jitter=0.02)
 CHAINS = 256
 # path -> (sweep_full flags, JAX reference, kernel launches per sweep)
 PATHS = {
@@ -274,23 +291,43 @@ HMC_REFERENCE = DATA / "torch_hmc_reference.json"
 HMC_PROTOCOL = dict(
     data=dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100]),
     fit=dict(K=3, M=4, n_chains=64, init="spectral"),
-    hmc=dict(method="hmc", n_warmup=200, n_samples=100, n_leapfrog=24),
-    nuts=dict(method="nuts", n_warmup=100, n_samples=100, max_depth=5))
+    hmc=dict(method="hmc", n_warmup=100, n_samples=100, n_leapfrog=16),
+    nuts=dict(method="nuts", n_warmup=80, n_samples=80, max_depth=4))
 HMC_STATS = ("loglik_tail_mean", "sigma2_median", "accept_mean",
              "eps_median")
 # K2's backward (C, N, L, P): the HMC path's 64 chains and one chain at the
-# headline width, and config 5's P = 16, L = 144 (N = 64)
+# headline width, config 5's P = 16, L = 144 (N = 64), and ADVI's n_mc = 4
+# rows (the default-off sweep's update_hmc_joint runs at the 64 chains)
 K2_GRAD_SHAPES = ((64, 100, 100, 8), (1, 100, 100, 8), (64, 64, 144, 16),
-                  (1, 64, 144, 16))
+                  (1, 64, 144, 16), (4, 100, 100, 8))
 # max |kernel - reference| over max |reference|: float32 sums of L
 # products of order 1-10 each, taken in another order
 K2_GRAD_TOL = 2e-5
 # the log-joint on the card against the CPU: tests/test_torch_hmc.py's
 # float32 tolerances (value relative; gradient relative norm per chain)
 LOGJOINT_TOL = {"value": 1e-4, "grad": 1e-3}
+# Slice 12: api.fit_advi_init, and the production sweep with every
+# default-off kernel on (tests/data/make_torch_advi_reference.py has the
+# reasons); each protocol must equal the one its JAX reference was made with
+ADVI_REFERENCE = DATA / "torch_advi_reference.json"
+ADVI_DATA = dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100])
+ADVI_PROTOCOL = dict(
+    data=ADVI_DATA,
+    # warm_iters cut from the function's 2,000
+    fit=dict(K=3, M=4, advi_steps=600, advi_lr=0.03, n_chains=4,
+             warm_iters=300))
+DEFAULT_OFF_PROTOCOL = dict(
+    data=ADVI_DATA, start="torch_fit_reference.json warm_start_from",
+    chains=64, warm_sweeps=100, sweeps=100,
+    flags=dict(collapsed_z=True, gauge=True, p_indep=0.3, phi_mala_steps=4,
+               phi_mala_step=0.05, z_anchor=True, phi_chi_moves=2,
+               hmc_steps=2, hmc_eps=0.003))
+ADVI_STATS = ("elbo_tail_mean", "elbo_rise", "loglik_tail_mean",
+              "sigma2_median")
+SWEEP_STATS = ("loglik_median", "sigma2_median")
 # the phases, in the order they run; all by default
 PHASES = ("build", "k1", "k2", "k3", "slice", "production", "fit",
-          "families", "refapi", "tempering", "hmc", "timings")
+          "families", "refapi", "tempering", "hmc", "advi", "timings")
 
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
 K2_TOL = {"rss_rtol": 1e-5, "mu": 2e-5}     # tests/test_pallas_kernels.py
@@ -1713,13 +1750,13 @@ def tempering_phase(dev, card):
             pt_shapes, R, rounds)
 
 
-def k2_grad_phase(dev, g):
+def k2_grad_phase(dev, g, shapes=K2_GRAD_SHAPES):
     """K2's backward against its plain version and against autograd
     through K2's plain forward, the same bits from two calls and through
     MeanRSS (K2 forward and backward, as the log-joint reaches them);
     returns the worst |kernel - plain|."""
     worst = 0.0
-    for C, N, L, P in K2_GRAD_SHAPES:
+    for C, N, L, P in shapes:
         B = torch.randn(N, L, P, generator=g, device=dev)
         y = torch.randn(N, L, generator=g, device=dev)
         w = torch.randn(C, N, P, generator=g, device=dev)
@@ -1980,6 +2017,267 @@ def hmc_phase(dev, g, card):
     return counts, numbers, entry
 
 
+def advi_fit(dev, seed=0):
+    """api.fit_advi_init under ADVI_PROTOCOL on ``dev`` (no device given
+    on the card, so it goes there by default)."""
+    p = ADVI_PROTOCOL
+    d = p["data"]
+    data, _ = simulate_functional(seed=d["seed"], N=d["N"], K=d["K"],
+                                  P=d["P"], M=d["M"],
+                                  n_time=tuple(d["n_time"]), device=dev)
+    where = {} if dev.type == "cuda" else {"device": dev}
+    return api.fit_advi_init(data, seed=seed, **p["fit"], **where)
+
+
+def default_off_sweeps(dev, seed=0):
+    """DEFAULT_OFF_PROTOCOL on ``dev``: fit_warm_start's production census
+    from the JAX package's phase-1/2 medians, the inverse mass from its
+    ensemble (bench.py:196-203), then the default-off sweeps through
+    phase_warm_start.  Returns (their loglik (C, n), the final ensemble,
+    their launch counts, their seconds, (data, inverse mass))."""
+    from bayesfmmm_torch.models import logjoint
+    p = DEFAULT_OFF_PROTOCOL
+    d = p["data"]
+    data, _ = simulate_functional(seed=d["seed"], N=d["N"], K=d["K"],
+                                  P=d["P"], M=d["M"],
+                                  n_time=tuple(d["n_time"]), device=dev)
+    cfg = ModelConfig(K=d["K"], P=d["P"], M=d["M"])
+    start = fit_result_from_estimates(
+        json.loads(FIT_REFERENCE.read_text())["warm_start_from"], data, cfg)
+    warm = api.fit_warm_start(start, start, tot_mcmc_iters=p["warm_sweeps"],
+                              n_chains=p["chains"], kernels="production",
+                              seed=seed, progress=False)
+    flat = logjoint.flatten(logjoint.from_state(warm.ensemble_state), False)
+    inv_mass = flat.var(0, unbiased=False) + 1e-8
+    g = torch.Generator(device=dev).manual_seed(1000 + seed)
+    c = torch.full((d["K"],), 10.0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = drivers.phase_warm_start(g, warm.ensemble_state, data, Priors(), c,
+                                   n_iters=p["sweeps"],
+                                   hmc_inv_mass=inv_mass, **p["flags"])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (res.loglik, res.final_state, dict(kernels.LAUNCHES), seconds,
+            (data, inv_mass))
+
+
+def advi_statistics(res):
+    """The advi protocol's statistics (make_torch_advi_reference.py's)."""
+    elbo = np.asarray(res.elbo_trace, np.float64)
+    ll = np.asarray(res.loglik, np.float64)
+    return {"elbo_tail_mean": float(elbo[-50:].mean()),
+            "elbo_rise": float(elbo[-50:].mean() - elbo[:50].mean()),
+            "loglik_tail_mean": float(ll[-100:].mean()),
+            "sigma2_median": float(np.median(res.traces["sigma2"]))}
+
+
+def sweep_statistics(loglik, final):
+    """The default-off sweep's statistics: the ensemble medians of the
+    chains' mean loglik over the last 50 sweeps and of the last sigma^2."""
+    return {"loglik_median": float(loglik[:, -50:].mean(1).median()),
+            "sigma2_median": float(final.sigma2.median())}
+
+
+def advi_phase(dev, g, card):
+    """Slice 12: api.fit_advi_init and the default-off sweep at the
+    headline width against the JAX limits, their launch counts, the
+    log-joint's gradient at the sweep's state on the card against the CPU,
+    K2 and its backward at ADVI's 4 rows, and the ADVI step's and the
+    default-off sweep's numbers.  Returns (launch counts by path, numbers,
+    kernels-line entries of the new shapes)."""
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.samplers import advi, hmc
+    ref = json.loads(ADVI_REFERENCE.read_text())
+    for name, proto in (("advi", ADVI_PROTOCOL),
+                        ("sweep", DEFAULT_OFF_PROTOCOL)):
+        got = {k: v for k, v in ref[name]["protocol"].items() if k != "seeds"}
+        check(got == proto, f"{ADVI_REFERENCE.name} {name}: protocol {got} "
+                            f"!= {proto}")
+    p, q = ADVI_PROTOCOL["fit"], DEFAULT_OFF_PROTOCOL
+    numbers, paths = {}, {}
+
+    # K2 forward and backward at ADVI's rows against their plain versions
+    k2_err = k2_phase(dev, g, [(4, 100, 100, 8, None)])
+    grad_err = k2_grad_phase(dev, g, [(4, 100, 100, 8)])
+
+    # 1. fit_advi_init: K2 forward and backward once an ADVI step; the warm
+    # start's reference census K1 / K2 / K3 1 / 2 / 1 a sweep
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = advi_fit(dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    n_w, n_a = p["warm_iters"], p["advi_steps"]
+    want = {"chol_solve": n_w, "mean_rss": n_a + 2 * n_w,
+            "mean_rss_grad": n_a, "weighted_gram": n_w}
+    print(f"  fit_advi_init: {n_a} ADVI steps, {p['n_chains']} chains x "
+          f"{n_w} sweeps in {seconds:.3f} s; launches {counts}")
+    check(counts == want, f"fit_advi_init: launches {counts}, expected "
+                          f"{want}")
+    check(np.all(np.isfinite(res.elbo_trace))
+          and np.all(np.isfinite(res.all_chain_loglik))
+          and res.all_chain_loglik.shape == (p["n_chains"], n_w)
+          and all(np.all(np.isfinite(v)) for v in res.traces.values()),
+          "fit_advi_init: non-finite or malformed result")
+    stats = advi_statistics(res)
+    for stat in ADVI_STATS:
+        in_limits(f"fit_advi_init {stat}", stats[stat], ref["advi"][stat],
+                  ref["limit_rule"])
+    paths["fit_advi_init"] = counts
+    numbers["fit_advi_init"] = dict(stats, seconds=seconds)
+
+    # 2. the production sweep with every default-off kernel on: per sweep
+    # K1 1, K3 1, K2 the production census's 7, update_phi_chi's RSS and
+    # 1 + hmc_steps log-joint evaluations, with as many backward launches
+    ll, final, counts, s_seconds, (data, inv_mass) = default_off_sweeps(dev)
+    n, h = q["sweeps"], q["flags"]["hmc_steps"]
+    want = {"chol_solve": n, "mean_rss": n * (7 + 1 + 1 + h),
+            "mean_rss_grad": n * (1 + h), "weighted_gram": n}
+    ms_sweep = 1e3 * s_seconds / n
+    print(f"  default-off sweep: {q['chains']} chains x {n} sweeps in "
+          f"{s_seconds:.3f} s ({ms_sweep:.3f} ms a sweep, "
+          f"{q['chains'] * n / s_seconds:.1f} chain-sweeps/s); launches "
+          f"{counts}")
+    check(counts == want, f"default-off sweep: launches {counts}, expected "
+                          f"{want}")
+    check(bool(torch.isfinite(ll).all()) and all(
+        bool(torch.isfinite(getattr(final, f)).all()) for f in STATE_FIELDS)
+        and bool((final.Z >= 0).all()), "default-off sweep: non-finite")
+    stats = sweep_statistics(ll, final)
+    for stat in SWEEP_STATS:
+        in_limits(f"default-off sweep {stat}", stats[stat],
+                  ref["sweep"][stat], ref["limit_rule"])
+    paths["default-off sweep"] = counts
+    numbers["default-off sweep"] = dict(stats, seconds=s_seconds,
+                                        ms_per_sweep=ms_sweep)
+
+    # update_hmc_joint's log-joint on the card against the CPU, at the
+    # sweep's final ensemble, K2 forward and backward once, no plain version
+    c = torch.full((3,), 10.0, device=dev)
+    unc = logjoint.from_state(final)
+    qpos = logjoint.flatten(unc, False)
+    cpu = torch.device("cpu")
+    unc_c = logjoint.UncState(**{f: t.to(cpu) for f, t in vars(unc).items()})
+    data_c = api._on_device(data, cpu)
+    lj_c = logjoint.make_log_joint(data_c, Priors(), c.cpu())
+    v_c, g_c = hmc.value_and_grad(
+        lambda x: lj_c(logjoint.unflatten(x, unc_c, False)), qpos.cpu())
+    lj = logjoint.make_log_joint(data, Priors(), c)
+
+    def refuse(*a, **kw):
+        raise RuntimeError("a plain K2 version ran on the card")
+
+    plains = kernels.mean_rss_plain, kernels.mean_rss_grad_plain
+    kernels.mean_rss_plain = kernels.mean_rss_grad_plain = refuse
+    try:
+        kernels.reset_launch_counts()
+        v, grad = hmc.value_and_grad(
+            lambda x: lj(logjoint.unflatten(x, unc, False)), qpos)
+        torch.cuda.synchronize()
+        one = dict(kernels.LAUNCHES)
+    finally:
+        kernels.mean_rss_plain, kernels.mean_rss_grad_plain = plains
+    e_v = ((v.cpu() - v_c).abs() / v_c.abs()).max().item()
+    e_g = ((grad.cpu() - g_c).norm(dim=1) / g_c.norm(dim=1)).max().item()
+    print(f"  update_hmc_joint's log-joint at the sweep's ensemble, card vs "
+          f"CPU: max relative value error {e_v:.3e} (tol "
+          f"{LOGJOINT_TOL['value']}), gradient {e_g:.3e} (tol "
+          f"{LOGJOINT_TOL['grad']}); launches {one}")
+    check(one == {"chol_solve": 0, "mean_rss": 1, "mean_rss_grad": 1,
+                  "weighted_gram": 0}, f"update_hmc_joint's log-joint: "
+                                       f"launches {one}")
+    check(e_v <= LOGJOINT_TOL["value"] and e_g <= LOGJOINT_TOL["grad"],
+          "update_hmc_joint's log-joint: the card disagrees with the CPU")
+
+    # ms an ADVI step on the host's clock, then its kernels and device-busy
+    # ms under the profiler; kernels and device-busy ms a default-off sweep
+    lj_a = logjoint.make_log_joint(data, Priors(), c)
+    like = logjoint.init_unc(torch.Generator(device=dev).manual_seed(3),
+                             ModelConfig(K=3, P=8, M=4), data, 1)
+    mu = logjoint.flatten(like, False)[0].clone().requires_grad_()
+    log_sd = torch.full_like(mu, -2.0).requires_grad_()
+    opt = torch.optim.Adam([mu, log_sd], lr=p["advi_lr"])
+    eps = torch.randn(4, mu.shape[0], generator=g, device=dev)
+
+    def step():
+        return advi._advi_step(
+            lambda x: lj_a(logjoint.unflatten(x, like, False)), (mu, log_sd),
+            opt, eps)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        step()
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / 50
+    prof_step = profile_calls("ADVI, a step of 4 draws", step)
+    box = [final]
+    g_s = torch.Generator(device=dev).manual_seed(6)
+
+    def sweep():
+        box[0] = gibbs.sweep_full(g_s, box[0], data, Priors(), c,
+                                  hmc_inv_mass=inv_mass, **q["flags"])
+
+    prof_sweep = profile_calls(f"default-off sweep, {q['chains']} chains",
+                               sweep)
+    numbers["fit_advi_init"].update(
+        ms_per_step=ms_step, kernels_per_step=prof_step["kernels"],
+        device_ms_per_step=prof_step["device_ms"])
+    numbers["default-off sweep"].update(
+        kernels_per_sweep=prof_sweep["kernels"],
+        device_ms_per_sweep=prof_sweep["device_ms"])
+    print(f"  ADVI on {card}: {ms_step:.3f} ms a step (host's clock), "
+          f"{prof_step['kernels']:.0f} kernels and "
+          f"{prof_step['device_ms']:.4f} ms of device time a step "
+          f"({100 * prof_step['device_ms'] / ms_step:.1f} % busy); the "
+          f"default-off sweep {ms_sweep:.3f} ms, {prof_sweep['kernels']:.0f} "
+          f"kernels and {prof_sweep['device_ms']:.3f} ms of device time a "
+          f"sweep ({100 * prof_sweep['device_ms'] / ms_sweep:.1f} % busy)")
+
+    # K2 and its backward at ADVI's 4 rows beside their bounds and plain
+    # versions
+    B, y = data.B, data.y
+    w4 = torch.randn(4, data.N, data.P, generator=g, device=dev)
+    gv = torch.randn(4, generator=g, device=dev)
+    entries = []
+    for base, fns, err, launched in (
+            ("mean_rss", (lambda: kernels.mean_rss(B, y, w4),
+                          lambda: kernels.mean_rss_plain(B, y, w4)), k2_err,
+             paths["fit_advi_init"]["mean_rss"]),
+            ("mean_rss_grad", (lambda: kernels.mean_rss_grad(B, y, w4, gv),
+                               lambda: kernels.mean_rss_grad_plain(
+                                   B, y, w4, gv)), grad_err,
+             paths["fit_advi_init"]["mean_rss_grad"])):
+        cands = {"kernel": fns[0], "plain": fns[1],
+                 "empty": lambda: kernels.empty_launch(dev)}
+        t = {k: r["device_ms"] for k, r in in_turns(cands, rounds=3).items()}
+        t.update(kernels.kernel_bound(base, C=4, N=data.N, L=data.L,
+                                      P=data.P))
+        print(f"  {base} at ADVI's 4 rows (N={data.N}, L={data.L}, "
+              f"P={data.P}): device {1e3 * t['kernel']:.2f} us vs plain "
+              f"{1e3 * t['plain']:.2f} us, empty kernel "
+              f"{1e3 * t['empty']:.2f} us; bound {1e3 * t['bound_ms']:.3f} us "
+              f"by {t['bound_by']} ({t['bytes']} bytes, {t['flop']:.0f} "
+              f"FLOP; {100 * t['bound_ms'] / t['kernel']:.2f} % of it)")
+        entries.append({
+            "name": f"{base}_advi_c4", "route": "cuda",
+            "source": "bayesfmmm_torch/csrc/mean_rss.cu",
+            "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:68",
+            "launches": launched, "max_abs_err": err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": dict(C=4, N=data.N, L=data.L, P=data.P),
+            "bytes": t["bytes"], "flop": t["flop"], "empty_ms": t["empty"]})
+    return paths, numbers, entries
+
+
 def round_profiles(rounds):
     """Kernels and device-busy ms of a PT round and an SMC stage beside
     their ms on the host's clock."""
@@ -1992,10 +2290,11 @@ def round_profiles(rounds):
     return prof
 
 
-def profile_calls(what, fn, reps=3):
-    """Kernels and device-busy ms of one call of ``fn``, under the
-    profiler (which slows the host; the host ms of the runs are their
-    own)."""
+def profile_calls(what, fn, reps=1):
+    """Kernels and device-busy ms of one call of ``fn`` (the mean of
+    ``reps``), under the profiler (which slows the host ~14x; the host ms
+    of the runs are their own).  A record_function range (Adam's step) is
+    no work of its own and is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -2011,7 +2310,8 @@ def profile_calls(what, fn, reps=3):
         torch.cuda.synchronize()
     events = [ev for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA
-              and _PAD_KERNEL not in ev.key]
+              and _PAD_KERNEL not in ev.key
+              and not getattr(ev, "is_user_annotation", False)]
     n = sum(ev.count for ev in events) / reps
     busy = sum(ev.self_device_time_total for ev in events) / reps / 1e3
     top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:4]
@@ -2186,6 +2486,14 @@ def main(argv=None):
               "card, HMC and NUTS through api.fit_hmc): ok")
         lap("hmc")
 
+    if "advi" in phases:
+        t12 = time.perf_counter()
+        slice12, line["advi"], advi_entries = advi_phase(dev, g, card)
+        print(f"  the phase {time.perf_counter() - t12:.1f} s")
+        print("phase 12 slice 12 paths (ADVI through api.fit_advi_init, and "
+              "the production sweep with every default-off kernel on): ok")
+        lap("advi")
+
     if "timings" in phases:
         x = main_path_inputs(dev)
         C, K, N, P = CHAINS, PROTOCOL["K"], PROTOCOL["N"], PROTOCOL["P"]
@@ -2292,7 +2600,7 @@ def main(argv=None):
         jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
             jitter_ops)
         n = PROTOCOL["sweeps"]
-        print(f"phase 12 timings on {card}: slice 1 "
+        print(f"phase 13 timings on {card}: slice 1 "
               f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
               f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
               f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
@@ -2373,7 +2681,9 @@ def main(argv=None):
                                          **{path: c[name]
                                             for path, c in slice10.items()},
                                          **{f"fit_hmc {m}": c[name]
-                                            for m, c in hmc_counts.items()}},
+                                            for m, c in hmc_counts.items()},
+                                         **{path: c[name]
+                                            for path, c in slice12.items()}},
                     "ms": t["kernel"], "plain_ms": t["plain"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                     "library_ms": t.get("library"),
@@ -2398,7 +2708,13 @@ def main(argv=None):
                       122, k3_err), *(shape_entry(name) for name in timed6)]
         line.update(sweeps=profiles, rounds=rounds)
     if "hmc" in phases:
+        if "advi" in phases:
+            for path, c in slice12.items():
+                grad_entry["launches_by_path"][path] = c["mean_rss_grad"]
+                grad_entry["launches"] += c["mean_rss_grad"]
         line["kernels"].append(grad_entry)
+    if "advi" in phases:
+        line["kernels"].extend(advi_entries)
     if "timings" in phases:
         lap("timings")
     line["phase_seconds"] = took

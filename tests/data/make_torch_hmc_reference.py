@@ -9,9 +9,9 @@ file.  Protocols (``PROTOCOLS`` below has every number):
 
   * headline: bench.py's data (seed 7, K=3, P=8, M=4, N=100, L=100),
     fit_hmc with 64 chains from the spectral init: method="hmc" with
-    n_warmup=200, n_samples=100, n_leapfrog=24; method="nuts" with
-    n_warmup=100, n_samples=100, max_depth=5 (cut so that the whole smoke
-    stays near half of its time limit on a slow host);
+    n_warmup=100, n_samples=100, n_leapfrog=16; method="nuts" with
+    n_warmup=80, n_samples=80, max_depth=4 (cut so that the whole smoke,
+    its ADVI phase included, stays inside its time limit on a slow host);
   * small (tests/test_hmc.py::test_fit_hmc_api's data: seed 91, N=24, K=2,
     P=6, M=2): 4 chains, "hmc" 150 + 100 iterations of up to 12 steps,
     "nuts" 120 + 80 iterations to depth 6.
@@ -63,8 +63,8 @@ PROTOCOLS = {
     "headline": dict(
         data=dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100]),
         fit=dict(K=3, M=4, n_chains=64, init="spectral"),
-        hmc=dict(method="hmc", n_warmup=200, n_samples=100, n_leapfrog=24),
-        nuts=dict(method="nuts", n_warmup=100, n_samples=100, max_depth=5),
+        hmc=dict(method="hmc", n_warmup=100, n_samples=100, n_leapfrog=16),
+        nuts=dict(method="nuts", n_warmup=80, n_samples=80, max_depth=4),
         # twelve: under a longer protocol the first six seeds spread NUTS's
         # pooled accept by 0.0013, ten by 0.0031
         seeds=list(range(12))),

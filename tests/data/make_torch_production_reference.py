@@ -3,7 +3,7 @@ result for the production-census protocol that chip_smoke.py drives in the
 PyTorch port.
 
 The protocol and the limit rule are those of make_torch_slice_reference.py
-(headline model, spectral init, 500 sweeps with the first 200 annealed from
+(headline model, spectral init, 300 sweeps with the first 200 annealed from
 beta 0.1, 64 chains on the CPU); the sweep is the bench's production census
 (bench.py:71-77, :162-167):
 

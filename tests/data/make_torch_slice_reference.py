@@ -8,7 +8,7 @@ file.  Protocol (the bench's headline model and init, bench.py:115-154):
     n_time=(100, 100));
   * init: each chain from init_state, then seeded from spectral_init with
     0.02 N(0, 1) jitter on Z (clipped at 1e-4, renormalized);
-  * run: 500 sweeps of gibbs.sweep_full in the reference census, the first
+  * run: 300 sweeps of gibbs.sweep_full in the reference census, the first
     200 annealed with beta rising linearly from 0.1 to 1.
 
 This script runs that protocol on the CPU with 64 chains and records the
@@ -44,7 +44,7 @@ from bayesfmmm_tpu.utils.init_strategies import spectral_init  # noqa: E402
 from bayesfmmm_tpu.utils.simulate import simulate_functional  # noqa: E402
 
 PROTOCOL = dict(seed=7, N=100, K=3, P=8, M=4, n_time=[100, 100],
-                sweeps=500, anneal=200, beta0=0.1, z_jitter=0.02)
+                sweeps=300, anneal=200, beta0=0.1, z_jitter=0.02)
 CHAINS = 64
 PORT_CHAINS = 256
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),

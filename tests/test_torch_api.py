@@ -498,8 +498,9 @@ def test_entry_points_default_to_the_card():
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    """The three families and covariates build; what is still missing is
-    absent by name, and the default-off kernels name their item."""
+    """The three families and covariates build; fit_advi_init (item 13b)
+    and the default-off kernels of sweep_full (item 13c), absent by name
+    until they were ported, are there and run."""
     y, t = _tiny_Y()
     mv = api.build_data(np.ones((4, 3)), family="multivariate", device="cpu")
     assert mv.family == "multivariate" and mv.identity_basis and mv.P == 3
@@ -518,10 +519,13 @@ def test_what_is_not_ported_names_its_roadmap_item():
                      device="cpu", **KNOTS)
     assert r.config.covariate_mean and r.config.D == 1
     assert np.abs(r.traces["eta"][-1]).max() > 0
-    assert not hasattr(api, "fit_advi_init")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        gibbs.sweep_full(None, r.final_state, r.data, Priors(), None,
-                         hmc_steps=1)
+    assert callable(api.fit_advi_init) and "fit_advi_init" in api.__all__
+    st = gibbs.sweep_full(torch.Generator().manual_seed(0), r.final_state,
+                          r.data, Priors(), torch.full((2,), 10.0),
+                          covariate_mean=True, collapsed_z=True, gauge=True,
+                          z_anchor=True, phi_chi_moves=1, hmc_steps=1)
+    assert all(bool(torch.isfinite(getattr(st, f)).all())
+               for f in STATE_FIELDS)
 
 
 def test_fit_result_converts_between_the_packages():

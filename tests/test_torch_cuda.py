@@ -772,3 +772,60 @@ def test_fit_pt_and_fit_smc_run_on_the_card_by_default(dev):
     assert s["data"].device.type == "cuda"
     assert s["particles"].Z.device.type == "cuda"
     assert s["final_beta"] == 1.0 and np.isfinite(s["log_evidence"])
+
+
+def test_fit_advi_init_runs_on_the_card_by_default(dev):
+    """A short fit_advi_init with no device given: the data goes to the
+    card, K2 forward and backward launch once an ADVI step, then the warm
+    start's reference census 1/2/1 a sweep, and every draw is finite."""
+    import numpy as np
+
+    from bayesfmmm_torch import api
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=3, N=20, K=2, P=5, M=2,
+                                  n_time=(12, 16), device="cpu")
+    kernels.reset_launch_counts()
+    res = api.fit_advi_init(data, K=2, M=2, advi_steps=40, warm_iters=100,
+                            n_chains=3)
+    torch.cuda.synchronize()
+    assert res.data.device.type == "cuda"
+    assert kernels.LAUNCHES == {"chol_solve": 100, "mean_rss": 40 + 200,
+                                "mean_rss_grad": 40, "weighted_gram": 100}
+    assert np.all(np.isfinite(res.elbo_trace))
+    assert np.all(np.isfinite(res.all_chain_loglik))
+
+
+@pytest.mark.parametrize("D", [0, 1])
+def test_default_off_sweep_on_the_card(dev, D):
+    """sweep_full with every default-off flag on the card: K1 1 (2 with
+    xi), K2 11 and its backward 3 a sweep (7 of the production census,
+    update_phi_chi's RSS, 1 + hmc_steps log-joint evaluations), K3 1 (2
+    with eta), no plain K2; finite, Z on the simplex, xi moved only with
+    covariate_cov."""
+    from bayesfmmm_torch.config import ModelConfig, Priors
+    from bayesfmmm_torch.models.state import STATE_FIELDS, init_state
+    from bayesfmmm_torch.ops import gibbs
+    from bayesfmmm_torch.utils.simulate import simulate_functional
+
+    data, _ = simulate_functional(seed=3, N=20, K=2, P=5, M=2, D=D,
+                                  with_eta=D > 0, with_xi=D > 0,
+                                  n_time=(12, 16), device=dev)
+    cfg = ModelConfig(K=2, P=5, M=2, D=D, covariate_mean=D > 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    st = init_state(g, cfg, data, chains=8)
+    c = torch.full((2,), 10.0, device=dev)
+    kernels.reset_launch_counts()
+    for _ in range(3):
+        st = gibbs.sweep_full(g, st, data, Priors(), c, covariate_mean=D > 0,
+                              collapsed_z=True, gauge=True, phi_mala_steps=4,
+                              phi_chi_moves=2, z_anchor=True, hmc_steps=2)
+    torch.cuda.synchronize()
+    # no loglik probe here: 6 of the production census's 7 K2 launches
+    assert kernels.LAUNCHES == {"chol_solve": 3, "mean_rss": 3 * 10,
+                                "mean_rss_grad": 3 * 3,
+                                "weighted_gram": 3 * (1 + D)}
+    for f in STATE_FIELDS:
+        assert bool(torch.isfinite(getattr(st, f)).all()), f
+    torch.testing.assert_close(st.Z.sum(-1), torch.ones_like(st.Z[..., 0]))
+    assert not st.xi.any()

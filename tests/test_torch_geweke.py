@@ -11,9 +11,10 @@ the chain side taken between independent chains).  The multivariate family
 tolerances are the JAX tests'; their docstrings give the reasons.  The data
 is shared by the chains of a port state, and here every chain must see its
 own y, so each successive-conditional chain is a one-chain state; the iid
-prior draws are one 8000-chain state.  The production proof runs the flags
-the port has (collapsed_z, gauge, phi_mala_steps): the column moves, the
-anchor stage and the HMC step of the JAX proof are not ported.
+prior draws are one 8000-chain state.  The production proof runs the
+production census without and with the covariate tower, and, as the JAX
+proof does, with every default-off kernel too: the Phi column moves, the
+anchor-guided Z stage and whole-model HMC inside the sweep.
 """
 
 import dataclasses
@@ -166,12 +167,18 @@ def test_geweke_covariate_adjusted_sweep():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("d", [0, D])
-def test_geweke_collapsed_gauge_sweep(d):
+@pytest.mark.parametrize("d,default_off", [(0, False), (D, False), (0, True)],
+                         ids=["0", "1", "0-default-off"])
+def test_geweke_collapsed_gauge_sweep(d, default_off):
     """The production census (collapsed (Z, chi) block, gauge moves, both
     interweaves, MALA), without and with the covariate tower (the JAX proof
-    runs it without)."""
+    runs it without); and JAX's full flag set
+    (tests/test_geweke_covadj.py:167-168): the column moves, the anchor
+    stage and the HMC step besides."""
     flags = dict(collapsed_z=True, gauge=True, phi_mala_steps=1)
+    if default_off:
+        flags.update(phi_chi_moves=2, z_anchor=True, hmc_steps=2,
+                     hmc_eps=0.02)
     if d:
         flags.update(covariate_mean=True, covariate_cov=True)
     names = STAT_NAMES_COV if d else STAT_NAMES

@@ -122,10 +122,17 @@ def test_driver_thinning_and_flags_outside_the_slice(monkeypatch):
                             n_iters=6, thin=3)
     assert res.loglik.shape == (3, 2) and res.traces["Z"].shape == (3, 2, 6, 2)
     assert torch.equal(res.traces["sigma2"][:, -1], res.final_state.sigma2)
+    # the default-off flags: inert outside the collapsed block and the
+    # gauge stage, as in the JAX package, and running inside them
     for kw in (dict(z_anchor=True), dict(phi_chi_moves=1),
                dict(hmc_steps=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            drivers.phase_warm_start(g, st, data, hp, c, n_iters=1, **kw)
+        a, b = (drivers.phase_warm_start(
+            torch.Generator().manual_seed(3), st, data, hp, c, n_iters=1,
+            **flags) for flags in ({}, kw))
+        assert torch.equal(a.loglik, b.loglik), kw
+        on = drivers.phase_warm_start(g, st, data, hp, c, n_iters=1,
+                                      collapsed_z=True, gauge=True, **kw)
+        assert bool(torch.isfinite(on.loglik).all()), kw
     # without covariates in the data the covariate flags draw nothing
     a, b = (drivers.phase_warm_start(
         torch.Generator().manual_seed(3), st, data, hp, c, n_iters=2, **kw)
