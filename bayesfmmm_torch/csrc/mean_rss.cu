@@ -58,19 +58,55 @@
 // which XLA forms by differentiating the JAX package's einsum
 // (bayesfmmm_tpu/ops/mean.py:100-101) and the TPU kernel does not have.  It
 // recomputes the residual rather than keeping mu from the forward pass, so
-// the forward writes nothing more than before.  Bound: operations, barely
-// (4P + 1 FLOP per chain and point against the forward's bytes and grad_w:
-// at the HMC path's C = 64, N = L = 100, P = 8, 0.32 us of f32 arithmetic
-// and 0.23 us of bytes), so in practice the launch.  Design, simple first:
-// a block owns one observation n (blockIdx.x) and a tile of TC chains
-// (blockIdx.y; TC * P <= BFMMM_K2_GRAD_OUTPUTS outputs, a few a thread).  The
-// tile's w[c, n, :] goes to shared memory; then, a chunk of LC points at a
-// time, every thread forms residuals of (chain, point) pairs into shared
-// memory (the P-term dot product in the order p = 0..P-1, as the forward),
-// and after a barrier each thread adds B[n, l, p] r[c, l] over the chunk's
-// points, in index order, into its outputs' accumulators in registers.  No
-// atomics: the same input gives the same bits on every run.
-// The tile sizes and the grid come from ops/kernels.py::mean_rss_grad_plan.
+// the forward writes nothing more than before.
+//
+// What bounds it on the card: neither bytes nor FLOP.  At the HMC path's
+// C = 64, N = L = 100, P = 8 the f32 arithmetic (4P + 1 FLOP a chain and
+// point) is 0.32 us and the bytes 0.23 us; what a call costs is latency:
+// the launch, one round trip to L2 for B[n] and y[n], and the longest
+// chain of dependent steps a thread runs.  The tensor cores do not help:
+// TF32 keeps ~3 digits where the gradient is held to 2e-5 of its largest
+// entry, and the arithmetic they would speed up is not what takes the time.
+//
+// Design: a block owns one observation n (blockIdx.x) and TC chains
+// (blockIdx.y); a group of S = SL x SP lanes of one warp owns one chain.
+//   * B[n] and y[n] go to shared memory by cp.async, every copy of the
+//     block in flight before one wait and one barrier; the lanes' w[c, n, :]
+//     and g[c] are read into registers meanwhile.  At P = 8 or 16 with B,
+//     w and grad 16-byte aligned, B, w and grad move 16 bytes at a time;
+//     any other P up to 16 (or an unaligned view) is copied 4 bytes at a
+//     time into rows padded with zeros to 8 or 16 floats, so the arithmetic
+//     is the same.  Where the rows do not fit ops/kernels.py's K2_GRAD_SMEM
+//     the points come LC at a time through two buffers, the next chunk's
+//     copy in flight while this one is used (two barriers a chunk).
+//   * One pass: lane sl of a chain takes the points l = sl, sl + SL, ...,
+//     U a loop step (4 at P <= 8, 2 at 16); for each it reads the row
+//     B[n, l, :] from shared memory once (float4s), forms r = y[l] - B[l, :] w
+//     (the P-term dot product in the order p = 0..P-1) and adds r B[l, p]
+//     into P accumulators in registers, reusing the row.  No residual
+//     buffer, no second pass over B.
+//   * A P above 16 is split over SP lanes as well (lane sp holds
+//     p = sp, sp + SP, ...; KP = 16 or 40 of them at most, read 4 bytes at a
+//     time): their partial dot products meet in an xor-shuffle tree, which
+//     leaves the same bits in every lane.
+//   * The SL lanes' accumulators meet in an xor-shuffle tree; the lanes
+//     then write grad[c, n, :] = -2 g[c] acc, a float4 each where aligned.
+//     No atomics: the same input gives the same bits on every run, aligned
+//     or not, and the order of the sums is ops/kernels.py::
+//     mean_rss_grad_tiled_plain's.
+//   * SL is the smallest power of two that puts about K2_GRAD_WANT threads
+//     on the card, at most a warp: one chain and four take a warp each,
+//     64 a few lanes (more lanes cost more in shuffles and in blocks that
+//     stage the same B[n] than they save in points a lane).
+// Where the time goes (utils/k2_grad_probe.py on the card): at 64 chains
+// the points loop is about half of the call at P = 8 and three quarters at
+// P = 16, the dot products a fraction of it; the copies, the barrier and
+// the shuffle tree are a few tenths of a microsecond each, the rest the
+// launch.  ptxas issues the U points of an iteration one after another;
+// interleaving their dot products by hand or loading the next points'
+// rows ahead did not make the loop faster, nor did other U.
+// The lanes, tiles, chunk and shared memory come from ops/kernels.py::
+// mean_rss_grad_plan.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -217,68 +253,175 @@ void launch_tile(int pv, const float* B, const float* y, const float* w,
         B, y, w, partial, mu, C, N, L, P, TN);
 }
 
-// Outputs a block of mean_rss_grad owns at most: ops/kernels.py's
-// K2_GRAD_OUTPUTS, given on nvcc's command line.  A thread keeps kGradOuts.
-constexpr int kGradOuts = BFMMM_K2_GRAD_OUTPUTS / kThreads;
-static_assert(kGradOuts * kThreads == BFMMM_K2_GRAD_OUTPUTS,
-              "BFMMM_K2_GRAD_OUTPUTS must be a multiple of kThreads");
+// K2's backward: threads a block at most, and shared memory a block fills
+// (ops/kernels.py's K2_GRAD_THREADS and K2_GRAD_SMEM).
+constexpr int kGradThreads = 256;
+constexpr int kGradSmem = 48 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
+// KP: floats of w (and accumulators) a lane holds.  SPLIT = false: SP = 1,
+// P <= KP (8 or 16), B's rows KP floats apart in shared memory (zeros past
+// P) and read as float4s; with A16 (P == KP, B, w and grad 16-byte
+// aligned) rows, w and grad move 16 bytes at a time, else 4.  SPLIT: SP
+// lanes split P, rows P floats apart, read 4 bytes at a time.
+template <int KP, bool SPLIT>
+__global__ void __launch_bounds__(kGradThreads)
 mean_rss_grad_kernel(const float* __restrict__ B, const float* __restrict__ y,
                      const float* __restrict__ w, const float* __restrict__ g,
                      float* __restrict__ grad, int C, int N, int L, int P,
-                     int TC, int LC) {
+                     int SP, int SL, int TC, int LC, bool A16) {
+  constexpr int U = KP <= 8 ? 4 : (KP <= 16 ? 2 : 1);  // points a step
   extern __shared__ __align__(16) float sm[];
-  float* ws = sm;                 // (tc, P): the tile's w[c, n, :]
-  float* rs = sm + TC * P;        // (tc, LC): one chunk's residuals
-  const int tid = threadIdx.x;
-  const int n = blockIdx.x, c0 = blockIdx.y * TC;
-  const int tc = min(TC, C - c0);
-  const int nout = tc * P;
+  const int PS = SPLIT ? P : KP;           // floats from row to row
+  const int nbuf = L > LC ? 2 : 1;
+  float* Bs = sm;                          // (nbuf, LC, PS)
+  float* ys = sm + nbuf * LC * PS;         // (nbuf, LC)
+  const int tid = threadIdx.x, T = blockDim.x;
+  // SP and SL are powers of two: shifts and masks, no division
+  const int lsp = __ffs(SP) - 1, ls = lsp + __ffs(SL) - 1;
+  const int q = tid & ((1 << ls) - 1);
+  const int sp = q & (SP - 1), sl = q >> lsp;
+  const int n = blockIdx.x, c = blockIdx.y * TC + (tid >> ls);
+  const bool live = c < C;                 // groups past C write nothing
   const float* Bn = B + (size_t)n * L * P;
   const float* yn = y + (size_t)n * L;
-  for (int i = tid; i < nout; i += kThreads) {
-    const int c = i / P, p = i - c * P;
-    ws[i] = w[((size_t)(c0 + c) * N + n) * P + p];
-  }
-  float acc[kGradOuts];
-#pragma unroll
-  for (int k = 0; k < kGradOuts; ++k) acc[k] = 0.0f;
+  const int nch = (L + LC - 1) / LC;
 
-  for (int l0 = 0; l0 < L; l0 += LC) {
-    const int lc = min(LC, L - l0);
-    __syncthreads();              // ws is written; the last chunk is read
-    for (int i = tid; i < tc * lc; i += kThreads) {
-      const int c = i / lc, l = i - c * lc;
-      const float* Bp = Bn + (size_t)(l0 + l) * P;
-      const float* wp = ws + c * P;
-      float m = 0.0f;
-      for (int q = 0; q < P; ++q) m = fmaf(__ldg(Bp + q), wp[q], m);
-      rs[c * LC + l] = __ldg(yn + l0 + l) - m;
+  auto stage = [&](int ch) {               // chunk ch into buffer ch & 1
+    const int l0 = ch * LC, lc = min(LC, L - l0);
+    float* Bd = Bs + (ch & 1) * LC * PS;
+    float* yd = ys + (ch & 1) * LC;
+    const float* src = Bn + (size_t)l0 * P;
+    if (!SPLIT && A16) {                   // rows back to back
+      for (int i = tid; i < lc * KP / 4; i += T)
+        __pipeline_memcpy_async(Bd + 4 * i, src + 4 * i, 16);
+    } else if (!SPLIT) {                   // rows padded to KP floats
+      for (int i = tid; i < lc * P; i += T) {
+        const int l = i / P;
+        __pipeline_memcpy_async(Bd + l * KP + (i - l * P), src + i, 4);
+      }
+    } else {
+      for (int i = tid; i < lc * P; i += T)
+        __pipeline_memcpy_async(Bd + i, src + i, 4);
     }
-    __syncthreads();
+    for (int i = tid; i < lc; i += T)
+      __pipeline_memcpy_async(yd + i, yn + l0 + i, 4);
+    __pipeline_commit();
+  };
+  stage(0);
+  if (!SPLIT && P < KP) {                  // the pads, once for both buffers
+    const int pad = KP - P;
+    for (int i = tid; i < nbuf * LC * pad; i += T) {
+      const int r = i / pad;
+      Bs[r * KP + P + (i - r * pad)] = 0.0f;
+    }
+  }
+
+  float wr[KP], acc[KP];
+  const float* wc = w + ((size_t)(live ? c : 0) * N + n) * P;
 #pragma unroll
-    for (int k = 0; k < kGradOuts; ++k) {
-      const int o = tid + k * kThreads;
-      if (o < nout) {
-        const int c = o / P, p = o - c * P;
-        const float* rp = rs + c * LC;
-        const float* Bp = Bn + (size_t)l0 * P + p;
-        float s = acc[k];
-        for (int l = 0; l < lc; ++l)
-          s = fmaf(__ldg(Bp + (size_t)l * P), rp[l], s);
-        acc[k] = s;
+  for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+  if (!SPLIT && A16) {
+#pragma unroll
+    for (int k = 0; k < KP; k += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(wc) + k / 4);
+      wr[k] = v.x; wr[k + 1] = v.y; wr[k + 2] = v.z; wr[k + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int p = SPLIT ? sp + k * SP : k;
+      wr[k] = p < P ? __ldg(wc + p) : 0.0f;
+    }
+  }
+  const float scale = -2.0f * __ldg(g + (live ? c : 0));
+
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      stage(ch + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();                       // chunk ch is in shared memory
+    const int lc = min(LC, L - ch * LC);
+    const float* Bc = Bs + (ch & 1) * LC * PS;
+    const float* yc = ys + (ch & 1) * LC;
+    // the same trip count in every lane: the shuffles below need the warp
+    for (int j0 = 0; j0 < lc; j0 += U * SL) {
+      float b[U][KP], yv[U], m[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = j0 + u * SL + sl;
+        const bool ok = i < lc;            // past the chunk: B = 0, y = 0
+        const float* row = Bc + (size_t)(ok ? i : 0) * PS;
+        if (!SPLIT) {
+#pragma unroll
+          for (int k = 0; k < KP; k += 4) {
+            const float4 v = reinterpret_cast<const float4*>(row)[k / 4];
+            b[u][k] = ok ? v.x : 0.0f;
+            b[u][k + 1] = ok ? v.y : 0.0f;
+            b[u][k + 2] = ok ? v.z : 0.0f;
+            b[u][k + 3] = ok ? v.w : 0.0f;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < KP; ++k) {
+            const int p = sp + k * SP;
+            b[u][k] = ok && p < P ? row[p] : 0.0f;
+          }
+        }
+        yv[u] = ok ? yc[i] : 0.0f;
+        m[u] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < KP; ++k) m[u] = fmaf(b[u][k], wr[k], m[u]);
+      }
+      if (SPLIT) {                         // the SP lanes' partial products
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          for (int o = 1; o < SP; o <<= 1)
+            m[u] += __shfl_xor_sync(0xffffffffu, m[u], o);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float r = yv[u] - m[u];
+#pragma unroll
+        for (int k = 0; k < KP; ++k) acc[k] = fmaf(r, b[u][k], acc[k]);
       }
     }
+    if (ch + 1 < nch) __syncthreads();     // the buffer is free to refill
   }
+
+  for (int o = SP; o < SP * SL; o <<= 1) {    // the SL lanes' sums
 #pragma unroll
-  for (int k = 0; k < kGradOuts; ++k) {
-    const int o = tid + k * kThreads;
-    if (o < nout) {
-      const int c = o / P, p = o - c * P;
-      grad[((size_t)(c0 + c) * N + n) * P + p] = (-2.0f * g[c0 + c]) * acc[k];
+    for (int k = 0; k < KP; ++k)
+      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], o);
+  }
+  if (!live) return;
+  float* gc = grad + ((size_t)c * N + n) * P;
+  if (!SPLIT && A16) {
+#pragma unroll
+    for (int k = 0; k < KP; k += 4)
+      if (((k / 4) & (SL - 1)) == sl)
+        reinterpret_cast<float4*>(gc)[k / 4] = make_float4(
+            scale * acc[k], scale * acc[k + 1], scale * acc[k + 2],
+            scale * acc[k + 3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int p = SPLIT ? sp + k * SP : k;
+      if (p < P && (k & (SL - 1)) == sl) gc[p] = scale * acc[k];
     }
   }
+}
+
+template <int KP, bool SPLIT>
+void launch_grad(const float* B, const float* y, const float* w,
+                 const float* g, float* grad, int C, int N, int L, int P,
+                 int SP, int SL, int TC, int LC, bool a16, size_t smem,
+                 cudaStream_t stream) {
+  const dim3 grid(N, (C + TC - 1) / TC);
+  mean_rss_grad_kernel<KP, SPLIT><<<grid, TC * SP * SL, smem, stream>>>(
+      B, y, w, g, grad, C, N, L, P, SP, SL, TC, LC, a16);
 }
 
 }  // namespace
@@ -331,20 +474,45 @@ extern "C" int bfmmm_mean_rss(const float* B, const float* y, const float* w,
 }
 
 // K2's backward: B (N, L, P), y (N, L), w (C, N, P), g (C,) in, grad
-// (C, N, P) out, all contiguous float32.  TC and LC are the plan's chain
-// tile and chunk of points: TC * P <= BFMMM_K2_GRAD_OUTPUTS outputs a block;
-// the block's w and residuals, (TC * P + TC * LC) floats, must fit the
-// shared memory a block has without opting in, or the launch fails.
+// (C, N, P) out, all contiguous float32.  KP, SP, SL, TC and LC are
+// ops/kernels.py::mean_rss_grad_plan's: KP floats a lane (8 or 16 with
+// SP = 1, else 16 or 40), SP lanes splitting P and SL splitting the points
+// (powers of two, SP * SL <= 32, KP * SP >= P), TC chains a block
+// (TC * SP * SL threads, a multiple of 32, at most kGradThreads), LC
+// points a chunk (a multiple of SL when L > LC); the chunks' shared memory
+// within kGradSmem.  Aligned or not, the sums run in the same order: the
+// same bits.
 extern "C" int bfmmm_mean_rss_grad(const float* B, const float* y,
                                    const float* w, const float* g,
                                    float* grad, int C, int N, int L, int P,
-                                   int TC, int LC, void* stream_) {
+                                   int KP, int SP, int SL, int TC, int LC,
+                                   void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
-  if (TC < 1 || LC < 1 || TC * P > BFMMM_K2_GRAD_OUTPUTS)
+  const bool split = SP > 1;
+  const int S = SP * SL, T = TC * S, nbuf = L > LC ? 2 : 1;
+  const size_t smem =
+      (size_t)nbuf * LC * ((split ? P : KP) + 1) * sizeof(float);
+  if (SP < 1 || SL < 1 || (SP & (SP - 1)) || (SL & (SL - 1)) || S > 32 ||
+      TC < 1 || T > kGradThreads || T % 32 || LC < 1 ||
+      (nbuf == 2 && LC % SL) || KP * SP < P || smem > kGradSmem)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(N, (C + TC - 1) / TC);
-  const size_t smem = (size_t)(TC * P + TC * LC) * sizeof(float);
-  mean_rss_grad_kernel<<<grid, kThreads, smem, stream>>>(B, y, w, g, grad, C,
-                                                         N, L, P, TC, LC);
+  const auto a16 = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = !split && P == KP && a16(B) && a16(w) && a16(grad);
+  if (!split && KP == 8)
+    launch_grad<8, false>(B, y, w, g, grad, C, N, L, P, SP, SL, TC, LC, vec,
+                          smem, stream);
+  else if (!split && KP == 16)
+    launch_grad<16, false>(B, y, w, g, grad, C, N, L, P, SP, SL, TC, LC, vec,
+                           smem, stream);
+  else if (split && KP == 16)
+    launch_grad<16, true>(B, y, w, g, grad, C, N, L, P, SP, SL, TC, LC, false,
+                          smem, stream);
+  else if (split && KP == 40)
+    launch_grad<40, true>(B, y, w, g, grad, C, N, L, P, SP, SL, TC, LC, false,
+                          smem, stream);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,9 @@ What surrounds the CUDA code is kept here, where the CPU tests reach it:
 ``chol_solve_plan`` chooses which of K1's two kernels serves a shape, and its
 thread grid or panel width, ``mean_rss_plan`` and ``weighted_gram_plan`` choose
 the tile sizes, the grid and the scratch shape that K2 and K3 are launched
-with, and ``kernel_bound`` gives the bytes, the FLOP and the least time the
+with, ``mean_rss_grad_plan`` the lanes, chains and chunks of K2's backward
+(``mean_rss_grad_tiled_plain`` is that kernel's order of sums, for the
+tests), and ``kernel_bound`` gives the bytes, the FLOP and the least time the
 card could take for a call of each kernel, from its shapes.
 """
 
@@ -49,12 +51,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
-# K2's backward: the outputs grad_w[c, n, p] one block owns at most, 8 a
-# thread of 256; csrc/mean_rss.cu takes it from nvcc's command line.
-K2_GRAD_OUTPUTS = 2048
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DBFMMM_K2_GRAD_OUTPUTS={K2_GRAD_OUTPUTS}")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Opt-in shared memory of one thread block on H100/H200 (227 KB).  K1's
 # blocked kernel keeps the lower triangle of the (D, D) matrix there.
@@ -194,7 +192,7 @@ def _library():
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
         lib.bfmmm_mean_rss_grad.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            p]
+                                            i, i, i, p]
         lib.bfmmm_mean_rss_grad.restype = i
         lib.bfmmm_weighted_gram.argtypes = [p, p, p, i, i, i, i, p]
         lib.bfmmm_weighted_gram.restype = i
@@ -558,29 +556,70 @@ def mean_rss(B, y, w, want_mu=False):
 # The widest P a K2 block's tile of w takes: one row of the smallest chain
 # tile within K2_W_SMEM.  The backward refuses what the forward refuses.
 K2_MAX_P = K2_W_SMEM // (4 * K2_CHAIN_TILES[0])
-# K2's backward: the chains a block may own at most, and the floats of one
-# chunk of residuals (with the tile's w within the 48 KB of shared memory a
-# block has without opting in).
-K2_GRAD_CHAIN_TILE = 32
-K2_GRAD_RESIDUALS = 4096
+# K2's backward (csrc/mean_rss.cu's kGradThreads, kGradSmem): threads a
+# block at most, and the shared memory a block's chunks of B[n] and y[n]
+# fill, within the 48 KB a block has without opting in.
+K2_GRAD_THREADS = 256
+K2_GRAD_SMEM = 48 * 1024
+# Threads the backward wants on the card: the lanes of a chain split its
+# points until the card holds this many, so that one chain and four take a
+# warp each and 64 chains a few lanes (more lanes cost more in shuffles,
+# and in blocks that stage the same B[n], than they save in points a lane).
+K2_GRAD_WANT = 16_384
+# Floats of w (and of accumulators) a lane holds, the instantiations of
+# csrc/mean_rss.cu: 8 or 16 (P <= 16 on one lane, B's rows padded to 8 or
+# 16 floats), 16 (P <= 512 split over up to 32 lanes) and 40 (P <= 1,280
+# over 16 or 32 lanes).
+K2_GRAD_LANE_FLOATS = (8, 16, 40)
 
 
-def mean_rss_grad_plan(C, N, L, P):
-    """Tiles of K2's backward for w (C, N, P), B (N, L, P): a block owns one
-    observation and ``TC`` chains (TC * P outputs, at most
-    ``K2_GRAD_OUTPUTS``) and takes the points ``LC`` at a time (TC * LC
-    residuals in shared memory).  A P above ``K2_MAX_P`` raises
-    NotImplementedError, as the forward does.  Returns {"TC", "LC"}; the
-    launch forms the grid (observations, chain tiles) and the shared
-    memory, TC * (P + LC) floats."""
+def mean_rss_grad_plan(C, N, L, P, lanes=None):
+    """Layout of K2's backward for w (C, N, P), B (N, L, P): a block owns
+    one observation and ``TC`` chains; a chain is owned by ``SP`` x ``SL``
+    lanes of one warp: ``SP`` lanes split P (1 for P <= 16; lane sp holds
+    p = sp, sp + SP, ..., ``KP`` of them at most), ``SL`` lanes split the
+    points (lane sl takes l = sl, sl + SL, ...).  SL is the smallest power
+    of two that puts ``K2_GRAD_WANT`` threads on the card, within a warp and
+    no more lanes than points; ``lanes`` sets it instead (the bench tries
+    others).  B[n] and y[n] go to shared memory ``LC`` points at a time,
+    rows ``KP`` floats apart for P <= 16 and P apart above: all L in one
+    buffer where they fit ``K2_GRAD_SMEM``, else two buffers of a multiple
+    of SL points.  A P above ``K2_MAX_P`` raises NotImplementedError, as
+    the forward does.  Returns {"KP", "SP", "SL", "TC", "threads", "LC",
+    "buffers", "grid": (observations, chain tiles), "smem": bytes}."""
     if min(C, N, L, P) < 1:
         raise ValueError(f"mean_rss_grad_plan: empty shape {(C, N, L, P)}")
     if P > K2_MAX_P:
         raise NotImplementedError(
             f"mean_rss_grad: P={P} is wider than K2 serves ({K2_MAX_P})")
-    TC = max(1, min(C, K2_GRAD_CHAIN_TILE, K2_GRAD_OUTPUTS // P))
-    LC = max(1, min(L, K2_GRAD_RESIDUALS // TC))
-    return {"TC": TC, "LC": LC}
+    if P <= 16:
+        SP, KP = 1, (8 if P <= 8 else 16)
+    else:
+        KP = 16 if P <= 32 * 16 else 40
+        SP = 2
+        while KP * SP < P:
+            SP *= 2
+    if lanes is None:
+        SL = 1
+        while SP * SL < 32 and SL < L and C * N * SP * SL < K2_GRAD_WANT:
+            SL *= 2
+    else:
+        SL = lanes
+        if SL < 1 or SL & (SL - 1) or SP * SL > 32:
+            raise ValueError(f"mean_rss_grad_plan: {lanes} lanes a chain "
+                             f"with {SP} splitting P={P}")
+    S = SP * SL
+    TC = min(C, K2_GRAD_THREADS // S)
+    threads = -(-TC * S // 32) * 32          # whole warps
+    TC = threads // S
+    row = (KP if SP == 1 else P) + 1         # floats a point: B's row, y
+    if 4 * L * row <= K2_GRAD_SMEM:
+        LC, buffers = L, 1
+    else:
+        LC, buffers = K2_GRAD_SMEM // (8 * row) // SL * SL, 2
+    return {"KP": KP, "SP": SP, "SL": SL, "TC": TC, "threads": threads,
+            "LC": LC, "buffers": buffers, "grid": (N, -(-C // TC)),
+            "smem": 4 * buffers * LC * row}
 
 
 def mean_rss_grad_plain(B, y, w, g):
@@ -589,6 +628,51 @@ def mean_rss_grad_plain(B, y, w, g):
     formed anew as the kernel does."""
     r = y - torch.einsum("nlp,cnp->cnl", B, w)
     return (-2.0 * g)[:, None, None] * torch.einsum("nlp,cnl->cnp", B, r)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as fmaf: the float32 product is exact in
+    float64, and the sum is rounded to float64 and then to c's type (two
+    roundings, which differ from one only in rare ties)."""
+    return (a.double() * b.double() + c.double()).to(c.dtype)
+
+
+def _xor_tree(a):
+    """The sum over the last axis (a power of two) as an xor-shuffle tree
+    leaves it in lane 0: neighbours first, then pairs of pairs."""
+    while a.shape[-1] > 1:
+        a = a[..., 0::2] + a[..., 1::2]
+    return a[..., 0]
+
+
+def mean_rss_grad_tiled_plain(B, y, w, g):
+    """K2's backward in the kernel's order of sums, for the CPU tests: per
+    chain and observation, each of the plan's SP lanes forms its share of
+    the dot product (p = sp, sp + SP, ..., one fused multiply-add each) and
+    the shares meet in the xor tree; each of the SL lanes adds r B[l, :]
+    over its points l = sl, sl + SL, ... in order, and the lanes' sums meet
+    in the xor tree; then the -2 g scaling.  The chunks of points leave the
+    order alone (a chunk is a multiple of SL points), and the lanes' spare
+    slots past P and L add exact zeros.  Same function as
+    ``mean_rss_grad_plain``; nothing on the main path calls it."""
+    N, L, P = B.shape
+    C = w.shape[0]
+    plan = mean_rss_grad_plan(C, N, L, P)
+    SP, SL = plan["SP"], plan["SL"]
+    KS, LS = -(-P // SP), -(-L // SL)        # p a lane, points a lane
+    pad = torch.nn.functional.pad
+    Bk = pad(B, (0, KS * SP - P)).reshape(N, L, KS, SP)
+    wk = pad(w, (0, KS * SP - P)).reshape(C, N, 1, KS, SP)
+    share = torch.zeros(C, N, L, SP, dtype=w.dtype, device=w.device)
+    for k in range(KS):
+        share = _fma(Bk[None, :, :, k], wk[:, :, :, k], share)
+    r = y - _xor_tree(share)                                  # (C, N, L)
+    rj = pad(r, (0, LS * SL - L)).reshape(C, N, LS, SL, 1)
+    Bj = pad(B, (0, 0, 0, LS * SL - L)).reshape(N, LS, SL, P)
+    acc = torch.zeros(C, N, SL, P, dtype=w.dtype, device=w.device)
+    for j in range(LS):
+        acc = _fma(rj[:, :, j], Bj[None, :, j], acc)
+    return (-2.0 * g)[:, None, None] * _xor_tree(acc.transpose(2, 3))
 
 
 def mean_rss_grad(B, y, w, g):
@@ -607,8 +691,8 @@ def mean_rss_grad(B, y, w, g):
     with torch.cuda.device(w.device):
         rc = _library().bfmmm_mean_rss_grad(
             B.data_ptr(), y.data_ptr(), w.data_ptr(), g.data_ptr(),
-            grad.data_ptr(), C, N, L, P, plan["TC"], plan["LC"],
-            torch.cuda.current_stream().cuda_stream)
+            grad.data_ptr(), C, N, L, P, plan["KP"], plan["SP"], plan["SL"],
+            plan["TC"], plan["LC"], torch.cuda.current_stream().cuda_stream)
     _launched("mean_rss_grad", rc)
     return grad
 

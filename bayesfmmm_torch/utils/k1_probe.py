@@ -159,28 +159,36 @@ KNOCK_OUTS = {
 SHAPES = {"tiled": (CHAINS, D), "blocked": (16, 256)}
 
 
-def patched_sources(text, knock_outs):
+def patched_sources(text, knock_outs, source="csrc/chol_solve.cu"):
     """{name: source text} for every knock-out of ``knock_outs`` (one of
-    ``KNOCK_OUTS``); each patch must match ``text`` exactly once."""
+    ``KNOCK_OUTS``); each patch must match ``text`` (of ``source``) exactly
+    once."""
     out = {}
     for name, patches in knock_outs.items():
         src = text
         for old, new in patches:
             if src.count(old) != 1:
                 raise RuntimeError(
-                    f"k1_probe: the patch {name!r} matches "
-                    f"csrc/chol_solve.cu {src.count(old)} times, not once: "
-                    f"{old!r}")
+                    f"probe: the patch {name!r} matches {source} "
+                    f"{src.count(old)} times, not once: {old!r}")
             src = src.replace(old, new)
         out[name] = src
     return out
 
 
-def build_all(sources, out_dir):
-    """Compile every patched source with nvcc, all at once; {name: CDLL}."""
+def _bind_chol_solve(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i,
+                                     p]
+    lib.bfmmm_chol_solve.restype = i
+
+
+def build_all(sources, out_dir, bind=_bind_chol_solve):
+    """Compile every patched source with nvcc, all at once, and ``bind``
+    each library's entry point; {name: CDLL}."""
     nvcc = kernels._find_nvcc()
     if nvcc is None:
-        raise RuntimeError("k1_probe: nvcc not found")
+        raise RuntimeError("probe: nvcc not found")
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     jobs = []
@@ -198,10 +206,7 @@ def build_all(sources, out_dir):
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{said}")
         libs[name] = ctypes.CDLL(str(lib))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        libs[name].bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i,
-                                                ctypes.c_float, i, p]
-        libs[name].bfmmm_chol_solve.restype = i
+        bind(libs[name])
     return libs
 
 

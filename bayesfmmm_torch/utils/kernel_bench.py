@@ -5,7 +5,9 @@
 
 At the main path's shapes (256 chains of the headline model: K1 C=256,
 D=96; K2 C=256 and the MGP-scale moves' 512 chain rows, N=L=100, P=8; K3
-R=768, N=100, P=8) it times, for each kernel, the kernel, its plain PyTorch
+R=768, N=100, P=8; K2's backward at ``GRAD_SHAPES``, those of fit_hmc,
+ADVI, one chain, the hd family and a general P) it times, for each kernel,
+the kernel, its plain PyTorch
 version, the single PyTorch call that computes the same function where
 there is one (K3: ``torch.matmul(W, G.reshape(N, P * P))``), and the empty
 kernel (the launch floor).  The candidates of one kernel are timed in
@@ -21,7 +23,8 @@ revision's ``bayesfmmm_torch`` directory (``git archive REV bayesfmmm_torch
 revision's ``csrc`` into DIR and binds it as that revision did, and times
 its three wrappers in the same turns (and its K1 in every group of
 ``--sweep``): two revisions are compared only inside one run, on one card.
-``--sweep`` times K2 over other tile sizes than the plan's and every kernel
+``--sweep`` times K2 over other tile sizes than the plan's, K2's backward
+over other lanes a chain than the plan's (1 to 32), and every kernel
 of K1 that can serve D=96 (the register kernel's tiles, the blocked
 kernel; and, in groups of their own, D=32, 64 and 128, and
 D=129, 200, 240, 256 and 334 at 256 and at 16 chains, and D=256 at 64
@@ -49,6 +52,11 @@ from torch.profiler import ProfilerActivity, profile
 from bayesfmmm_torch.ops import kernels
 
 CHAINS, N, L, P, K, D = 256, 100, 100, 8, 3, 96
+# K2's backward (C, N, L, P): fit_hmc's 64 chains, ADVI's 4 rows and one
+# chain at the headline width, the hd family's P = 16 (config 5) and a
+# general P
+GRAD_SHAPES = ((64, 100, 100, 8), (4, 100, 100, 8), (1, 100, 100, 8),
+               (64, 64, 144, 16), (64, 100, 100, 10))
 
 
 def card_line():
@@ -225,6 +233,25 @@ def _k2_tiles(lib, B, y, w, TC, TN):
     return launch
 
 
+def _k2_grad_lanes(lib, B, y, w, g, lanes):
+    """K2's backward through the C entry point with ``lanes`` a chain
+    splitting the points, not the plan's."""
+    N_, L_, P_ = B.shape
+    C_ = w.shape[0]
+    plan = kernels.mean_rss_grad_plan(C_, N_, L_, P_, lanes=lanes)
+    grad = torch.empty_like(w)
+
+    def launch():
+        rc = lib.bfmmm_mean_rss_grad(
+            B.data_ptr(), y.data_ptr(), w.data_ptr(), g.data_ptr(),
+            grad.data_ptr(), C_, N_, L_, P_, plan["KP"], plan["SP"],
+            plan["SL"], plan["TC"], plan["LC"],
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: {torch.cuda.CudaError(rc)}")
+    return launch
+
+
 def _k1_tile(lib, A, b, z, tile):
     """K1 through the C entry point with another kernel than the plan's:
     ``tile`` is the entry point's kernel code (``kernels.chol_solve_code``):
@@ -283,13 +310,29 @@ def main(argv=None):
             "plain": lambda: kernels.weighted_gram_plain(*x["weighted_gram"]),
             "library": lambda: library_weighted_gram(*x["weighted_gram"])},
     }
+    # name -> (kernel, shape) of every group, for its bound
+    shapes = {"chol_solve": ("chol_solve", dict(C=CHAINS, D=D)),
+              "mean_rss": ("mean_rss", dict(C=CHAINS, N=N, L=L, P=P)),
+              "mean_rss_2c": ("mean_rss", dict(C=2 * CHAINS, N=N, L=L, P=P)),
+              "weighted_gram": ("weighted_gram", dict(R=CHAINS * K, N=N,
+                                                      P=P))}
+    g2 = torch.Generator(device=dev).manual_seed(7)
+    for C_, N_, L_, P_ in GRAD_SHAPES:
+        name = f"mean_rss_grad_c{C_}_n{N_}_l{L_}_p{P_}"
+        x[name] = (torch.randn(N_, L_, P_, generator=g2, device=dev),
+                   torch.randn(N_, L_, generator=g2, device=dev),
+                   torch.randn(C_, N_, P_, generator=g2, device=dev),
+                   torch.randn(C_, generator=g2, device=dev))
+        shapes[name] = ("mean_rss_grad", dict(C=C_, N=N_, L=L_, P=P_))
+        groups[name] = {
+            "kernel": lambda name=name: kernels.mean_rss_grad(*x[name]),
+            "plain": lambda name=name: kernels.mean_rss_grad_plain(*x[name])}
     for cands in groups.values():
         cands["empty"] = lambda: kernels.empty_launch(dev)
     if base is not None:
         for name, cands in groups.items():
-            fn = getattr(base, name.removesuffix("_2c"))
+            fn = getattr(base, shapes[name][0])
             cands["baseline"] = lambda fn=fn, name=name: fn(*x[name])
-    k1_shapes = {}
     if args.sweep:
         lib = kernels._library()
         for name in ("mean_rss", "mean_rss_2c"):
@@ -297,6 +340,14 @@ def main(argv=None):
                 for TN in (5, 10, 20):
                     groups[name][f"TC={TC},TN={TN}"] = _k2_tiles(
                         lib, *x[name], TC=TC, TN=TN)
+        for name, (kern, shape) in list(shapes.items()):
+            if kern != "mean_rss_grad":
+                continue
+            own = kernels.mean_rss_grad_plan(*shape.values())["SL"]
+            for lanes in (1, 2, 4, 8, 16, 32):
+                if lanes != own:
+                    groups[name][f"lanes={lanes}"] = _k2_grad_lanes(
+                        lib, *x[name], lanes)
         groups["chol_solve"].update(_k1_sweep(lib, x["chol_solve"]))
         g = torch.Generator(device=dev).manual_seed(321)
         for C_, D_ in ((CHAINS, 32), (CHAINS, 64), (CHAINS, 128),
@@ -305,7 +356,7 @@ def main(argv=None):
                        (16, 240), (16, 256), (16, 334), (64, 256)):
             xd = spd(g, C_, D_, dev)
             name = f"chol_solve_c{C_}_d{D_}"
-            k1_shapes[name] = dict(C=C_, D=D_)
+            shapes[name] = ("chol_solve", dict(C=C_, D=D_))
             groups[name] = {
                 "kernel": lambda xd=xd: kernels.chol_solve(*xd),
                 **_k1_sweep(lib, xd)}
@@ -323,15 +374,8 @@ def main(argv=None):
         result[name]["kernel"]["paced_ms"] = paced_ms(cands["kernel"])
         result[name]["kernel"]["by_kernel"] = device_ms_by_kernel(
             cands["kernel"])
-    shapes = {"chol_solve": dict(C=CHAINS, D=D),
-              "mean_rss": dict(C=CHAINS, N=N, L=L, P=P),
-              "mean_rss_2c": dict(C=2 * CHAINS, N=N, L=L, P=P),
-              "weighted_gram": dict(R=CHAINS * K, N=N, P=P)}
-    shapes.update(k1_shapes)
-    for name, shape in shapes.items():
-        bound = kernels.kernel_bound(
-            "chol_solve" if name in k1_shapes else name.removesuffix("_2c"),
-            **shape)
+    for name, (kern, shape) in shapes.items():
+        bound = kernels.kernel_bound(kern, **shape)
         result[name]["shape"] = shape
         result[name]["bound"] = bound
         result[name]["share_of_bound"] = (

@@ -92,9 +92,11 @@ only with every other phase, whose launch counts they read):
      device-busy ms a PT round and an SMC stage;
  11. [hmc] slice 11's path, the gradient samplers at the headline width
      (no device given, so on the card): K2's backward (mean_rss_grad)
-     against its plain version and against autograd through K2's plain
-     forward, the same bits from two calls and through MeanRSS, at 64 and
-     one chain (N = L = 100, P = 8) and config 5's P = 16, L = 144; the
+     against its plain version, against autograd through K2's plain
+     forward and against its twin on the CPU (the kernel's order of sums),
+     the same bits from two calls and through MeanRSS, at 64, 4 and one
+     chain (N = L = 100, P = 8), config 5's P = 16, L = 144 and a general
+     P = 10; the
      log-joint's value and gradient on the card against the CPU at one
      point of 64 chains, one evaluation launching K2 forward and backward
      once each and no plain version; api.fit_hmc with 64 chains from the
@@ -105,8 +107,9 @@ only with every other phase, whose launch counts they read):
      seeds), K2 forward and backward launched once a gradient evaluation as
      the run's own trajectory lengths predict (K1 and K3 never); ms a
      gradient evaluation and an iteration, kernels and device-busy ms a
-     leapfrog step, mean_rss_grad's time beside its bound and its plain
-     version;
+     leapfrog step, mean_rss_grad's time beside its bound, its plain
+     version and the empty kernel at 64, 4 and one chain (P = 8), config
+     5's P = 16 and P = 10;
  12. [advi] slice 12's paths at the headline width (no device given, so on
      the card): K2 and its backward at ADVI's 4 rows against their plain
      versions; api.fit_advi_init (600 ADVI steps of 4 draws, then 4 chains
@@ -173,7 +176,8 @@ from bayesfmmm_torch.post import model_selection
 from bayesfmmm_torch.samplers import drivers, smc
 from bayesfmmm_torch.utils.init_strategies import spectral_ensemble
 from bayesfmmm_torch.utils.kernel_bench import (_PAD_KERNEL, _PAD_LAUNCHES,
-                                                card_line, device_launches,
+                                                GRAD_SHAPES, card_line,
+                                                device_launches,
                                                 device_ms, device_ms_by_kernel,
                                                 in_turns,
                                                 library_chol_solve,
@@ -296,10 +300,11 @@ HMC_PROTOCOL = dict(
 HMC_STATS = ("loglik_tail_mean", "sigma2_median", "accept_mean",
              "eps_median")
 # K2's backward (C, N, L, P): the HMC path's 64 chains and one chain at the
-# headline width, config 5's P = 16, L = 144 (N = 64), and ADVI's n_mc = 4
-# rows (the default-off sweep's update_hmc_joint runs at the 64 chains)
+# headline width, config 5's P = 16, L = 144 (N = 64), ADVI's n_mc = 4
+# rows (the default-off sweep's update_hmc_joint runs at the 64 chains),
+# and a general P (copied 4 bytes at a time into padded rows)
 K2_GRAD_SHAPES = ((64, 100, 100, 8), (1, 100, 100, 8), (64, 64, 144, 16),
-                  (1, 64, 144, 16), (4, 100, 100, 8))
+                  (1, 64, 144, 16), (4, 100, 100, 8), (64, 100, 100, 10))
 # max |kernel - reference| over max |reference|: float32 sums of L
 # products of order 1-10 each, taken in another order
 K2_GRAD_TOL = 2e-5
@@ -1751,10 +1756,11 @@ def tempering_phase(dev, card):
 
 
 def k2_grad_phase(dev, g, shapes=K2_GRAD_SHAPES):
-    """K2's backward against its plain version and against autograd
-    through K2's plain forward, the same bits from two calls and through
-    MeanRSS (K2 forward and backward, as the log-joint reaches them);
-    returns the worst |kernel - plain|."""
+    """K2's backward against its plain version, against autograd through
+    K2's plain forward and against its twin on the CPU
+    (``mean_rss_grad_tiled_plain``, the kernel's order of sums), the same
+    bits from two calls and through MeanRSS (K2 forward and backward, as
+    the log-joint reaches them); returns the worst |kernel - plain|."""
     worst = 0.0
     for C, N, L, P in shapes:
         B = torch.randn(N, L, P, generator=g, device=dev)
@@ -1780,13 +1786,18 @@ def k2_grad_phase(dev, g, shapes=K2_GRAD_SHAPES):
               and torch.equal(rss.detach(), kernels.mean_rss(B, y, w)[0]),
               f"K2's backward gave other bits on a second call or through "
               f"MeanRSS at {(C, N, L, P)}")
+        twin = kernels.mean_rss_grad_tiled_plain(B.cpu(), y.cpu(), w.cpu(),
+                                                 gv.cpu())
         scale = plain.abs().max().item()
         e_plain = (got - plain).abs().max().item()
         e_auto = (got - auto).abs().max().item()
+        e_twin = (got.cpu() - twin).abs().max().item()
         print(f"  K2 mean_rss_grad C={C} N={N} L={L} P={P}: max|grad-plain|"
-              f"={e_plain:.3e}, max|grad-autograd|={e_auto:.3e} of max|grad|"
-              f" {scale:.3e} (tol {K2_GRAD_TOL} of it)")
-        check(max(e_plain, e_auto) <= K2_GRAD_TOL * scale,
+              f"={e_plain:.3e}, max|grad-autograd|={e_auto:.3e}, "
+              f"max|grad-twin|={e_twin:.3e} (the twin's bits: "
+              f"{'all' if torch.equal(got.cpu(), twin) else 'not all'}) of "
+              f"max|grad| {scale:.3e} (tol {K2_GRAD_TOL} of it)")
+        check(max(e_plain, e_auto, e_twin) <= K2_GRAD_TOL * scale,
               f"K2's backward disagrees at {(C, N, L, P)}")
         worst = max(worst, e_plain)
     return worst
@@ -1975,30 +1986,31 @@ def hmc_phase(dev, g, card):
               f"{n['device_ms_per_step']:.4f} ms of device time "
               f"({busy:.1f} % busy)")
 
-    # mean_rss_grad beside its bound and its plain version, at the path's
-    # 64 chains and at one chain
-    data = hmc_data(dev)
-    t = {}
-    for C_ in (C, 1):
-        x = (data.B, data.y, torch.randn(C_, data.N, data.P, generator=g,
-                                         device=dev),
+    # mean_rss_grad beside its bound, its plain version and the empty
+    # kernel, in turns, at every shape a path gives it and a general P
+    t = []
+    for C_, N_, L_, P_ in GRAD_SHAPES:      # the first the line's own
+        x = (torch.randn(N_, L_, P_, generator=g, device=dev),
+             torch.randn(N_, L_, generator=g, device=dev),
+             torch.randn(C_, N_, P_, generator=g, device=dev),
              torch.randn(C_, generator=g, device=dev))
-        cands = {"kernel": lambda: kernels.mean_rss_grad(*x),
-                 "plain": lambda: kernels.mean_rss_grad_plain(*x),
+        cands = {"kernel": lambda x=x: kernels.mean_rss_grad(*x),
+                 "plain": lambda x=x: kernels.mean_rss_grad_plain(*x),
                  "empty": lambda: kernels.empty_launch(dev)}
         v = {k: r["device_ms"] for k, r in in_turns(cands, rounds=3).items()}
         v["paced"] = paced_ms(cands["kernel"])
-        v.update(kernels.kernel_bound("mean_rss_grad", C=C_, N=data.N,
-                                      L=data.L, P=data.P))
-        t[C_] = v
-        print(f"  mean_rss_grad (C={C_}, N={data.N}, L={data.L}, "
-              f"P={data.P}): device {1e3 * v['kernel']:.2f} us vs plain "
-              f"{1e3 * v['plain']:.2f} us, empty kernel "
-              f"{1e3 * v['empty']:.2f} us; bound {1e3 * v['bound_ms']:.3f} us"
-              f" by {v['bound_by']} ({v['bytes']} bytes, {v['flop']:.0f} "
-              f"FLOP; {100 * v['bound_ms'] / v['kernel']:.2f} % of it "
-              f"reached); host-paced {1e3 * v['paced']:.2f} us")
-    main_t, one = t[C], t[1]
+        v.update(kernels.kernel_bound("mean_rss_grad", C=C_, N=N_, L=L_,
+                                      P=P_))
+        v["shape"] = dict(C=C_, N=N_, L=L_, P=P_)
+        t.append(v)
+        print(f"  mean_rss_grad (C={C_}, N={N_}, L={L_}, P={P_}): device "
+              f"{1e3 * v['kernel']:.2f} us vs plain {1e3 * v['plain']:.2f} "
+              f"us, empty kernel {1e3 * v['empty']:.2f} us; bound "
+              f"{1e3 * v['bound_ms']:.3f} us by {v['bound_by']} "
+              f"({v['bytes']} bytes, {v['flop']:.0f} FLOP; "
+              f"{100 * v['bound_ms'] / v['kernel']:.2f} % of it reached); "
+              f"host-paced {1e3 * v['paced']:.2f} us")
+    main_t = t[0]
     entry = {"name": "mean_rss_grad", "route": "cuda",
              "source": "bayesfmmm_torch/csrc/mean_rss.cu",
              "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:68",
@@ -2009,11 +2021,13 @@ def hmc_phase(dev, g, card):
              "max_abs_err": err, "ms": main_t["kernel"],
              "plain_ms": main_t["plain"], "bound_ms": main_t["bound_ms"],
              "bound_by": main_t["bound_by"], "library_ms": None,
-             "shape": dict(C=C, N=data.N, L=data.L, P=data.P),
-             "bytes": main_t["bytes"], "flop": main_t["flop"],
-             "empty_ms": main_t["empty"],
-             "at_one_chain": {k: one[k] for k in (
-                 "kernel", "plain", "bound_ms", "bound_by")}}
+             "shape": main_t["shape"], "bytes": main_t["bytes"],
+             "flop": main_t["flop"], "empty_ms": main_t["empty"],
+             "by_shape": [{"shape": v["shape"], "ms": v["kernel"],
+                           "plain_ms": v["plain"], "empty_ms": v["empty"],
+                           "bound_ms": v["bound_ms"],
+                           "bound_by": v["bound_by"], "bytes": v["bytes"],
+                           "flop": v["flop"]} for v in t]}
     return counts, numbers, entry
 
 

@@ -241,13 +241,18 @@ def test_mean_rss_kernel_matches_plain(dev, C, N, L, P, pad):
 
 @pytest.mark.parametrize("C,N,L,P", [(64, 100, 100, 8), (1, 100, 100, 8),
                                      (64, 64, 144, 16), (37, 7, 1500, 8),
-                                     (300, 5, 3, 5), (3, 4, 9, 1280)])
+                                     (300, 5, 3, 5), (3, 4, 9, 1280),
+                                     (4, 100, 100, 8), (1, 64, 144, 16),
+                                     (5, 9, 33, 10), (3, 4, 2000, 16),
+                                     (5, 6, 50, 100), (2, 3, 20, 1280)])
 def test_mean_rss_grad_kernel_matches_plain(dev, C, N, L, P):
     """K2's backward at the HMC path's shapes (64 chains and one), config
-    5's P = 16, more points than a chunk, more chains than a tile, and the
-    widest P K2 serves: against its plain version and autograd through the
-    plain forward, the same bits from two calls and through MeanRSS, one
-    launch counted a call."""
+    5's P = 16, more points than a chunk, more chains than a tile, the
+    widest P K2 serves, ADVI's 4 rows, one chain at P = 16, a general P of
+    10, L in six chunks at P = 16, P split over 8 lanes, and the widest P
+    in chunks: against its plain version and autograd through the plain
+    forward, the same bits from two calls and through MeanRSS, one launch
+    counted a call."""
     g = torch.Generator(device=dev).manual_seed(C + P)
     B = torch.randn(N, L, P, generator=g, device=dev)
     y = torch.randn(N, L, generator=g, device=dev)
@@ -268,6 +273,46 @@ def test_mean_rss_grad_kernel_matches_plain(dev, C, N, L, P):
     scale = auto.abs().max().item()
     for ref in (kernels.mean_rss_grad_plain(B, y, w, gv), auto):
         assert (got - ref).abs().max().item() <= 2e-5 * scale
+
+
+@pytest.mark.parametrize("P", [8, 16])
+def test_mean_rss_grad_kernel_takes_unaligned_views(dev, P):
+    """B and w that start 4 bytes off a 16-byte boundary take the 4-byte
+    copies and loads of the general instantiation, whose sums run in the
+    same order: the aligned call's bits."""
+    g = torch.Generator(device=dev).manual_seed(P)
+    N, L, C = 10, 30, 5
+    B = torch.randn(N * L * P + 1, generator=g, device=dev)
+    w = torch.randn(C * N * P + 1, generator=g, device=dev)
+    y = torch.randn(N, L, generator=g, device=dev)
+    gv = torch.randn(C, generator=g, device=dev)
+    Bv, wv = B[1:].view(N, L, P), w[1:].view(C, N, P)
+    assert Bv.data_ptr() % 16 != 0 and wv.data_ptr() % 16 != 0
+    got = kernels.mean_rss_grad(Bv, y, wv, gv)
+    aligned = kernels.mean_rss_grad(Bv.clone(), y, wv.clone(), gv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    plain = kernels.mean_rss_grad_plain(Bv, y, wv, gv)
+    assert (got - plain).abs().max().item() <= 2e-5 * plain.abs().max().item()
+
+
+@pytest.mark.parametrize("C,N,L,P", [(64, 100, 100, 8), (1, 64, 144, 16),
+                                     (5, 9, 33, 10), (3, 4, 2000, 16),
+                                     (5, 6, 50, 100)])
+def test_mean_rss_grad_kernel_sums_in_the_twins_order(dev, C, N, L, P):
+    """The kernel against ``mean_rss_grad_tiled_plain`` on the CPU, its
+    order of sums with float32 fused multiply-adds formed in float64: equal
+    to 1e-6 of max |grad| (the twin rounds twice where fmaf rounds once,
+    which differs only in rare ties)."""
+    g = torch.Generator(device=dev).manual_seed(L + P)
+    B = torch.randn(N, L, P, generator=g, device=dev)
+    y = torch.randn(N, L, generator=g, device=dev)
+    w = torch.randn(C, N, P, generator=g, device=dev)
+    gv = torch.randn(C, generator=g, device=dev)
+    got = kernels.mean_rss_grad(B, y, w, gv).cpu()
+    twin = kernels.mean_rss_grad_tiled_plain(B.cpu(), y.cpu(), w.cpu(),
+                                             gv.cpu())
+    assert (got - twin).abs().max().item() <= 1e-6 * twin.abs().max().item()
 
 
 def test_mean_rss_grad_wide_p_raises_on_the_card(dev):

@@ -306,14 +306,29 @@ def test_rss_from_coeffs_takes_the_function_when_w_needs_a_gradient():
 
 
 def test_mean_rss_grad_plan_covers_the_forwards_p_range():
+    """One launch's layout at every P the forward serves: whole warps of at
+    most K2_GRAD_THREADS, a chain's lanes within one warp and covering P,
+    every chain and observation in the grid, the chunks' shared memory
+    within K2_GRAD_SMEM."""
     for C, N, L, P in ((64, 100, 100, 8), (1, 100, 100, 8), (64, 64, 144, 16),
                        (3, 5, 7000, 1280), (300, 2, 3, 1)):
         plan = kernels.mean_rss_grad_plan(C, N, L, P)
-        assert set(plan) == {"TC", "LC"}
-        assert plan["TC"] * P <= kernels.K2_GRAD_OUTPUTS
-        assert plan["TC"] * plan["LC"] <= kernels.K2_GRAD_RESIDUALS
-        assert 4 * plan["TC"] * (P + plan["LC"]) <= 48 * 1024
+        assert set(plan) == {"KP", "SP", "SL", "TC", "threads", "LC",
+                             "buffers", "grid", "smem"}
+        S = plan["SP"] * plan["SL"]
+        assert S <= 32 and plan["KP"] * plan["SP"] >= P
+        assert plan["KP"] in kernels.K2_GRAD_LANE_FLOATS
+        assert plan["threads"] == plan["TC"] * S
+        assert plan["threads"] % 32 == 0
+        assert plan["threads"] <= kernels.K2_GRAD_THREADS
+        assert plan["grid"] == (N, -(-C // plan["TC"]))
+        row = (plan["KP"] if plan["SP"] == 1 else P) + 1
+        assert plan["smem"] == 4 * plan["buffers"] * plan["LC"] * row \
+            <= kernels.K2_GRAD_SMEM
         assert 1 <= plan["LC"] <= L
+        assert plan["buffers"] == (1 if plan["LC"] == L else 2)
+        if plan["buffers"] == 2:
+            assert plan["LC"] % plan["SL"] == 0
     assert kernels.K2_MAX_P == 1280
     kernels.mean_rss_plan(8, 5, 7, 1280)
     for plan in (kernels.mean_rss_plan, kernels.mean_rss_grad_plan):
