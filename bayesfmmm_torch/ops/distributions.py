@@ -9,8 +9,10 @@ as in the JAX package's vmapped code.
   * ``log_multi_beta`` — calc_lB (Distributions.h:51-60).
   * ``truncnorm_*``    — the positive-half-line truncated normal of the
     alpha_3 and A MH kernels; torch has no sampler, so inverse CDF.
-  * ``chol_precision`` / ``mvn_from_chol`` — jittered-Cholesky draws from
-    N(P^-1 b, P^-1).
+  * ``mvn_from_precision`` / ``chol_precision`` / ``mvn_from_chol`` —
+    jittered-Cholesky draws from N(P^-1 b, P^-1), in plain PyTorch as the
+    JAX package leaves them to XLA (the joint draws of the sweep take
+    linalg.mvn_from_precision_fused, which reaches K1).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from bayesfmmm_torch.ops import linalg
 __all__ = [
     "standard_gamma", "rdirichlet", "dirichlet_logpdf_unnormalized",
     "log_multi_beta", "truncnorm_sample", "truncnorm_logpdf",
-    "chol_precision", "mvn_from_chol",
+    "mvn_from_precision", "chol_precision", "mvn_from_chol",
 ]
 
 
@@ -90,6 +92,12 @@ def truncnorm_logpdf(x, mean, sd):
     z = (x - mean) / sd
     log_phi = -0.5 * z * z - 0.5 * math.log(2.0 * math.pi) - math.log(sd)
     return log_phi - torch.log(_ndtr(mean / sd))
+
+
+def mvn_from_precision(generator, prec, b, *, jitter=1e-6):
+    """Sample N(prec^-1 b, prec^-1) (distributions.py:85-96): the jittered
+    Cholesky ``chol_precision``, then ``mvn_from_chol``; (sample, mean)."""
+    return mvn_from_chol(generator, chol_precision(prec, jitter=jitter), b)
 
 
 def chol_precision(prec, *, jitter=1e-6):

@@ -3,8 +3,10 @@
 Counterpart of ``bayesfmmm_tpu/ops/pallas_kernels.py``:
 
   * K1 ``chol_solve`` — per-chain Cholesky of an SPD (D, D) precision and
-    the two triangular solves of the joint Phi draw (replaces
-    ``chol_solve_batch_minor``).  Source: csrc/chol_solve.cu.
+    the two triangular solves of the joint Phi and xi draws (replaces
+    ``chol_solve_batch_minor``).  Sources: csrc/chol_solve.cu (D <= 336,
+    one launch) and csrc/chol_solve_panels.cu (up to ``K1_MAX_DIM``, a
+    workspace in device memory and a chain of launches).
   * K2 ``mean_rss``   — mu = B w and rss = sum (y - mu)^2 in one pass over
     B, batched over chains (replaces ``fused_mean_rss``).  Source:
     csrc/mean_rss.cu.  Its backward ``mean_rss_grad`` (the gradient of rss
@@ -17,8 +19,8 @@ Counterpart of ``bayesfmmm_tpu/ops/pallas_kernels.py``:
 Each wrapper takes its plain PyTorch version for tensors on the CPU, and
 for CUDA tensors launches its kernel or raises: nothing gives way to the
 plain version on the card, whether a kernel failed to build or to launch or
-no kernel serves the shape (K1 above ``chol_solve_max_dim()``, K2 at a P too
-wide for a block's tile of w: both raise NotImplementedError).  The kernels
+no kernel serves the shape (K1 above ``K1_MAX_DIM``, K2 at a P too wide
+for a block's tile of w: both raise NotImplementedError).  The kernels
 are compiled by nvcc for sm_90a at first use, from the sources in
 ``csrc/``, into ``_build/`` (keyed by a hash of sources and flags), and
 bound with ctypes; each C entry point launches on PyTorch's current stream,
@@ -28,8 +30,9 @@ allocates nothing and returns cudaGetLastError().
 run can show that its main path went through the kernels.
 
 What surrounds the CUDA code is kept here, where the CPU tests reach it:
-``chol_solve_plan`` chooses which of K1's two kernels serves a shape, and its
-thread grid or panel width, ``mean_rss_plan`` and ``weighted_gram_plan`` choose
+``chol_solve_plan`` chooses which of K1's three kernels serves a shape, and
+its thread grid or panel width (and the panels kernel's workspace and
+launches), ``mean_rss_plan`` and ``weighted_gram_plan`` choose
 the tile sizes, the grid and the scratch shape that K2 and K3 are launched
 with, ``mean_rss_grad_plan`` the lanes, chains and chunks of K2's backward
 (``mean_rss_grad_tiled_plain`` is that kernel's order of sums, for the
@@ -100,9 +103,16 @@ def _blocked_floats(D):
 
 
 def chol_solve_max_dim():
-    """Largest D a K1 kernel serves: the blocked kernel's, whose lower
-    triangle of A fits one block's shared memory up to it."""
+    """Largest D of K1's blocked kernel, whose lower triangle of A fits one
+    block's shared memory up to it; the panels kernel serves the D above it
+    up to ``K1_MAX_DIM``."""
     return _largest_dim(_blocked_floats)
+
+
+# The largest joint draw there is: the Gibbs updaters draw Phi and xi
+# jointly up to this dimension (ops/gibbs.py::_JOINT_MAX_DIM, which a test
+# holds equal) and block by block above it, so K1 serves D up to here.
+K1_MAX_DIM = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +199,9 @@ def _library():
         lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, ctypes.c_float,
                                          i, p]
         lib.bfmmm_chol_solve.restype = i
+        lib.bfmmm_chol_solve_panels.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                                ctypes.c_float, p]
+        lib.bfmmm_chol_solve_panels.restype = i
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
         lib.bfmmm_mean_rss_grad.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
@@ -300,6 +313,17 @@ K1_TILES = (6, 8)
 # factored at a time; 16 was slower on the card, utils/k1_probe.py)
 K1_BLOCKED_THREADS = 512
 K1_PANEL = 32
+# K1's panels kernels (csrc/chol_solve_panels.cu): threads a block of each
+# launch, and the side of a trailing-update tile
+K1_PANELS_THREADS = {"prologue": 256, "panel": 128, "update": 256,
+                     "solve": 512}
+K1_PANELS_TILE = 64
+
+
+def panels_ld(D):
+    """Row stride of the panels kernel's workspace: D rounded up to a
+    multiple of 4 floats, so that every row starts on 16 bytes."""
+    return -(-D // 4) * 4
 
 
 def chol_solve_plan(C, D):
@@ -311,17 +335,36 @@ def chol_solve_plan(C, D):
     padded with the identity in registers.  ``"blocked"`` keeps the packed
     lower triangle in shared memory and factors it a ``panel`` of columns
     at a time, for every other D up to ``chol_solve_max_dim()``.  One chain
-    a block in both.  A larger D raises NotImplementedError.  Returns
-    {"kernel", "threads", "tile" (None but for the tiled kernel), "panel"
-    (None but for the blocked kernel), "smem": bytes a block, "grid"}.
+    a block in both, one launch a call.  ``"panels"`` serves the D above
+    that up to ``K1_MAX_DIM``: the same panels, the matrix in a workspace
+    (C, D + 1, ``ld``) in device memory, many blocks a chain (``threads``
+    a block of each of its four kernels; ``tile`` the trailing update's)
+    and ``launches`` launches a call.  A larger D raises
+    NotImplementedError.  Returns {"kernel", "threads", "tile" (None for
+    the blocked kernel), "panel" (None for the tiled kernel), "smem": bytes
+    a block at most, "grid": chains (the first axis of every launch's
+    grid), "ld" (None but for the panels kernel), "workspace": bytes of
+    scratch the wrapper allocates, "launches"}.
     """
     if min(C, D) < 1:
         raise ValueError(f"chol_solve_plan: empty shape {(C, D)}")
-    if D > chol_solve_max_dim():
+    if D > K1_MAX_DIM:
         raise NotImplementedError(
-            f"chol_solve: D={D} exceeds {chol_solve_max_dim()}, the largest "
-            f"dimension whose lower triangle fits one block's shared memory; "
-            f"the path beyond it is ROADMAP item 'K1 large-D'")
+            f"chol_solve: D={D} exceeds {K1_MAX_DIM}, the largest joint draw "
+            f"of the Gibbs updaters, which draw the blocks one after "
+            f"another above it")
+    if D > chol_solve_max_dim():
+        ld = panels_ld(D)
+        # the trailing update's two slices of the panel (rows padded by
+        # one), or the back substitutions' u and v
+        smem = max(4 * 2 * K1_PANELS_TILE * (K1_PANEL + 1), 4 * 2 * D)
+        return {"kernel": "panels", "threads": dict(K1_PANELS_THREADS),
+                "tile": (K1_PANELS_TILE, K1_PANELS_TILE), "panel": K1_PANEL,
+                "smem": smem, "grid": C, "ld": ld,
+                "workspace": 4 * C * ((D + 1) * ld + K1_PANEL * K1_PANEL),
+                # the prologue, a panel solve a panel, a trailing update
+                # for every panel but the last, the back substitutions
+                "launches": 2 * -(-D // K1_PANEL) + 1}
     for TS in K1_TILES:
         DP = K1_GRID * TS
         if D <= DP:
@@ -331,17 +374,17 @@ def chol_solve_plan(C, D):
             floats = DP * (DP + 4) + 2 * buf + 2 * DP + K1_GRID ** 2 // 32
             return {"kernel": "tiled", "threads": (K1_GRID, K1_GRID),
                     "tile": (TS, TS), "panel": None, "smem": 4 * floats,
-                    "grid": C}
+                    "grid": C, "ld": None, "workspace": 0, "launches": 1}
     return {"kernel": "blocked", "threads": (K1_BLOCKED_THREADS,),
             "tile": None, "panel": K1_PANEL, "smem": 4 * _blocked_floats(D),
-            "grid": C}
+            "grid": C, "ld": None, "workspace": 0, "launches": 1}
 
 
 def chol_solve_code(plan):
     """The kernel code of csrc/chol_solve.cu's entry point for a plan: the
     tile side of the register-tiled kernel, or minus the panel width of the
-    blocked one."""
-    return plan["tile"][0] if plan["tile"] else -plan["panel"]
+    blocked one.  The panels kernel has an entry point of its own."""
+    return plan["tile"][0] if plan["kernel"] == "tiled" else -plan["panel"]
 
 
 def add_jitter(A, jitter):
@@ -408,7 +451,11 @@ def chol_solve_blocked_plain(A, b, z, jitter=0.0):
     with multiplication by those reciprocals, and the trailing part by one
     product; then both back substitutions by multiplication with the
     reciprocals.  Same function as ``chol_solve_plain``; nothing on the
-    main path calls it."""
+    main path calls it.  The blocked kernel (csrc/chol_solve.cu) repeats
+    this order of work, and the panels kernel (csrc/chol_solve_panels.cu)
+    too, but for the order of the sums in its trailing update (a fused
+    multiply-add a column of the panel) and its back substitutions (a
+    panel of rows at a time)."""
     C, D = b.shape
     M = torch.cat([A, b[:, None, :]], 1).tril()      # rows 0..D; row D is b
     if jitter != 0.0:
@@ -448,8 +495,10 @@ def chol_solve(A, b, z, jitter=0.0):
     """(mean, noise) of the precision draw, per chain: A (C, D, D) SPD,
     b and z (C, D) -> mean = A^-1 b, noise = chol(A)^-T z, both (C, D).
     With ``jitter`` > 0 the kernel factors A + jitter * (tr(A) / D + 1) * I,
-    adding to the diagonal it holds on chip.  On the card a D above
-    ``chol_solve_max_dim()`` raises NotImplementedError."""
+    adding to the diagonal it holds.  On the card a D above ``K1_MAX_DIM``
+    raises NotImplementedError.  A call counts one launch in ``LAUNCHES``,
+    however many the panels kernel makes inside it; that kernel's
+    workspace is allocated here, and A is never written."""
     if not _route("chol_solve", A):
         return chol_solve_plain(A, b, z, jitter)
     C, D = b.shape
@@ -459,10 +508,21 @@ def chol_solve(A, b, z, jitter=0.0):
         return mean, noise
     plan = chol_solve_plan(C, D)
     with torch.cuda.device(A.device):
-        rc = _library().bfmmm_chol_solve(
-            A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-            noise.data_ptr(), C, D, float(jitter), chol_solve_code(plan),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan["kernel"] == "panels":
+            work = torch.empty(C, D + 1, plan["ld"], dtype=b.dtype,
+                               device=b.device)
+            diag = torch.empty(C, K1_PANEL, K1_PANEL, dtype=b.dtype,
+                               device=b.device)
+            rc = _library().bfmmm_chol_solve_panels(
+                A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
+                noise.data_ptr(), work.data_ptr(), diag.data_ptr(), C, D,
+                plan["ld"], float(jitter), stream)
+        else:
+            rc = _library().bfmmm_chol_solve(
+                A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
+                noise.data_ptr(), C, D, float(jitter), chol_solve_code(plan),
+                stream)
     _launched("chol_solve", rc)
     return mean, noise
 

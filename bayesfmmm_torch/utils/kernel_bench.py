@@ -15,7 +15,10 @@ turns, forwards then backwards, ``--rounds`` times on the same inputs, so
 the inputs stay warm in L2 as the sampler's B and G do; the figure kept is
 the median over rounds of the device time per call (the profiler's summed
 durations of the card's work, so neither the host's pace nor its syncs
-count); ``by_kernel`` splits the kernel's figure by CUDA kernel name.
+count): every launch a call makes is in it, by name the launches a call
+times their mean, so K1's panels kernel, 2 ceil(D / 32) + 1 launches of
+four kernels a call, counts whole; ``by_kernel`` splits the kernel's
+figure by CUDA kernel name.
 
 ``--baseline DIR`` also loads ``ops/kernels.py`` of DIR, an earlier
 revision's ``bayesfmmm_torch`` directory (``git archive REV bayesfmmm_torch
@@ -29,7 +32,9 @@ of K1 that can serve D=96 (the register kernel's tiles, the blocked
 kernel; and, in groups of their own, D=32, 64 and 128, and
 D=129, 200, 240, 256 and 334 at 256 and at 16 chains, and D=256 at 64
 chains; at D=256 also the plain version and the three ``torch.linalg``
-calls) beside the plan's choice.  K1's
+calls) beside the plan's choice, and K1's panels kernel at (16, 512),
+(256, 512), (64, 400), (4, 1024) and (1, 4096) beside the plain version
+and the three ``torch.linalg`` calls.  K1's
 group also times ``jitter_ops``, the PyTorch ops that built
 A + jitter * scale * I before K1 took the jitter inside.  Prints the
 card's name and power limit and one JSON object.  Needs one card.
@@ -144,14 +149,16 @@ def paced_ms(fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
-def in_turns(candidates, rounds):
+def in_turns(candidates, rounds, reps=50):
     """{name: {"device_ms": median, "rounds": [...]}} for a dict of
-    callables timed in turns: forwards on even rounds, backwards on odd."""
+    callables timed in turns: forwards on even rounds, backwards on odd;
+    each round ``reps`` calls (fewer where a call starts thousands of
+    kernels, whose trace the profiler takes seconds to read)."""
     times = {name: [] for name in candidates}
     order = list(candidates)
     for r in range(rounds):
         for name in (order if r % 2 == 0 else reversed(order)):
-            times[name].append(device_ms(candidates[name]))
+            times[name].append(device_ms(candidates[name], reps=reps))
     return {name: {"device_ms": statistics.median(t), "rounds": t}
             for name, t in times.items()}
 
@@ -195,8 +202,8 @@ def library_weighted_gram(W, G):
 def library_chol_solve(A, b, z):
     """K1's function by the library: the three ``torch.linalg`` calls (one
     factorization, two triangular solves, the second on both right-hand
-    sides).  A yardstick only; on the card the package calls it for no D a
-    kernel serves."""
+    sides).  A yardstick only; on the card the package calls it for no
+    D."""
     L = torch.linalg.cholesky_ex(A).L
     w = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     return torch.linalg.solve_triangular(
@@ -367,6 +374,15 @@ def main(argv=None):
                     lambda xd=xd: kernels.chol_solve_plain(*xd))
                 groups[name]["library"] = (
                     lambda xd=xd: library_chol_solve(*xd))
+        for C_, D_ in ((16, 512), (CHAINS, 512), (64, 400), (4, 1024),
+                       (1, kernels.K1_MAX_DIM)):
+            xd = spd(g, C_, D_, dev)
+            name = f"chol_solve_c{C_}_d{D_}"
+            shapes[name] = ("chol_solve", dict(C=C_, D=D_))
+            groups[name] = {
+                "kernel": lambda xd=xd: kernels.chol_solve(*xd),
+                "plain": lambda xd=xd: kernels.chol_solve_plain(*xd),
+                "library": lambda xd=xd: library_chol_solve(*xd)}
 
     result = {}
     for name, cands in groups.items():

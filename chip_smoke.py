@@ -11,13 +11,16 @@ only with every other phase, whose launch counts they read):
   1. [build] build the CUDA kernels from bayesfmmm_torch/csrc with nvcc;
   2. [k1] K1 chol_solve against its plain version (torch.linalg) at the main
      paths' shapes (D = 96; D = 256 at 16, 64 and 256 chains, the joint xi
-     and hd Phi draws; D = 60 and 72), at shapes that take each of its two
-     kernels, odd D of the blocked one, its smallest and its largest, and at
-     every D the register-tiled kernel serves with a ragged chain count;
+     and hd Phi draws; D = 512 at 16 and 256 chains, the joint xi draw at
+     two covariates; D = 60 and 72), at shapes that take each of its three
+     kernels, odd D of the blocked one, its smallest and its largest, the
+     panels kernel's smallest D, D neither a multiple of 4 nor of 32, an hd
+     Phi draw on a 5 x 5 basis (64, 400) and its largest D up to 4,096, and
+     at every D the register-tiled kernel serves with a ragged chain count;
      each without and with the jitter, the same bits from two calls, and the
-     blocked kernel's first two chains also against its own plain version
-     (which repeats its arithmetic a panel at a time) on the card; and a D
-     above every kernel, which must raise and launch nothing;
+     blocked and panels kernels' first two chains also against the blocked
+     kernel's plain version (which repeats their panels) on the card; and a
+     D above 4,096, which must raise and launch nothing;
   3. [k2] K2 mean_rss against its plain version (einsum + sum) at the main
      paths' shapes (C and the MGP-scale moves' 2C chain rows; the hd
      family's P = 16, L = 144) and a padded one, with and without mu, the
@@ -54,12 +57,16 @@ only with every other phase, whose launch counts they read):
      16 chains in the reference census, then from the same medians a
      256-chain ensemble in the production census with a tempered excursion,
      checkpointed, resumed, and held bit for bit against the unbroken run;
+     config 4's model at two covariates (D=2, the joint xi draw at K*M*D*P =
+     512 dimensions on K1's panels kernel) by the same protocol, without the
+     resume, with the production ensemble's peak device memory;
      config 3 (K=3, M=3, N=100, D=2, eta; 8 chains) through
      phase_warm_start(covariate_mean=True); config 1 (multivariate, K=2,
      P=10, M=3, N=200; 4 chains) and config 5 (hd, K=4, P=16, M=4, 64
      surfaces on a 12 x 12 grid; 64 chains) through api.fit; the launch
      counts of every phase as the code predicts them (config 4: K1 twice a
-     phase-3 sweep, both at a shape the blocked kernel serves; config 1: no
+     phase-3 sweep, both at a shape the blocked kernel serves, and at D=2
+     Phi's on the blocked kernel and xi's on the panels kernel; config 1: no
      K2, no K3), counted shape by shape; and the fit smoke's phase 3
      once more from the JAX package's own phase-1/2 medians, inside the
      tight limits of tests/data/torch_fit_reference.json;
@@ -139,9 +146,11 @@ only with every other phase, whose launch counts they read):
      the jitter inside; the blocked K1 kernel at (16, 64, 256) x 256 beside
      the three torch.linalg calls, K2 and K3 at slice 6's shapes, each
      kernel at PT's shapes (K1 at R and one chain, K2 at R and 2R, K3 at
-     3R), and ms,
-     kernels and device-busy ms a sweep of configs 4 (16 and 256 chains), 3,
-     1 and 5.
+     3R), K1's panels kernel at (16, 512) and (256, 512) of the two-covariate
+     path and at (64, 400), (4, 1024) and (1, 4096) beside the three
+     torch.linalg calls, and ms, kernels and device-busy ms a sweep of
+     configs 4 (16 and 256 chains), 4 at two covariates (16 and 256), 3, 1
+     and 5.
 
 It then prints the card's name and power limit, one JSON line of kernel
 numbers, and as its last line {"ok": true, "device": {...}}.  Where the
@@ -233,6 +242,18 @@ FAMILY_PROTOCOLS = {
     "config4": dict(
         name="CovAdjCov_xi_fullM", family="functional", seed=7, N=80, K=2,
         P=8, M=16, D=1, n_time=[100, 100], with_eta=True, with_xi=True,
+        init="spectral", n_try=3, nu_z_iters=200, theta_iters=200,
+        fit_seeds=[0, 1, 2],
+        reference=dict(kernels="reference", warm_iters=100, chains=16,
+                       port_chains=16),
+        production=dict(kernels="production", warm_iters=200, chains=16,
+                        port_chains=256, n_temp_trans=100, N_t=2,
+                        beta_N_t=0.7)),
+    # config 4's model at config 3's two covariates: the joint xi draw at
+    # K*M*D*P = 512, on K1's panels kernel
+    "config4_D2": dict(
+        name="CovAdjCov_xi_fullM_D2", family="functional", seed=7, N=80, K=2,
+        P=8, M=16, D=2, n_time=[100, 100], with_eta=True, with_xi=True,
         init="spectral", n_try=3, nu_z_iters=200, theta_iters=200,
         fit_seeds=[0, 1, 2],
         reference=dict(kernels="reference", warm_iters=100, chains=16,
@@ -335,6 +356,13 @@ PHASES = ("build", "k1", "k2", "k3", "slice", "production", "fit",
           "families", "refapi", "tempering", "hmc", "advi", "timings")
 
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
+# K1's panels kernel on the path: config 4's model at two covariates, the
+# joint xi draw at 512 dimensions at its reference and production chains
+K1_PANELS_PATH = ((16, 512), (CHAINS, 512))
+# calls a round when the panels kernel is timed: its call and torch.linalg's
+# start dozens to thousands of kernels, whose traces the profiler reads
+# slowly (the five shapes took 115 s at 50 calls a round)
+K1_PANELS_REPS = 10
 K2_TOL = {"rss_rtol": 1e-5, "mu": 2e-5}     # tests/test_pallas_kernels.py
 # tests/test_pallas_kernels.py:46-47, the absolute part scaled by N/21
 K3_TOL = {"rtol": 2e-5, "atol_per_21": 2e-5}
@@ -347,8 +375,9 @@ def check(ok, what):
 
 def k1_case(dev, g, C, D, jitter):
     """One shape and jitter: the kernel twice against the plain version,
-    and the blocked kernel's first two chains against its own plain
-    version; returns (max |mean - plain|, max |noise - plain|)."""
+    and the blocked and panels kernels' first two chains against the
+    blocked kernel's plain version; returns (max |mean - plain|, max |noise
+    - plain|)."""
     A, b, z = spd(g, C, D, dev)
     mean, noise = kernels.chol_solve(A, b, z, jitter)
     mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
@@ -362,14 +391,15 @@ def k1_case(dev, g, C, D, jitter):
     check(e_mean <= K1_TOL["mean"] and e_noise <= K1_TOL["noise"],
           f"K1 disagrees with its plain version at C={C} D={D} "
           f"jitter={jitter}: mean {e_mean:.3e}, noise {e_noise:.3e}")
-    if kernels.chol_solve_plan(C, D)["kernel"] == "blocked":
+    kernel = kernels.chol_solve_plan(C, D)["kernel"]
+    if kernel in ("blocked", "panels"):
         mean_b, noise_b = kernels.chol_solve_blocked_plain(
             A[:2], b[:2], z[:2], jitter)
         e_b = ((mean[:2] - mean_b).abs().max().item(),
                (noise[:2] - noise_b).abs().max().item())
         check(e_b[0] <= K1_TOL["mean"] and e_b[1] <= K1_TOL["noise"],
-              f"K1's blocked kernel disagrees with its own plain version at "
-              f"C={C} D={D} jitter={jitter}: mean {e_b[0]:.3e}, noise "
+              f"K1's {kernel} kernel disagrees with the blocked plain version "
+              f"at C={C} D={D} jitter={jitter}: mean {e_b[0]:.3e}, noise "
               f"{e_b[1]:.3e}")
         e_mean, e_noise = max(e_mean, e_b[0]), max(e_noise, e_b[1])
     return e_mean, e_noise
@@ -412,29 +442,38 @@ def k1_phase(dev, g):
                  (2, 334), (2, top),
                  # slice 10: PT's pilot (one chain), the geometric ladder's
                  # 8 replicas and the auto ladder's most (max_replicas)
-                 (1, 96), (8, 96), (PT_PROTOCOL["max_replicas"], 96)):
+                 (1, 96), (8, 96), (PT_PROTOCOL["max_replicas"], 96),
+                 # slice 14, the panels kernel: the joint xi draw at two
+                 # covariates at config 4's 16 and 256 chains, an hd Phi
+                 # draw on a 5 x 5 basis (K = M = 4) at 64, the smallest D,
+                 # D neither a multiple of 4 nor of 32, and the largest
+                 *K1_PANELS_PATH, (64, 400), (2, top + 1), (3, 401),
+                 (2, 1000), (4, 1024), (2, 2048), (1, kernels.K1_MAX_DIM)):
         for jitter in (0.0, 1e-6):
             e_mean, e_noise = k1_case(dev, g, C, D, jitter)
             kernel = kernels.chol_solve_plan(C, D)["kernel"]
-            check(kernel == ("tiled" if D <= 128 else "blocked"),
+            check(kernel == ("tiled" if D <= 128 else "blocked" if D <= 336
+                             else "panels"),
                   f"K1 C={C} D={D} is served by the {kernel} kernel")
             print(f"  K1 chol_solve C={C} D={D} jitter={jitter} "
                   f"({kernel} kernel): max|mean-plain|={e_mean:.3e} (tol "
                   f"{K1_TOL['mean']}), max|noise-plain|={e_noise:.3e} (tol "
                   f"{K1_TOL['noise']}), same bits twice"
-                  + (", its own plain version on the first two chains too"
-                     if kernel == "blocked" else ""))
+                  + (", the blocked plain version on the first two chains "
+                     "too" if kernel != "tiled" else ""))
             worst = max(worst, e_mean, e_noise)
-    # a D above every kernel raises: nothing gives way to torch.linalg
+    # a D above the joint draws' ceiling raises: nothing gives way to
+    # torch.linalg
+    over = kernels.K1_MAX_DIM + 1
     before = kernels.LAUNCHES["chol_solve"]
     try:
-        kernels.chol_solve(*spd(g, 2, top + 1, dev), 1e-6)
+        kernels.chol_solve(*spd(g, 1, over, dev), 1e-6)
     except NotImplementedError as e:
-        print(f"  K1 chol_solve D={top + 1} raises: {e}")
+        print(f"  K1 chol_solve D={over} raises: {e}")
     else:
-        check(False, f"K1 D={top + 1}, which no kernel serves, did not raise")
+        check(False, f"K1 D={over}, which no kernel serves, did not raise")
     check(kernels.LAUNCHES["chol_solve"] == before,
-          f"K1 D={top + 1} launched a kernel")
+          f"K1 D={over} launched a kernel")
     check(_refuses_float64(dev),
           "a float64 tensor reached a kernel on the card")
     print("  K1, K2, K3: a float64 tensor on the card raises by name")
@@ -675,16 +714,19 @@ class ShapeProbe:
 
     def check_k1(self, what, kernel):
         """Every K1 launch counted here was at a shape ``kernel`` serves,
-        and there was one."""
+        and there was one; ``kernel`` a name, or {D: name}, every D of
+        which was launched and no other."""
         shapes = [shape for (name, shape), n in self.counts.items()
                   if name == "chol_solve" and n]
+        want = kernel if isinstance(kernel, dict) else None
         check(shapes and all(
-            kernels.chol_solve_plan(*shape)["kernel"] == kernel
-            for shape in shapes),
-            f"{what}: K1 launched at {shapes}, not all the {kernel} "
-            f"kernel's")
+            kernels.chol_solve_plan(*shape)["kernel"]
+            == (want.get(shape[1]) if want else kernel) for shape in shapes)
+            and (want is None or {D for _, D in shapes} == set(want)),
+            f"{what}: K1 launched at {shapes}, not at the shapes of "
+            f"{kernel}")
         print(f"  {what}: every K1 launch at a shape of the {kernel} "
-              f"kernel: {shapes}")
+              f"kernel{'s' if want else ''}: {shapes}")
 
 
 class PhaseProbe:
@@ -1007,16 +1049,25 @@ def finite_result(what, res, chains, n):
               f"{what}: trace {f} malformed")
 
 
-def config4_phase(dev, card):
-    """Config 4 through api.fit with covariate_cov=True; returns the
-    counters of the whole path and the ms a sweep of its two ensembles."""
-    ref, rule = family_reference("config4")
-    p = FAMILY_PROTOCOLS["config4"]
+def config4_phase(dev, card, name="config4"):
+    """Config 4 through api.fit with covariate_cov=True, or its model at two
+    covariates (``name`` "config4_D2", whose joint xi draw of 512
+    dimensions takes K1's panels kernel; no resume, which config 4 shows);
+    returns the counters of the whole path, the launches by shape, the ms a
+    sweep of its two ensembles and the production ensemble's peak device
+    memory in bytes."""
+    ref, rule = family_reference(name)
+    p = FAMILY_PROTOCOLS[name]
     pr, pp = p["reference"], p["production"]
-    data, cfg = family_data(dev, "config4")
-    check(data.D == 1 and p["K"] * p["M"] * p["P"] == 256
-          and p["K"] * p["M"] * p["D"] * p["P"] == 256,
-          "config 4 does not draw Phi and xi at 256 dimensions")
+    data, cfg = family_data(dev, name)
+    what = "config 4" if name == "config4" else "config 4 at D = 2"
+    D_xi = p["K"] * p["M"] * p["D"] * p["P"]
+    # K1's kernel at each joint draw: Phi's 256 dimensions and xi's
+    want_k1 = {256: "blocked", D_xi: "blocked" if p["D"] == 1 else "panels"}
+    check(data.D == p["D"] and p["K"] * p["M"] * p["P"] == 256
+          and D_xi == 256 * p["D"],
+          f"{what} does not draw Phi at 256 dimensions and xi at {D_xi}")
+    resume = name == "config4"
     seed = p["fit_seeds"][0]
     kernels.reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp, PhaseProbe() as probe, \
@@ -1029,64 +1080,90 @@ def config4_phase(dev, card):
                      warm_iters=pr["warm_iters"], n_chains=pr["port_chains"],
                      kernels=pr["kernels"], seed=seed, progress=False)
         r1, r2 = probe.calls[0][1], probe.calls[1][1]
-        check(ra.config == cfg, f"config 4: fitted {ra.config}")
+        check(ra.config == cfg, f"{what}: fitted {ra.config}")
         # from the same medians, 256 chains of the production census with a
         # tempered excursion, checkpointed
         warm = dict(kernels=pp["kernels"], n_temp_trans=pp["n_temp_trans"],
                     N_t=pp["N_t"], beta_N_t=pp["beta_N_t"], progress=False)
         C, n = pp["port_chains"], pp["warm_iters"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         rb = api.fit_warm_start(r1, r2, tot_mcmc_iters=n, n_chains=C,
                                 seed=seed + 2, checkpoint_to=ck, **warm)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
         counts, by_shape = counters(), dict(shapes.counts)
-        # the resume continues the unbroken run bit for bit
-        rc = api.fit_warm_start(resume_from=ck, data=data,
-                                tot_mcmc_iters=RESUME_SWEEPS, **warm)
-        whole = api.fit_warm_start(r1, r2, tot_mcmc_iters=n + RESUME_SWEEPS,
-                                   n_chains=C, seed=seed + 2, **warm)
-    (_, _, s1, c1), (_, _, s2, c2), (_, _, sa, ca), (_, _, sb, cb), \
-        (_, _, sc, cc), _ = probe.calls
+        if resume:
+            # the resume continues the unbroken run bit for bit
+            rc = api.fit_warm_start(resume_from=ck, data=data,
+                                    tot_mcmc_iters=RESUME_SWEEPS, **warm)
+            whole = api.fit_warm_start(
+                r1, r2, tot_mcmc_iters=n + RESUME_SWEEPS, n_chains=C,
+                seed=seed + 2, **warm)
+    (_, _, s1, c1), (_, _, s2, c2), (_, _, sa, ca), (_, _, sb, cb) = \
+        probe.calls[:4]
     n1, n2, na = p["nu_z_iters"], p["theta_iters"], pr["warm_iters"]
-    finite_result("config 4 reference", ra, pr["port_chains"], na)
-    finite_result("config 4 production", rb, C, n)
-    check(rc.config == ra.config and rc.config.covariate_cov,
-          f"config 4: resumed as {rc.config}")
-    check_counts("config 4 phase 1", c1,
+    finite_result(f"{what} reference", ra, pr["port_chains"], na)
+    finite_result(f"{what} production", rb, C, n)
+    check_counts(f"{what} phase 1", c1,
                  {k: v * n1 for k, v in per_sweep("nu_z", "eta").items()})
-    check_counts("config 4 phase 2", c2,
+    check_counts(f"{what} phase 2", c2,
                  {k: v * n2 for k, v in per_sweep("theta", "xi").items()})
-    check_counts("config 4 phase 3, 16 chains, reference census", ca,
+    check_counts(f"{what} phase 3, {pr['port_chains']} chains, reference "
+                 f"census", ca,
                  phase3_launches(per_sweep("reference", "xi"), na)[1])
     n_exc, want = phase3_launches(per_sweep("production", "xi"), n,
                                   pp["n_temp_trans"], pp["N_t"])
-    check_counts(f"config 4 phase 3, {C} chains, production census, "
+    check_counts(f"{what} phase 3, {C} chains, production census, "
                  f"{n_exc} excursion", cb, want)
-    check_counts(
-        "config 4 resume", cc,
-        phase3_launches(per_sweep("production", "xi"), RESUME_SWEEPS,
-                        pp["n_temp_trans"], pp["N_t"], start=n)[1])
-    shapes.check_k1("config 4", "blocked")
-    check(ca["chol_solve"] == 2 * na
-          and by_shape[("chol_solve", (pr["port_chains"], 256))] == 2 * na,
-          "config 4: K1 did not launch twice a phase-3 sweep at D = 256")
+    shapes.check_k1(what, want_k1)
+    # a phase-3 sweep draws Phi and xi once each, both at 256 at D = 1
+    draws = {D: [256, D_xi].count(D) for D in want_k1}
+    for D, k in draws.items():
+        check(by_shape[("chol_solve", (pr["port_chains"], D))] == k * na
+              and by_shape[("chol_solve", (C, D))]
+              == k * want["chol_solve"] // 2,
+              f"{what}: K1 did not launch {k} times a phase-3 sweep at "
+              f"D = {D}")
+    # update_eta's K3 at R = C D K once a phase-3 sweep of either ensemble
+    # (at D = 1 update_nu's R = C K is the same shape)
+    for R, times in ((pr["port_chains"] * p["D"] * p["K"], na),
+                     (C * p["D"] * p["K"], want["weighted_gram"] // 2)):
+        got = by_shape.get(("weighted_gram", (R, p["N"], p["P"])))
+        check(got == times * (2 if p["D"] == 1 else 1),
+              f"{what}: K3 at R = {R} (update_eta) launched {got} times")
     check(rb.tt_accept.shape == (C, n_exc) and n_exc == 1,
-          f"config 4: {rb.tt_accept.shape} excursion decisions")
-    check(np.array_equal(whole.all_chain_loglik[:, :n], rb.all_chain_loglik)
-          and np.array_equal(whole.all_chain_loglik[:, n:],
-                             rc.all_chain_loglik),
-          f"config 4: {n} + {RESUME_SWEEPS} sweeps through the checkpoint "
-          f"are not the unbroken run's loglik traces")
-    for f in STATE_FIELDS:
-        check(torch.equal(getattr(whole.ensemble_state, f),
-                          getattr(rc.ensemble_state, f)),
-              f"config 4 split run: final ensemble differs in {f}")
-    print(f"  config 4: {n} + {RESUME_SWEEPS} sweeps through the checkpoint "
-          f"gave the bits of one {n + RESUME_SWEEPS}-sweep run; excursion "
-          f"accepted by {int(rb.tt_accept.sum())} of {C} chains")
-    gate("config 4 reference (16 chains)", ref["reference"], rule,
+          f"{what}: {rb.tt_accept.shape} excursion decisions")
+    if resume:
+        _, _, _, cc = probe.calls[4]
+        check(rc.config == ra.config and rc.config.covariate_cov,
+              f"{what}: resumed as {rc.config}")
+        check_counts(
+            f"{what} resume", cc,
+            phase3_launches(per_sweep("production", "xi"), RESUME_SWEEPS,
+                            pp["n_temp_trans"], pp["N_t"], start=n)[1])
+        check(np.array_equal(whole.all_chain_loglik[:, :n],
+                             rb.all_chain_loglik)
+              and np.array_equal(whole.all_chain_loglik[:, n:],
+                                 rc.all_chain_loglik),
+              f"{what}: {n} + {RESUME_SWEEPS} sweeps through the checkpoint "
+              f"are not the unbroken run's loglik traces")
+        for f in STATE_FIELDS:
+            check(torch.equal(getattr(whole.ensemble_state, f),
+                              getattr(rc.ensemble_state, f)),
+                  f"{what} split run: final ensemble differs in {f}")
+        print(f"  {what}: {n} + {RESUME_SWEEPS} sweeps through the "
+              f"checkpoint gave the bits of one {n + RESUME_SWEEPS}-sweep "
+              f"run")
+    print(f"  {what}: excursion accepted by {int(rb.tt_accept.sum())} of "
+          f"{C} chains; peak device memory of the production ensemble "
+          f"{peak} bytes")
+    gate(f"{what} reference ({pr['port_chains']} chains)", ref["reference"],
+         rule,
          ra.all_chain_loglik[:, -1], ra.ensemble_state.sigma2.cpu())
-    gate(f"config 4 production ({C} chains)", ref["production"], rule,
+    gate(f"{what} production ({C} chains)", ref["production"], rule,
          rb.all_chain_loglik[:, -1], rb.ensemble_state.sigma2.cpu())
-    print(f"  config 4 on {card}: phase 1 {s1 / n1 * 1e3:.3f} ms per sweep of "
+    print(f"  {what} on {card}: phase 1 {s1 / n1 * 1e3:.3f} ms per sweep of "
           f"{p['n_try'] + 1} chains, phase 2 {s2 / n2 * 1e3:.3f} ms per sweep "
           f"of {p['n_try']} chains, phase 3 reference "
           f"{sa / na * 1e3:.3f} ms per sweep of 16 chains, production "
@@ -1094,9 +1171,9 @@ def config4_phase(dev, card):
           f"({C * n / sb:.1f} chain-sweeps/s; the excursion, host copies "
           f"and the checkpoint included)")
     check(counts == {k: c1[k] + c2[k] + ca[k] + cb[k] for k in c1},
-          f"config 4: launches {counts} are not its four phases' sum")
-    return counts, by_shape, {"config4 16 chains": sa / na * 1e3,
-                              "config4 256 chains": sb / n * 1e3}
+          f"{what}: launches {counts} are not its four phases' sum")
+    return counts, by_shape, {f"{name} 16 chains": sa / na * 1e3,
+                              f"{name} 256 chains": sb / n * 1e3}, peak
 
 
 def config3_phase(dev, card):
@@ -2435,9 +2512,13 @@ def main(argv=None):
         lap("fit")
 
     if "families" in phases:
-        c4_path, c4_shapes, ms4 = config4_phase(dev, card)
+        c4_path, c4_shapes, ms4, _ = config4_phase(dev, card)
         print("phase 8 slice 6 path, config 4 (eta and xi through api.fit, K1 "
               "at D = 256): ok")
+        c4d2_path, c4d2_shapes, ms4d2, c4d2_peak = config4_phase(
+            dev, card, "config4_D2")
+        print("phase 8 slice 14 path, config 4 at two covariates (eta and xi "
+              "through api.fit, K1's panels kernel at D = 512): ok")
         c3, c3_shapes, ms3 = config3_phase(dev, card)
         print("phase 8 slice 6 path, config 3 (eta, sweep_full): ok")
         c1, _, ms1 = config1_phase(dev, card)
@@ -2445,10 +2526,11 @@ def main(argv=None):
               "api.fit): ok")
         c5, c5_shapes, ms5 = config5_phase(dev, card)
         print("phase 8 slice 6 path, config 5 (hd through api.fit): ok")
-        slice6 = {"config4": c4_path, "config3": c3, "config1": c1,
-                  "config5": c5}
+        slice6 = {"config4": c4_path, "config4_D2": c4d2_path, "config3": c3,
+                  "config1": c1, "config5": c5}
         for k in KERNEL_NAMES:
-            check(c4_path[k] > 0, f"config 4's path never launched {k}")
+            check(c4_path[k] > 0 and c4d2_path[k] > 0,
+                  f"config 4's paths never launched {k}")
         lap("families")
 
     if "refapi" in phases:
@@ -2579,6 +2661,20 @@ def main(argv=None):
             "weighted_gram_pt": ("weighted_gram", dict(R=3 * R, N=N, P=P),
                                  *fn3, pt_shapes),
         }
+        # slice 14: K1's panels kernel at the two-covariate path's shapes,
+        # and at shapes no path of the smoke reaches (an hd Phi draw on a
+        # 5 x 5 basis with K = M = 4, and larger D), with the jitter the
+        # sweep passes, beside the three torch.linalg calls
+        panels = {f"chol_solve_c{C1}_d{D1}": (C1, D1) for C1, D1 in (
+            *K1_PANELS_PATH, (64, 400), (4, 1024), (1, kernels.K1_MAX_DIM))}
+        for name, (C1, D1) in panels.items():
+            x[name] = spd(g6, C1, D1, dev)
+            timed[name] = ("chol_solve", dict(C=C1, D=D1), *fn1j)
+        panels_launched = {name: c4d2_shapes.get(("chol_solve", shape), 0)
+                           for name, shape in panels.items()}
+        for C1, D1 in K1_PANELS_PATH:
+            check(panels_launched[f"chol_solve_c{C1}_d{D1}"] > 0,
+                  f"config 4 at D = 2 never launched K1 at ({C1}, {D1})")
         launches6 = {}
         for name, (base, shape, *fns, by_shape) in timed6.items():
             launched = by_shape.get((base, tuple(shape.values())), 0)
@@ -2600,8 +2696,9 @@ def main(argv=None):
             if library is not None:
                 cands["library"] = lambda: library(*x[name])
             try:
-                t = {k: v["device_ms"]
-                     for k, v in in_turns(cands, rounds=3).items()}
+                t = {k: v["device_ms"] for k, v in in_turns(
+                    cands, rounds=3,
+                    reps=K1_PANELS_REPS if name in panels else 50).items()}
             except RuntimeError as e:
                 raise RuntimeError(f"timing {name} {shape}: {e}") from e
             t["paced"] = paced_ms(cands["kernel"])
@@ -2637,11 +2734,14 @@ def main(argv=None):
 
         # slice 6: ms, kernels and device-busy ms a sweep of each
         # configuration
-        sweeps6 = {**ms4, **ms3, **ms1, **ms5}
+        sweeps6 = {**ms4, **ms4d2, **ms3, **ms1, **ms5}
         profiles = {
             "config4 16 chains": sweep_profile(dev, "config4", 16, {}),
             "config4 256 chains": sweep_profile(dev, "config4", CHAINS,
                                                 api.PRODUCTION_FLAGS),
+            "config4_D2 16 chains": sweep_profile(dev, "config4_D2", 16, {}),
+            "config4_D2 256 chains": sweep_profile(
+                dev, "config4_D2", CHAINS, api.PRODUCTION_FLAGS),
             "config3": sweep_profile(dev, "config3", 8, {}),
             "config1": sweep_profile(dev, "config1", 4, api.PRODUCTION_FLAGS),
             "config5": sweep_profile(dev, "config5", 64, api.PRODUCTION_FLAGS),
@@ -2712,6 +2812,35 @@ def main(argv=None):
                             "kernel", "plain", "bound_ms", "bound_by")},
                         "library": ms[small].get("library")}}
 
+        def panels_entry():
+            """K1's panels kernel: its numbers at the production shape of
+            the two-covariate path, and at every shape it was timed at
+            under ``by_shape``; launches are those of that path (a call,
+            one launch counted, makes ``launches_a_call`` inside)."""
+            rows = []
+            for name in panels:
+                t = ms[name]
+                rows.append({
+                    "shape": timed[name][1],
+                    "launches": panels_launched[name],
+                    "launches_a_call": kernels.chol_solve_plan(
+                        *panels[name])["launches"],
+                    **{k: t[k] for k in ("bound_ms", "bound_by", "bytes",
+                                         "flop")},
+                    "ms": t["kernel"], "plain_ms": t["plain"],
+                    "library_ms": t["library"], "empty_ms": t["empty"]})
+            top = rows[[*panels].index(f"chol_solve_c{CHAINS}_d512")]
+            return {"name": "chol_solve_panels", "route": "cuda",
+                    "source": "bayesfmmm_torch/csrc/chol_solve_panels.cu",
+                    "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:228",
+                    "launches": sum(panels_launched.values()),
+                    "max_abs_err": k1_err,
+                    **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "shape")},
+                    "peak_bytes_config4_D2_production": c4d2_peak,
+                    "by_shape": rows}
+
         k2 = entry("mean_rss", "mean_rss_c8", "mean_rss.cu", 68, k2_err)
         # the MGP-scale moves' 2C chain rows, 4 of the production sweep's 7
         k2["at_2c_rows"] = {k: ms["mean_rss_2c"][k] for k in (
@@ -2719,7 +2848,8 @@ def main(argv=None):
         line["kernels"] = [
             entry("chol_solve", "chol_solve_c7", "chol_solve.cu", 228, k1_err),
             k2, entry("weighted_gram", "weighted_gram_r24", "weighted_gram.cu",
-                      122, k3_err), *(shape_entry(name) for name in timed6)]
+                      122, k3_err), *(shape_entry(name) for name in timed6),
+            panels_entry()]
         line.update(sweeps=profiles, rounds=rounds)
     if "hmc" in phases:
         if "advi" in phases:

@@ -1,8 +1,8 @@
 """Generate tests/data/torch_families_reference.json: the JAX package's
 results for the protocols that chip_smoke.py drives through the PyTorch port
 on four of the repo's own configurations (benchmarks/suite.py:27-78, data
-seed 7): the covariate-adjusted models and the multivariate and hd
-families.
+seed 7), and on config 4's model at two covariates: the covariate-adjusted
+models and the multivariate and hd families.
 
 The card's machine has no JAX, so chip_smoke.py holds the port against this
 file.  Protocols (``PROTOCOLS`` below has every number):
@@ -12,6 +12,9 @@ file.  Protocols (``PROTOCOLS`` below has every number):
     init with n_try restarts, then two phase-3 ensembles from the same
     medians: the reference census, and the production census with one
     tempered excursion;
+  * config4_D2, CovAdjCov_xi_fullM_D2: config 4's model and protocol at D=2
+    covariates (config 3's D), whose joint xi draw has K*M*D*P = 512
+    dimensions;
   * config 3, CovAdjMean_eta_D2_K3 (functional, K=3, P=8, M=3, N=100, D=2,
     eta): every chain from the spectral init (eta = 0), then
     sweep_full(covariate_mean=True), the first sweeps annealed, as in
@@ -34,7 +37,7 @@ JAX package restarts its iteration count in every chunk, so an excursion
 would never run otherwise).  Run one configuration or all (tens of minutes
 on the CPU; results of configurations not named are kept):
 
-    JAX_PLATFORMS=cpu python tests/data/make_torch_families_reference.py [4 3 1 5]
+    JAX_PLATFORMS=cpu python tests/data/make_torch_families_reference.py [4 4_D2 3 1 5]
 """
 
 import json
@@ -71,6 +74,18 @@ PROTOCOLS = {
     "config4": dict(
         name="CovAdjCov_xi_fullM", family="functional", seed=7, N=80, K=2,
         P=8, M=16, D=1, n_time=[100, 100], with_eta=True, with_xi=True,
+        init="spectral", n_try=3, nu_z_iters=200, theta_iters=200,
+        fit_seeds=[0, 1, 2],
+        reference=dict(kernels="reference", warm_iters=100, chains=16,
+                       port_chains=16),
+        production=dict(kernels="production", warm_iters=200, chains=16,
+                        port_chains=256, n_temp_trans=100, N_t=2,
+                        beta_N_t=0.7)),
+    # config 4's model at two covariates: the joint xi draw at
+    # K*M*D*P = 512 dimensions, above the blocked K1 kernel's 336
+    "config4_D2": dict(
+        name="CovAdjCov_xi_fullM_D2", family="functional", seed=7, N=80, K=2,
+        P=8, M=16, D=2, n_time=[100, 100], with_eta=True, with_xi=True,
         init="spectral", n_try=3, nu_z_iters=200, theta_iters=200,
         fit_seeds=[0, 1, 2],
         reference=dict(kernels="reference", warm_iters=100, chains=16,

@@ -187,15 +187,43 @@ def test_mean_rss_wide_p_raises_on_the_card(dev):
 
 
 def test_chol_solve_rejects_oversize_dimension(dev):
-    """A D above every kernel raises on the card and names the queued
-    item; nothing is launched and nothing goes to torch.linalg."""
-    D = kernels.chol_solve_max_dim() + 1
+    """A D above the joint draws' ceiling (4,096) raises on the card and
+    says why; nothing is launched and nothing goes to torch.linalg."""
+    D = kernels.K1_MAX_DIM + 1
     A = torch.eye(D, device=dev)[None]
     b = torch.zeros(1, D, device=dev)
     kernels.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="large-D"):
+    with pytest.raises(NotImplementedError, match="4097 exceeds 4096"):
         kernels.chol_solve(A, b, b, 1e-6)
     assert kernels.LAUNCHES["chol_solve"] == 0
+
+
+@pytest.mark.parametrize("jitter", [0.0, 1e-6])
+@pytest.mark.parametrize("C,D", [(2, 337), (3, 401), (2, 1000)])
+def test_chol_solve_panels_kernel_matches_plain(dev, C, D, jitter):
+    """The panels kernel (336 < D <= 4,096): its smallest D, D neither a
+    multiple of 4 nor of 32, and a last panel of 8 columns; against
+    torch.linalg to K1's tolerances and, for two chains, against the
+    blocked kernel's plain version, whose panels it repeats; the same bits
+    from two calls, one launch counted a call; A left as it was."""
+    assert kernels.chol_solve_plan(C, D)["kernel"] == "panels"
+    g = torch.Generator(device=dev).manual_seed(D + C)
+    A, b, z = _spd(g, C, D, dev)
+    A0 = A.clone()
+    kernels.reset_launch_counts()
+    mean, noise = kernels.chol_solve(A, b, z, jitter)
+    mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chol_solve"] == 2
+    assert torch.equal(mean, mean2) and torch.equal(noise, noise2)
+    assert torch.equal(A, A0)
+    mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
+    torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
+    torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
+    mean_t, noise_t = kernels.chol_solve_blocked_plain(
+        A[:2].cpu(), b[:2].cpu(), z[:2].cpu(), jitter)
+    torch.testing.assert_close(mean[:2].cpu(), mean_t, rtol=0, atol=5e-5)
+    torch.testing.assert_close(noise[:2].cpu(), noise_t, rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize("C,N,L,P,pad", [(256, 100, 100, 8, None),

@@ -104,8 +104,8 @@ def test_chol_solve_plan_owns_every_entry_once(C):
 def test_chol_solve_plan_main_path_and_limits():
     """D = 96 takes the register-tiled kernel with 16 x 16 threads and 6 x 6
     tiles, one chain a block, two blocks an SM; above the tiled kernel's
-    reach the blocked one; above 336 the plan raises and names the queued
-    item."""
+    reach the blocked one; above 336 the panels kernel, up to the joint
+    draws' ceiling of 4,096, above which the plan raises."""
     plan = kernels.chol_solve_plan(256, 96)
     assert plan["kernel"] == "tiled" and plan["threads"] == (16, 16)
     assert plan["tile"] == (6, 6) and plan["grid"] == 256
@@ -117,8 +117,9 @@ def test_chol_solve_plan_main_path_and_limits():
         assert kernels.chol_solve_plan(5, D)["tile"] == (8, 8)
     for D in (129, 200, 240, 241, 250, 256, 334, 336):
         assert kernels.chol_solve_plan(2, D)["kernel"] == "blocked"
-    with pytest.raises(NotImplementedError, match="337 exceeds 336.*large-D"):
-        kernels.chol_solve_plan(2, 337)
+    assert kernels.chol_solve_plan(2, 337)["kernel"] == "panels"
+    with pytest.raises(NotImplementedError, match="4097 exceeds 4096"):
+        kernels.chol_solve_plan(2, 4097)
     with pytest.raises(ValueError):
         kernels.chol_solve_plan(0, 96)
 
@@ -189,9 +190,9 @@ def test_chol_blocked_panels_own_every_entry_once():
 
 def test_chol_solve_rejects_oversize_dimension_on_any_device():
     """The wrapper's CPU route takes any D (the plain version) and counts
-    nothing; the plan, which the CUDA route asks, names the queued large-D
-    item."""
-    D = kernels.chol_solve_max_dim() + 1
+    nothing; the plan, which the CUDA route asks, refuses a D above the
+    joint draws' ceiling and says why."""
+    D = kernels.K1_MAX_DIM + 1
     A = torch.eye(D)[None] * 2.0
     b = torch.ones(1, D)
     kernels.reset_launch_counts()
@@ -199,7 +200,7 @@ def test_chol_solve_rejects_oversize_dimension_on_any_device():
     torch.testing.assert_close(mean, b / 2.0)
     torch.testing.assert_close(noise, b / 2.0 ** 0.5)
     assert kernels.LAUNCHES["chol_solve"] == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="one after another"):
         kernels.chol_solve_plan(1, D)
 
 
