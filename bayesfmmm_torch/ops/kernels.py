@@ -200,7 +200,7 @@ def _library():
                                          i, p]
         lib.bfmmm_chol_solve.restype = i
         lib.bfmmm_chol_solve_panels.argtypes = [p, p, p, p, p, p, p, i, i, i,
-                                                ctypes.c_float, p]
+                                                ctypes.c_float, i, i, i, p]
         lib.bfmmm_chol_solve_panels.restype = i
         lib.bfmmm_mean_rss.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.bfmmm_mean_rss.restype = i
@@ -313,17 +313,75 @@ K1_TILES = (6, 8)
 # factored at a time; 16 was slower on the card, utils/k1_probe.py)
 K1_BLOCKED_THREADS = 512
 K1_PANEL = 32
-# K1's panels kernels (csrc/chol_solve_panels.cu): threads a block of each
-# launch, and the side of a trailing-update tile
-K1_PANELS_THREADS = {"prologue": 256, "panel": 128, "update": 256,
-                     "solve": 512}
-K1_PANELS_TILE = 64
+# K1's panels kernels (csrc/chol_solve_panels.cu): the panel widths the C
+# entry point is instantiated for and the plan's (128 halves the passes over
+# the trailing triangle and the launches against 64, and was as fast or
+# faster at the five timed shapes: utils/kernel_bench.py --sweep), threads a
+# block of every launch, the side of a trailing-update tile, the columns a
+# cp.async stage of it holds, the rows a panel-product block takes, and the
+# most blocks of a back substitutions' cluster (above 8 a cluster is opt-in
+# on the H100)
+K1_PANELS_WIDTHS = (64, 128)
+K1_PANELS_WIDTH = 128
+K1_PANELS_THREADS = 256
+K1_PANELS_TILE = 128
+K1_PANELS_CHUNK = 32
+K1_PANELS_ROWS = 64
+K1_PANELS_MAX_CLUSTER = 16
+# the most shared memory a block takes without opting in
+SMEM_DEFAULT = 48 * 1024
 
 
 def panels_ld(D):
     """Row stride of the panels kernel's workspace: D rounded up to a
     multiple of 4 floats, so that every row starts on 16 bytes."""
     return -(-D // 4) * 4
+
+
+def panels_cluster(C, n_panels):
+    """Blocks a chain of the panels kernel's back substitutions: the largest
+    power of two cs up to ``K1_PANELS_MAX_CLUSTER`` and up to the panels
+    with C * cs blocks on the card's SMs; 1 above C = SM_COUNT / 2."""
+    cs = 1
+    while (2 * cs <= min(K1_PANELS_MAX_CLUSTER, n_panels)
+           and C * 2 * cs <= SM_COUNT):
+        cs *= 2
+    return cs
+
+
+def panels_update_blocks(C, D):
+    """Trailing-update blocks an SM the panels kernel is compiled for: 2
+    (128 registers a thread) from SM_COUNT / 2 chains on, where a launch's
+    tiles fill the card over and over; 1 (up to 255 registers, fewer
+    spills) below, where a launch is a wave or two and a tile's latency
+    counts (utils/kernel_bench.py --sweep times both)."""
+    return 2 if C >= SM_COUNT // 2 else 1
+
+
+def panels_owned(p, rank, cs):
+    """Panels above panel p whose entries of u and v block ``rank`` of a
+    back substitutions' cluster of ``cs`` keeps and updates: the panels
+    rank, rank + cs, ... below p."""
+    return list(range(rank, p, cs))
+
+
+def panels_smem(D, nb, cs):
+    """Shared memory a block of each of the panels kernel's launches takes,
+    in bytes, rows padded to nb + 4 floats: the diagonal block and the
+    factor's scratch; L11^-T and a block's rows; the update's two stages of
+    two 128 x 32 operand slices (rows of 36 floats), or its tile of the
+    matrix and the factor's scratch; the back substitutions' u and v of the
+    panels a block owns, x_p published in two buffers and its copy, and the
+    partial sums of an update (8 a thread)."""
+    slots = -(-(-(-D // nb)) // cs)
+    # the factor's scratch beside the block: M (32 rows of nb) and a column
+    scratch = 32 * nb + 32
+    tile = K1_PANELS_TILE * (K1_PANELS_TILE + 4)
+    return {"first": 4 * (nb * (nb + 4) + scratch),
+            "panel": 4 * (nb + K1_PANELS_ROWS) * (nb + 4),
+            "update": 4 * max(2 * 2 * K1_PANELS_TILE * (K1_PANELS_CHUNK + 4),
+                              tile + scratch),
+            "solve": 4 * (2 * slots * nb + 6 * nb + 8 * K1_PANELS_THREADS)}
 
 
 def chol_solve_plan(C, D):
@@ -336,15 +394,19 @@ def chol_solve_plan(C, D):
     lower triangle in shared memory and factors it a ``panel`` of columns
     at a time, for every other D up to ``chol_solve_max_dim()``.  One chain
     a block in both, one launch a call.  ``"panels"`` serves the D above
-    that up to ``K1_MAX_DIM``: the same panels, the matrix in a workspace
-    (C, D + 1, ``ld``) in device memory, many blocks a chain (``threads``
-    a block of each of its four kernels; ``tile`` the trailing update's)
-    and ``launches`` launches a call.  A larger D raises
-    NotImplementedError.  Returns {"kernel", "threads", "tile" (None for
-    the blocked kernel), "panel" (None for the tiled kernel), "smem": bytes
-    a block at most, "grid": chains (the first axis of every launch's
-    grid), "ld" (None but for the panels kernel), "workspace": bytes of
-    scratch the wrapper allocates, "launches"}.
+    that up to ``K1_MAX_DIM``: panels of ``panel`` columns
+    (``K1_PANELS_WIDTH``), the matrix in a workspace (C, D + 1, ``ld``) in
+    device memory, many blocks a chain (``threads`` a block of every
+    launch; ``tile`` the trailing update's, ``rows`` a panel-product
+    block's), the back substitutions over a ``cluster`` of blocks a chain
+    (``panels_cluster``), and ``launches`` launches a call.  A larger D
+    raises NotImplementedError.  Returns {"kernel", "threads", "tile" (None
+    for the blocked kernel), "panel" (None for the tiled kernel), "smem":
+    bytes a block at most, "grid": chains (an axis of every launch's grid),
+    "ld" (None but for the panels kernel), "workspace": bytes of scratch
+    the wrapper allocates, "launches"}, and for the panels kernel "rows",
+    "cluster", "update_blocks" (``panels_update_blocks``) and
+    "smem_by_launch".
     """
     if min(C, D) < 1:
         raise ValueError(f"chol_solve_plan: empty shape {(C, D)}")
@@ -354,17 +416,22 @@ def chol_solve_plan(C, D):
             f"of the Gibbs updaters, which draw the blocks one after "
             f"another above it")
     if D > chol_solve_max_dim():
-        ld = panels_ld(D)
-        # the trailing update's two slices of the panel (rows padded by
-        # one), or the back substitutions' u and v
-        smem = max(4 * 2 * K1_PANELS_TILE * (K1_PANEL + 1), 4 * 2 * D)
-        return {"kernel": "panels", "threads": dict(K1_PANELS_THREADS),
-                "tile": (K1_PANELS_TILE, K1_PANELS_TILE), "panel": K1_PANEL,
-                "smem": smem, "grid": C, "ld": ld,
-                "workspace": 4 * C * ((D + 1) * ld + K1_PANEL * K1_PANEL),
-                # the prologue, a panel solve a panel, a trailing update
-                # for every panel but the last, the back substitutions
-                "launches": 2 * -(-D // K1_PANEL) + 1}
+        ld, nb = panels_ld(D), K1_PANELS_WIDTH
+        n_panels = -(-D // nb)
+        cs = panels_cluster(C, n_panels)
+        smem = panels_smem(D, nb, cs)
+        return {"kernel": "panels", "threads": K1_PANELS_THREADS,
+                "tile": (K1_PANELS_TILE, K1_PANELS_TILE), "panel": nb,
+                "rows": K1_PANELS_ROWS, "cluster": cs,
+                "update_blocks": panels_update_blocks(C, D),
+                "smem": max(smem.values()), "smem_by_launch": smem,
+                "grid": C, "ld": ld,
+                # the workspace and the jitter a chain
+                "workspace": 4 * C * ((D + 1) * ld + 1),
+                # the first diagonal block, a panel product a panel, a
+                # trailing update for every panel but the last, the back
+                # substitutions
+                "launches": 2 * n_panels + 1}
     for TS in K1_TILES:
         DP = K1_GRID * TS
         if D <= DP:
@@ -452,10 +519,8 @@ def chol_solve_blocked_plain(A, b, z, jitter=0.0):
     product; then both back substitutions by multiplication with the
     reciprocals.  Same function as ``chol_solve_plain``; nothing on the
     main path calls it.  The blocked kernel (csrc/chol_solve.cu) repeats
-    this order of work, and the panels kernel (csrc/chol_solve_panels.cu)
-    too, but for the order of the sums in its trailing update (a fused
-    multiply-add a column of the panel) and its back substitutions (a
-    panel of rows at a time)."""
+    this order of work; the panels kernel's is
+    ``chol_solve_panels_plain``."""
     C, D = b.shape
     M = torch.cat([A, b[:, None, :]], 1).tril()      # rows 0..D; row D is b
     if jitter != 0.0:
@@ -491,6 +556,103 @@ def chol_solve_blocked_plain(A, b, z, jitter=0.0):
     return u, v
 
 
+def factor_diagonal_block(blk):
+    """The panels kernel's factor of a diagonal block (csrc/
+    chol_solve_panels.cu::factor_diagonal_block), batched: blk (C, n, n),
+    its lower triangle read.  32 columns at a time, the block by column
+    steps with one reciprocal square root each, its inverse by forward
+    substitution, the rows below it within the block times that inverse
+    transposed, the rest of the block less their product; and the
+    inverse's blocks below the diagonal, a block row I at a time, as
+    -(Linv[I][I] L[I][<I]) Linv[<I][<I].  Returns (L with 1 / L_jj on the
+    diagonal, the inverse of L)."""
+    C, n, _ = blk.shape
+    S = blk.tril().clone()
+    Y = torch.zeros_like(S)
+    for q0 in range(0, n, 32):
+        q1 = min(n, q0 + 32)
+        sub = S[:, q0:q1, q0:q1]
+        for j in range(q1 - q0):
+            inv = torch.rsqrt(sub[:, j, j])
+            col = sub[:, :, j] * inv[:, None]
+            col[:, :j + 1] = 0.0
+            sub[:, :, j + 1:] = torch.addcmul(
+                sub[:, :, j + 1:], col[:, :, None], col[:, None, j + 1:],
+                value=-1.0)
+            sub[:, :, j] = col
+            sub[:, j, j] = inv
+        L, rinv = sub.tril(-1), sub.diagonal(dim1=-2, dim2=-1)
+        inv_sub = torch.zeros_like(sub)
+        for i in range(q1 - q0):
+            e = torch.zeros_like(inv_sub[:, i])
+            e[:, i] = 1.0
+            inv_sub[:, i] = (e - (L[:, i, None, :i] @ inv_sub[:, :i])[:, 0]) \
+                * rinv[:, i, None]
+        Y[:, q0:q1, q0:q1] = inv_sub
+        X = S[:, q1:, q0:q1] @ inv_sub.mT
+        S[:, q1:, q0:q1] = X
+        S[:, q1:, q1:] -= X @ X.mT
+    S = S.tril()
+    for r0 in range(32, n, 32):
+        r1 = min(n, r0 + 32)
+        M = Y[:, r0:r1, r0:r1] @ S[:, r0:r1, :r0]
+        Y[:, r0:r1, :r0] = -(M @ Y[:, :r0, :r0])
+    return S, Y
+
+
+def chol_solve_panels_plain(A, b, z, jitter=0.0, panel=None):
+    """The panels kernel's order of work (csrc/chol_solve_panels.cu), in
+    PyTorch a panel of ``panel`` columns at a time (the plan's width by
+    default): the jitter on the diagonal, b carried as row D of the matrix;
+    per panel the diagonal block by ``factor_diagonal_block``, the rows
+    below it (row D among them) times its inverse transposed, the trailing
+    part less their product; then x <- L^-T x for w and z a panel at a time
+    from the last, x_p = L11^-T y_p from the stored inverse and the rows
+    above less L_p^T x_p.  Same function as ``chol_solve_plain``; nothing
+    on the main path calls it (float32 and float64)."""
+    C, D = b.shape
+    nb = panel or K1_PANELS_WIDTH
+    M = torch.cat([A, b[:, None, :]], 1).tril()      # rows 0..D; row D is b
+    if jitter != 0.0:
+        diag = M.diagonal(dim1=-2, dim2=-1)
+        diag += (jitter * (diag.sum(-1) / D + 1.0))[:, None]
+    inverses = []
+    for k0 in range(0, D, nb):
+        s = min(D, k0 + nb)
+        L11, Y = factor_diagonal_block(M[:, k0:s, k0:s])
+        X = M[:, s:, k0:s] @ Y.mT                     # rows s..D
+        M[:, s:, k0:s] = X
+        M[:, s:, s:] -= X @ X[:, :D - s].mT
+        M[:, k0:s, k0:s] = L11
+        inverses.append(Y)
+    u, v = M[:, D].clone(), z.clone()
+    for k0, Y in reversed(list(zip(range(0, D, nb), inverses))):
+        s = min(D, k0 + nb)
+        x = torch.stack([u[:, k0:s], v[:, k0:s]], -1)
+        x = Y.mT @ x
+        u[:, k0:s], v[:, k0:s] = x[..., 0], x[..., 1]
+        rows = M[:, k0:s, :k0]
+        u[:, :k0] -= (rows.mT @ x[..., 0, None])[..., 0]
+        v[:, :k0] -= (rows.mT @ x[..., 1, None])[..., 0]
+    return u, v
+
+
+def panels_launch(A, b, z, mean, noise, jitter, plan):
+    """The panels kernel on the card's current stream as ``plan`` says (its
+    "panel", "cluster" and "update_blocks"; ``chol_solve_plan``'s, or
+    another for a timing), its workspace and jitter buffer allocated here;
+    writes mean and noise and returns the C entry point's code.  Counts no
+    launch: ``chol_solve`` is the entry the package calls."""
+    C, D = b.shape
+    work = torch.empty(C, D + 1, plan["ld"], dtype=b.dtype, device=b.device)
+    eps = torch.empty(C, dtype=b.dtype, device=b.device)
+    return _library().bfmmm_chol_solve_panels(
+        A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
+        noise.data_ptr(), work.data_ptr(), eps.data_ptr(), C, D, plan["ld"],
+        float(jitter), plan["panel"], plan["cluster"], plan["update_blocks"],
+        torch.cuda.current_stream().cuda_stream)
+
+
 def chol_solve(A, b, z, jitter=0.0):
     """(mean, noise) of the precision draw, per chain: A (C, D, D) SPD,
     b and z (C, D) -> mean = A^-1 b, noise = chol(A)^-T z, both (C, D).
@@ -508,21 +670,13 @@ def chol_solve(A, b, z, jitter=0.0):
         return mean, noise
     plan = chol_solve_plan(C, D)
     with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream().cuda_stream
         if plan["kernel"] == "panels":
-            work = torch.empty(C, D + 1, plan["ld"], dtype=b.dtype,
-                               device=b.device)
-            diag = torch.empty(C, K1_PANEL, K1_PANEL, dtype=b.dtype,
-                               device=b.device)
-            rc = _library().bfmmm_chol_solve_panels(
-                A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-                noise.data_ptr(), work.data_ptr(), diag.data_ptr(), C, D,
-                plan["ld"], float(jitter), stream)
+            rc = panels_launch(A, b, z, mean, noise, jitter, plan)
         else:
             rc = _library().bfmmm_chol_solve(
                 A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
                 noise.data_ptr(), C, D, float(jitter), chol_solve_code(plan),
-                stream)
+                torch.cuda.current_stream().cuda_stream)
     _launched("chol_solve", rc)
     return mean, noise
 

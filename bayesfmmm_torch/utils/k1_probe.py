@@ -1,13 +1,15 @@
 """Where K1's time goes on one NVIDIA GPU: one of its kernels with one part
 knocked out at a time.
 
-    python3 -m bayesfmmm_torch.utils.k1_probe [--kernel tiled|blocked]
+    python3 -m bayesfmmm_torch.utils.k1_probe [--kernel tiled|blocked|panels]
                                               [--rounds 4]
 
 No profiler that reads stall reasons runs everywhere, so this asks the card
-directly: it patches ``csrc/chol_solve.cu`` in memory, one part taken out
-at a time, builds each patched source with nvcc into ``_build/probe/``, and
-times the builds in turns, device time from the profiler.  The register
+directly: it patches the kernel's source (``csrc/chol_solve.cu``, or
+``csrc/chol_solve_panels.cu`` for the panels kernel) in memory, one part
+taken out at a time, builds each patched source with nvcc into
+``_build/probe/``, and times the builds in turns, device time from the
+profiler.  The register
 kernel (``--kernel tiled``, the default) is timed at the main path's shape
 (C=256, D=96) without the barrier of the column loop, the diagonal's
 shuffle, the reciprocal square root, the stores of L, the back
@@ -18,11 +20,20 @@ panel loop's barriers, the back substitutions or the staging, and beside
 it the alternatives its design set aside (``alt_*``: the same function;
 panels of 16 columns, the update's rows past D masked, lanes column tile
 first, the diagonal shuffled after the column's update, the back
-substitutions' steps not unrolled, 1,024 threads, a look-ahead).  A
-knocked-out kernel computes nonsense: only its time means anything, and
-the difference to the whole kernel is what that part costs where it
-stands (for a barrier: the wait for the slowest thread, not the
-instruction).  Each patch must match
+substitutions' steps not unrolled, 1,024 threads, a look-ahead).  The
+panels kernel (``--kernel panels``) at (16, 512), (256, 512) and (1, 4096)
+with the plan's panel width, cluster and update blocks an SM (``--panel``
+another width) without the first or the later diagonal blocks' factor,
+the factor's 32 x 32 steps in one warp, its work below each 32 x 32
+block, its inverse's block rows, the panel products, the trailing
+updates' products, or the back substitutions' owner steps or updates;
+with the first factor run twice (``warm_factor``: its cost once its code
+is in the instruction cache); and beside it the update compiled for the
+other blocks an SM (``alt_update_blocks``); each also split by launch
+(``kernel_bench.panels_parts``).  A knocked-out kernel computes nonsense:
+only its time means anything, and the difference to the whole kernel is
+what that part costs where it stands (for a barrier: the wait for the
+slowest thread, not the instruction).  Each patch must match
 the source exactly once, so the probe fails loudly when the kernel has
 moved on.  Prints the card's name and power limit and one JSON object.
 Needs one card.
@@ -40,7 +51,8 @@ import torch
 
 from bayesfmmm_torch.ops import kernels
 from bayesfmmm_torch.utils.kernel_bench import (CHAINS, D, card_line,
-                                                in_turns, spd)
+                                                device_ms_by_kernel, in_turns,
+                                                panels_parts, spd)
 
 _PANEL_LOOP = """\
     if (warp == 0) factor_diagonal_block<NB>(a, k0, nb, lane);
@@ -154,9 +166,54 @@ KNOCK_OUTS = {
              "      if (u % nw == warp - w0 && t_lo <= tb && tb <= ta"),
             (_PANEL_HEAD + _PANEL_LOOP, _LOOK_AHEAD_LOOP)],
     },
+    "panels": {
+        "whole": [],
+        "no_first_factor": [
+            ("  factor_diagonal_block<NB, SP>(S, S + NB * SP, nb);\n", "")],
+        "no_corner_factor": [
+            ("    factor_diagonal_block<NB, TS>(T, T + kTile * TS, nbn);\n",
+             "")],
+        "no_warp_steps": [("    if (warp == 0) factor_32<SP>(",
+                           "    if (warp < 0) factor_32<SP>(")],
+        "no_block_below": [
+            ("    if (q1 < nb) {\n#pragma unroll 2",
+             "    if (q1 < 0) {\n#pragma unroll 2"),
+            ("    if (q1 < nb) {\n#pragma unroll\n",
+             "    if (q1 < 0) {\n#pragma unroll\n")],
+        "no_inverse_blocks": [
+            ("    for (int t = tid; t < 2 * q0; t += kThreads) {\n"
+             "      const int k = 4",
+             "    for (int t = tid; t < 0; t += kThreads) {\n"
+             "      const int k = 4"),
+            ("    for (int t = tid; t < 2 * q0; t += kThreads)\n"
+             "      inverse_block_row",
+             "    for (int t = tid; t < 0; t += kThreads)\n"
+             "      inverse_block_row")],
+        "no_panel_product": [("  for (int kb = 0; kb < H; ++kb) {",
+                              "  for (int kb = 0; kb < 0; ++kb) {")],
+        "no_update_product": [
+            ("    if (diag)\n      stage_product<true>",
+             "    if (diag && kc < 0)\n      stage_product<true>"),
+            ("    else\n      stage_product<false>",
+             "    else if (kc < 0)\n      stage_product<false>")],
+        "no_solve_owner": [("    if (rank == owner) {\n      // x_p",
+                            "    if (rank < 0) {\n      // x_p")],
+        "no_solve_updates": [("    for (int t = 0; t < nq; ++t) {",
+                              "    for (int t = 0; t < 0; ++t) {")],
+        # the first factor run twice in a loop: what a run costs once its
+        # code is in the instruction cache
+        "warm_factor": [
+            ("  factor_diagonal_block<NB, SP>(S, S + NB * SP, nb);\n",
+             "#pragma unroll 1\n  for (int rep = 0; rep < 2; ++rep)\n"
+             "    factor_diagonal_block<NB, SP>(S, S + NB * SP, nb);\n")],
+    },
 }
-# the shape each kernel is probed at
-SHAPES = {"tiled": (CHAINS, D), "blocked": (16, 256)}
+# the source each kernel's knock-outs patch
+SOURCES = {"tiled": "chol_solve.cu", "blocked": "chol_solve.cu",
+           "panels": "chol_solve_panels.cu"}
+# the shapes each kernel is probed at
+SHAPES = {"tiled": ((CHAINS, D),), "blocked": ((16, 256),),
+          "panels": ((16, 512), (CHAINS, 512), (1, 4096))}
 
 
 def patched_sources(text, knock_outs, source="csrc/chol_solve.cu"):
@@ -181,6 +238,13 @@ def _bind_chol_solve(lib):
     lib.bfmmm_chol_solve.argtypes = [p, p, p, p, p, i, i, ctypes.c_float, i,
                                      p]
     lib.bfmmm_chol_solve.restype = i
+
+
+def _bind_chol_solve_panels(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bfmmm_chol_solve_panels.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                            ctypes.c_float, i, i, i, p]
+    lib.bfmmm_chol_solve_panels.restype = i
 
 
 def build_all(sources, out_dir, bind=_bind_chol_solve):
@@ -210,45 +274,91 @@ def build_all(sources, out_dir, bind=_bind_chol_solve):
     return libs
 
 
+def _panels_launcher(lib, A, b, z, nb, cs, ub):
+    """One call of the panels kernel of ``lib`` at panel width nb, cluster
+    cs and ub update blocks an SM, its scratch allocated once."""
+    C, dim = b.shape
+    ld = kernels.panels_ld(dim)
+    work = torch.empty(C, dim + 1, ld, device=b.device)
+    eps = torch.empty(C, device=b.device)
+    mean, noise = torch.empty_like(b), torch.empty_like(b)
+
+    def launch():
+        rc = lib.bfmmm_chol_solve_panels(
+            A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
+            noise.data_ptr(), work.data_ptr(), eps.data_ptr(), C, dim, ld,
+            0.0, nb, cs, ub, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: {torch.cuda.CudaError(rc)}")
+    return launch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--kernel", choices=tuple(KNOCK_OUTS), default="tiled",
-                    help="the register kernel at the headline shape, or the "
-                         "blocked kernel at 16 chains of D = 256")
+                    help="the register kernel at the headline shape, the "
+                         "blocked kernel at 16 chains of D = 256, or the "
+                         "panels kernel at D = 512 and 4,096")
+    ap.add_argument("--panel", type=int, default=None,
+                    help="the panels kernel's width, if not the plan's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("k1_probe: needs one NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda:0")
-    text = (kernels._CSRC / "chol_solve.cu").read_text()
-    C, dim = SHAPES[args.kernel]
-    libs = build_all(patched_sources(text, KNOCK_OUTS[args.kernel]),
-                     kernels._BUILD_DIR / "probe")
-    A, b, z = spd(torch.Generator(device=dev).manual_seed(123), C, dim, dev)
-    mean, noise = torch.empty_like(b), torch.empty_like(b)
-    plan = kernels.chol_solve_plan(C, dim)
-    code = kernels.chol_solve_code(plan)
+    source = SOURCES[args.kernel]
+    text = (kernels._CSRC / source).read_text()
+    panels = args.kernel == "panels"
+    libs = build_all(patched_sources(text, KNOCK_OUTS[args.kernel],
+                                     f"csrc/{source}"),
+                     kernels._BUILD_DIR / "probe",
+                     _bind_chol_solve_panels if panels else _bind_chol_solve)
+    g = torch.Generator(device=dev).manual_seed(123)
+    out = []
+    for C, dim in SHAPES[args.kernel]:
+        A, b, z = spd(g, C, dim, dev)
+        plan = kernels.chol_solve_plan(C, dim)
+        if panels:
+            nb = args.panel or plan["panel"]
+            cands = {name: _panels_launcher(lib, A, b, z, nb, plan["cluster"],
+                                            plan["update_blocks"])
+                     for name, lib in libs.items()}
+            # the design's alternative: the update compiled for the other
+            # number of blocks an SM
+            cands["alt_update_blocks"] = _panels_launcher(
+                libs["whole"], A, b, z, nb, plan["cluster"],
+                3 - plan["update_blocks"])
+            shape = dict(C=C, D=dim, panel=nb, cluster=plan["cluster"],
+                         update_blocks=plan["update_blocks"])
+        else:
+            code = kernels.chol_solve_code(plan)
+            mean, noise = torch.empty_like(b), torch.empty_like(b)
 
-    def launcher(lib):
-        def launch():
-            rc = lib.bfmmm_chol_solve(
-                A.data_ptr(), b.data_ptr(), z.data_ptr(), mean.data_ptr(),
-                noise.data_ptr(), C, dim, 0.0, code,
-                torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(
-                    f"launch failed: {torch.cuda.CudaError(rc)}")
-        return launch
-
-    times = in_turns({name: launcher(lib) for name, lib in libs.items()},
-                     args.rounds)
-    whole = times["whole"]["device_ms"]
-    for name, t in times.items():
-        t["saves_ms"] = whole - t["device_ms"]
+            def launcher(lib, C=C, dim=dim, A=A, b=b, z=z, mean=mean,
+                         noise=noise, code=code):
+                def launch():
+                    rc = lib.bfmmm_chol_solve(
+                        A.data_ptr(), b.data_ptr(), z.data_ptr(),
+                        mean.data_ptr(), noise.data_ptr(), C, dim, 0.0, code,
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc != 0:
+                        raise RuntimeError(
+                            f"launch failed: {torch.cuda.CudaError(rc)}")
+                return launch
+            cands = {name: launcher(lib) for name, lib in libs.items()}
+            shape = dict(C=C, D=dim, code=code)
+        reps = 10 if panels else 50
+        times = in_turns(cands, args.rounds, reps=reps)
+        whole = times["whole"]["device_ms"]
+        for name, t in times.items():
+            t["saves_ms"] = whole - t["device_ms"]
+            if panels:
+                t["by_part"] = panels_parts(device_ms_by_kernel(
+                    cands[name], reps=reps))
+        out.append({"shape": shape, "kernel": plan["kernel"], **times})
     print(card_line())
-    print(json.dumps({"shape": dict(C=C, D=dim), "kernel": plan["kernel"],
-                      "code": code, **times}))
+    print(json.dumps(out if panels else out[0]))
     return 0
 
 

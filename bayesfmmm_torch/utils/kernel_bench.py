@@ -16,9 +16,11 @@ the inputs stay warm in L2 as the sampler's B and G do; the figure kept is
 the median over rounds of the device time per call (the profiler's summed
 durations of the card's work, so neither the host's pace nor its syncs
 count): every launch a call makes is in it, by name the launches a call
-times their mean, so K1's panels kernel, 2 ceil(D / 32) + 1 launches of
+times their mean, so K1's panels kernel, 2 ceil(D / 128) + 1 launches of
 four kernels a call, counts whole; ``by_kernel`` splits the kernel's
-figure by CUDA kernel name.
+figure by CUDA kernel name.  ``panels_parts`` sums the panels kernel's
+split into its parts (first diagonal block, panel products, trailing
+updates, back substitutions; the earlier design's prologue).
 
 ``--baseline DIR`` also loads ``ops/kernels.py`` of DIR, an earlier
 revision's ``bayesfmmm_torch`` directory (``git archive REV bayesfmmm_torch
@@ -33,8 +35,13 @@ kernel; and, in groups of their own, D=32, 64 and 128, and
 D=129, 200, 240, 256 and 334 at 256 and at 16 chains, and D=256 at 64
 chains; at D=256 also the plain version and the three ``torch.linalg``
 calls) beside the plan's choice, and K1's panels kernel at (16, 512),
-(256, 512), (64, 400), (4, 1024) and (1, 4096) beside the plain version
-and the three ``torch.linalg`` calls.  K1's
+(256, 512), (64, 400), (4, 1024) and (1, 4096) beside the plain version,
+the three ``torch.linalg`` calls, the earlier revision's kernel (with
+``--baseline``) and the other configurations its C entry point takes
+(``_panels_sweep``: panels of 64 and 128 at clusters of 1, 4, 8 and 16
+blocks, the update compiled for the other blocks an SM), ten calls a
+round, with the kernel's and the baseline's split by part
+(``panels_parts``).  K1's
 group also times ``jitter_ops``, the PyTorch ops that built
 A + jitter * scale * I before K1 took the jitter inside.  Prints the
 card's name and power limit and one JSON object.  Needs one card.
@@ -120,6 +127,27 @@ def device_ms_by_kernel(fn, reps=50, warmup=5, attempts=6):
     sync inside ``fn`` counts."""
     return {name: n * ms
             for name, n, ms in _device_events(fn, reps, warmup, attempts)}
+
+
+# K1's panels kernel's launches by the name of their CUDA kernel
+# (csrc/chol_solve_panels.cu; in the earlier design, panels_prologue
+# copied A and panels_panel solved the rows by substitution)
+PANELS_PARTS = {"panels_prologue": "prologue",
+                "panels_first": "first diagonal block",
+                "panels_panel": "panel products",
+                "panels_update": "trailing updates",
+                "panels_solve": "back substitutions"}
+
+
+def panels_parts(by_kernel):
+    """``device_ms_by_kernel``'s split of a panels-kernel call summed by
+    part (``PANELS_PARTS``); the card's other work under "other"."""
+    parts = {}
+    for name, ms in by_kernel.items():
+        part = next((p for k, p in PANELS_PARTS.items() if k in name),
+                    "other")
+        parts[part] = parts.get(part, 0.0) + ms
+    return parts
 
 
 def device_launches(fn, reps=50, warmup=5, attempts=6):
@@ -287,6 +315,41 @@ def _k1_sweep(lib, x):
     return cands
 
 
+# K1's panels kernel: the two-covariate path's shapes, an hd Phi draw on a
+# 5 x 5 basis, and larger D at few chains
+PANELS_SHAPES = ((16, 512), (CHAINS, 512), (64, 400), (4, 1024),
+                 (1, kernels.K1_MAX_DIM))
+# calls a round for those: a call starts 9 to 65 kernels (the baseline's
+# 33 to 257), whose traces the profiler reads slowly
+PANELS_REPS = 10
+
+
+def _panels_sweep(x):
+    """{name: callable} of the panels kernel at x's shape in the other
+    configurations its C entry point takes: panel widths 64 and 128 at
+    clusters of 1, 4, 8 and 16 blocks (the plan's update blocks an SM),
+    and the plan's width and cluster with the other update blocks."""
+    A, b, z = x
+    mean, noise = torch.empty_like(b), torch.empty_like(b)
+    plan = kernels.chol_solve_plan(*b.shape)
+
+    def launcher(**over):
+        p = dict(plan, **over)
+
+        def launch():
+            rc = kernels.panels_launch(A, b, z, mean, noise, 0.0, p)
+            if rc != 0:
+                raise RuntimeError(
+                    f"launch failed: {torch.cuda.CudaError(rc)}")
+        return launch
+    cands = {f"panel={nb},cluster={cs}": launcher(panel=nb, cluster=cs)
+             for nb in kernels.K1_PANELS_WIDTHS for cs in (1, 4, 8, 16)
+             if (nb, cs) != (plan["panel"], plan["cluster"])}
+    ub = 3 - plan["update_blocks"]
+    cands[f"update_blocks={ub}"] = launcher(update_blocks=ub)
+    return cands
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -374,22 +437,32 @@ def main(argv=None):
                     lambda xd=xd: kernels.chol_solve_plain(*xd))
                 groups[name]["library"] = (
                     lambda xd=xd: library_chol_solve(*xd))
-        for C_, D_ in ((16, 512), (CHAINS, 512), (64, 400), (4, 1024),
-                       (1, kernels.K1_MAX_DIM)):
+        for C_, D_ in PANELS_SHAPES:
             xd = spd(g, C_, D_, dev)
             name = f"chol_solve_c{C_}_d{D_}"
             shapes[name] = ("chol_solve", dict(C=C_, D=D_))
             groups[name] = {
                 "kernel": lambda xd=xd: kernels.chol_solve(*xd),
                 "plain": lambda xd=xd: kernels.chol_solve_plain(*xd),
-                "library": lambda xd=xd: library_chol_solve(*xd)}
+                "library": lambda xd=xd: library_chol_solve(*xd),
+                **_panels_sweep(xd)}
+            if base is not None:
+                groups[name]["baseline"] = lambda xd=xd: base.chol_solve(*xd)
 
     result = {}
     for name, cands in groups.items():
-        result[name] = in_turns(cands, args.rounds)
+        panels = shapes[name][0] == "chol_solve" and kernels.chol_solve_plan(
+            *shapes[name][1].values())["kernel"] == "panels"
+        reps = PANELS_REPS if panels else 50
+        result[name] = in_turns(cands, args.rounds, reps=reps)
         result[name]["kernel"]["paced_ms"] = paced_ms(cands["kernel"])
         result[name]["kernel"]["by_kernel"] = device_ms_by_kernel(
-            cands["kernel"])
+            cands["kernel"], reps=reps)
+        if panels:
+            for who in ("kernel", "baseline"):
+                if who in cands:
+                    result[name][who]["by_part"] = panels_parts(
+                        device_ms_by_kernel(cands[who], reps=reps))
     for name, (kern, shape) in shapes.items():
         bound = kernels.kernel_bound(kern, **shape)
         result[name]["shape"] = shape

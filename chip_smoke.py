@@ -18,9 +18,12 @@ only with every other phase, whose launch counts they read):
      Phi draw on a 5 x 5 basis (64, 400) and its largest D up to 4,096, and
      at every D the register-tiled kernel serves with a ragged chain count;
      each without and with the jitter, the same bits from two calls, and the
-     blocked and panels kernels' first two chains also against the blocked
-     kernel's plain version (which repeats their panels) on the card; and a
-     D above 4,096, which must raise and launch nothing;
+     blocked kernel's first two chains also against its plain version (which
+     repeats its panels) and the panels kernel's against its own
+     (kernels.chol_solve_panels_plain, its order of work) on the card, the
+     panels kernel's plan (panel width, cluster, update blocks an SM,
+     launches) printed; and a D above 4,096, which must raise and launch
+     nothing;
   3. [k2] K2 mean_rss against its plain version (einsum + sum) at the main
      paths' shapes (C and the MGP-scale moves' 2C chain rows; the hd
      family's P = 16, L = 144) and a padded one, with and without mu, the
@@ -148,7 +151,9 @@ only with every other phase, whose launch counts they read):
      kernel at PT's shapes (K1 at R and one chain, K2 at R and 2R, K3 at
      3R), K1's panels kernel at (16, 512) and (256, 512) of the two-covariate
      path and at (64, 400), (4, 1024) and (1, 4096) beside the three
-     torch.linalg calls, and ms, kernels and device-busy ms a sweep of
+     torch.linalg calls, each split by launch (first diagonal block, panel
+     products, trailing updates, back substitutions; kernel_bench's
+     panels_parts), and ms, kernels and device-busy ms a sweep of
      configs 4 (16 and 256 chains), 4 at two covariates (16 and 256), 3, 1
      and 5.
 
@@ -192,7 +197,7 @@ from bayesfmmm_torch.utils.kernel_bench import (_PAD_KERNEL, _PAD_LAUNCHES,
                                                 library_chol_solve,
                                                 library_weighted_gram,
                                                 main_path_inputs, paced_ms,
-                                                spd)
+                                                panels_parts, spd)
 from bayesfmmm_torch.utils.observability import ProgressStream
 from bayesfmmm_torch.utils.simulate import (_numpy_mu, _truth_state,
                                             functional_lists, simulate_draws,
@@ -375,9 +380,10 @@ def check(ok, what):
 
 def k1_case(dev, g, C, D, jitter):
     """One shape and jitter: the kernel twice against the plain version,
-    and the blocked and panels kernels' first two chains against the
-    blocked kernel's plain version; returns (max |mean - plain|, max |noise
-    - plain|)."""
+    and the blocked and panels kernels' first two chains against their own
+    order of work (``chol_solve_blocked_plain``,
+    ``chol_solve_panels_plain``); returns (max |mean - plain|, max |noise -
+    plain|)."""
     A, b, z = spd(g, C, D, dev)
     mean, noise = kernels.chol_solve(A, b, z, jitter)
     mean2, noise2 = kernels.chol_solve(A, b, z, jitter)
@@ -393,14 +399,15 @@ def k1_case(dev, g, C, D, jitter):
           f"jitter={jitter}: mean {e_mean:.3e}, noise {e_noise:.3e}")
     kernel = kernels.chol_solve_plan(C, D)["kernel"]
     if kernel in ("blocked", "panels"):
-        mean_b, noise_b = kernels.chol_solve_blocked_plain(
-            A[:2], b[:2], z[:2], jitter)
+        twin = (kernels.chol_solve_blocked_plain if kernel == "blocked"
+                else kernels.chol_solve_panels_plain)
+        mean_b, noise_b = twin(A[:2], b[:2], z[:2], jitter)
         e_b = ((mean[:2] - mean_b).abs().max().item(),
                (noise[:2] - noise_b).abs().max().item())
         check(e_b[0] <= K1_TOL["mean"] and e_b[1] <= K1_TOL["noise"],
-              f"K1's {kernel} kernel disagrees with the blocked plain version "
-              f"at C={C} D={D} jitter={jitter}: mean {e_b[0]:.3e}, noise "
-              f"{e_b[1]:.3e}")
+              f"K1's {kernel} kernel disagrees with its plain twin "
+              f"{twin.__name__} at C={C} D={D} jitter={jitter}: mean "
+              f"{e_b[0]:.3e}, noise {e_b[1]:.3e}")
         e_mean, e_noise = max(e_mean, e_b[0]), max(e_noise, e_b[1])
     return e_mean, e_noise
 
@@ -451,16 +458,21 @@ def k1_phase(dev, g):
                  (2, 1000), (4, 1024), (2, 2048), (1, kernels.K1_MAX_DIM)):
         for jitter in (0.0, 1e-6):
             e_mean, e_noise = k1_case(dev, g, C, D, jitter)
-            kernel = kernels.chol_solve_plan(C, D)["kernel"]
+            plan = kernels.chol_solve_plan(C, D)
+            kernel = plan["kernel"]
             check(kernel == ("tiled" if D <= 128 else "blocked" if D <= 336
                              else "panels"),
                   f"K1 C={C} D={D} is served by the {kernel} kernel")
-            print(f"  K1 chol_solve C={C} D={D} jitter={jitter} "
-                  f"({kernel} kernel): max|mean-plain|={e_mean:.3e} (tol "
-                  f"{K1_TOL['mean']}), max|noise-plain|={e_noise:.3e} (tol "
-                  f"{K1_TOL['noise']}), same bits twice"
-                  + (", the blocked plain version on the first two chains "
-                     "too" if kernel != "tiled" else ""))
+            how = (f"panels kernel: panels of {plan['panel']}, cluster "
+                   f"{plan['cluster']}, update {plan['update_blocks']} "
+                   f"block(s) an SM, {plan['launches']} launches"
+                   if kernel == "panels" else f"{kernel} kernel")
+            print(f"  K1 chol_solve C={C} D={D} jitter={jitter} ({how}): "
+                  f"max|mean-plain|={e_mean:.3e} (tol {K1_TOL['mean']}), "
+                  f"max|noise-plain|={e_noise:.3e} (tol {K1_TOL['noise']}), "
+                  f"same bits twice"
+                  + (", its plain twin on the first two chains too"
+                     if kernel != "tiled" else ""))
             worst = max(worst, e_mean, e_noise)
     # a D above the joint draws' ceiling raises: nothing gives way to
     # torch.linalg
@@ -2704,6 +2716,9 @@ def main(argv=None):
             t["paced"] = paced_ms(cands["kernel"])
             t["paced_plain"] = paced_ms(cands["plain"])
             t.update(kernels.kernel_bound(base, **shape))
+            if name in panels:
+                t["by_part"] = panels_parts(device_ms_by_kernel(
+                    cands["kernel"], reps=K1_PANELS_REPS))
             ms[name] = t
 
         def jitter_ops():
@@ -2731,6 +2746,14 @@ def main(argv=None):
                   f"{100 * t['bound_ms'] / t['kernel']:.2f} % of it reached); "
                   f"host-paced {t['paced']:.4f} ms vs plain "
                   f"{t['paced_plain']:.4f} ms")
+        for name, shape in panels.items():
+            plan = kernels.chol_solve_plan(*shape)
+            print(f"  {name} by launch: " + ", ".join(
+                f"{k} {1e3 * v:.1f} us" for k, v in
+                ms[name]["by_part"].items())
+                + f" (panels of {plan['panel']}, cluster {plan['cluster']}, "
+                  f"update {plan['update_blocks']} block(s) an SM, "
+                  f"{plan['launches']} launches)")
 
         # slice 6: ms, kernels and device-busy ms a sweep of each
         # configuration
@@ -2820,11 +2843,14 @@ def main(argv=None):
             rows = []
             for name in panels:
                 t = ms[name]
+                plan = kernels.chol_solve_plan(*panels[name])
                 rows.append({
                     "shape": timed[name][1],
                     "launches": panels_launched[name],
-                    "launches_a_call": kernels.chol_solve_plan(
-                        *panels[name])["launches"],
+                    "launches_a_call": plan["launches"],
+                    **{k: plan[k] for k in ("panel", "cluster",
+                                            "update_blocks")},
+                    "by_part_ms": t["by_part"],
                     **{k: t[k] for k in ("bound_ms", "bound_by", "bytes",
                                          "flop")},
                     "ms": t["kernel"], "plain_ms": t["plain"],

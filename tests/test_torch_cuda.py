@@ -199,14 +199,19 @@ def test_chol_solve_rejects_oversize_dimension(dev):
 
 
 @pytest.mark.parametrize("jitter", [0.0, 1e-6])
-@pytest.mark.parametrize("C,D", [(2, 337), (3, 401), (2, 1000)])
+@pytest.mark.parametrize("C,D", [(2, 337), (3, 401), (2, 1000), (1, 4096),
+                                 (66, 401), (67, 401)])
 def test_chol_solve_panels_kernel_matches_plain(dev, C, D, jitter):
     """The panels kernel (336 < D <= 4,096): its smallest D, D neither a
-    multiple of 4 nor of 32, and a last panel of 8 columns; against
-    torch.linalg to K1's tolerances and, for two chains, against the
-    blocked kernel's plain version, whose panels it repeats; the same bits
-    from two calls, one launch counted a call; A left as it was."""
-    assert kernels.chol_solve_plan(C, D)["kernel"] == "panels"
+    multiple of 4 nor of 32, a last panel of 104 columns, the largest D at
+    one chain (a cluster of 16), and a chain count on each side of the
+    plan's cluster boundary (66 chains: two blocks a chain and the update
+    for one block an SM; 67: one block a chain and two); against
+    torch.linalg to K1's tolerances and, for two chains, against its order
+    of work (``chol_solve_panels_plain``); the same bits from two calls, one
+    launch counted a call; A left as it was."""
+    plan = kernels.chol_solve_plan(C, D)
+    assert plan["kernel"] == "panels"
     g = torch.Generator(device=dev).manual_seed(D + C)
     A, b, z = _spd(g, C, D, dev)
     A0 = A.clone()
@@ -220,10 +225,30 @@ def test_chol_solve_panels_kernel_matches_plain(dev, C, D, jitter):
     mean_p, noise_p = kernels.chol_solve_plain(A, b, z, jitter)
     torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
     torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
-    mean_t, noise_t = kernels.chol_solve_blocked_plain(
+    mean_t, noise_t = kernels.chol_solve_panels_plain(
         A[:2].cpu(), b[:2].cpu(), z[:2].cpu(), jitter)
     torch.testing.assert_close(mean[:2].cpu(), mean_t, rtol=0, atol=5e-5)
     torch.testing.assert_close(noise[:2].cpu(), noise_t, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("panel,cluster,update_blocks", [
+    (64, 1, 1), (64, 16, 2), (128, 1, 2), (128, 4, 1), (128, 8, 2),
+    (128, 16, 1)])
+def test_chol_solve_panels_kernel_other_configurations(dev, panel, cluster,
+                                                       update_blocks):
+    """Every configuration the C entry point takes (the panel widths, the
+    clusters, the update's blocks an SM), which the timings compare, gives
+    the plan's answer to K1's tolerances at a ragged D."""
+    C, D = 3, 1001
+    g = torch.Generator(device=dev).manual_seed(D)
+    A, b, z = _spd(g, C, D, dev)
+    plan = dict(kernels.chol_solve_plan(C, D), panel=panel, cluster=cluster,
+                update_blocks=update_blocks)
+    mean, noise = torch.empty_like(b), torch.empty_like(b)
+    assert kernels.panels_launch(A, b, z, mean, noise, 1e-6, plan) == 0
+    mean_p, noise_p = kernels.chol_solve_plain(A, b, z, 1e-6)
+    torch.testing.assert_close(mean, mean_p, rtol=0, atol=5e-5)
+    torch.testing.assert_close(noise, noise_p, rtol=0, atol=5e-4)
 
 
 @pytest.mark.parametrize("C,N,L,P,pad", [(256, 100, 100, 8, None),

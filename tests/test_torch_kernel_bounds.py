@@ -204,16 +204,18 @@ def test_chol_solve_rejects_oversize_dimension_on_any_device():
         kernels.chol_solve_plan(1, D)
 
 
-@pytest.mark.parametrize("which", ["tiled", "blocked"])
+@pytest.mark.parametrize("which", ["tiled", "blocked", "panels"])
 def test_k1_probe_patches_match_the_source(which):
-    """Each knock-out of utils/k1_probe.py, of the register kernel and of
-    the blocked one, patches csrc/chol_solve.cu in exactly one place, and
-    changes it; a source in which one patch's text has moved on is
+    """Each knock-out of utils/k1_probe.py, of the register kernel, the
+    blocked one (csrc/chol_solve.cu) and the panels one
+    (csrc/chol_solve_panels.cu), patches its source in exactly one place,
+    and changes it; a source in which one patch's text has moved on is
     refused."""
     from bayesfmmm_torch.utils import k1_probe
-    text = (kernels._CSRC / "chol_solve.cu").read_text()
+    text = (kernels._CSRC / k1_probe.SOURCES[which]).read_text()
     outs = k1_probe.KNOCK_OUTS[which]
-    sources = k1_probe.patched_sources(text, outs)
+    sources = k1_probe.patched_sources(text, outs,
+                                       f"csrc/{k1_probe.SOURCES[which]}")
     assert set(sources) == set(outs) and sources["whole"] == text
     assert all(src != text for name, src in sources.items()
                if name != "whole")
