@@ -10,7 +10,10 @@ nvcc at first use and bound with ctypes; on CPU tensors their plain
 PyTorch versions run instead.
 
 The package imports nothing of JAX or of ``bayesfmmm_tpu``, so it runs on a
-machine that has neither.  It runs on the CUDA card unless told otherwise:
+machine that has neither.  ``import bayesfmmm_torch`` loads only the
+configuration (``ModelConfig``, ``Priors``, ``SamplerConfig``);
+``bayesfmmm_torch.api``, ``basis``, ``diagnostics`` and ``reference_api``
+load on first use.  It runs on the CUDA card unless told otherwise:
 the entry points that build data or state (``api.build_data``,
 ``api.fit_nu_z``, ``api.fit``, the simulators of ``utils/simulate.py``, the
 data makers of ``models/state.py``, ``convert.data_from_jax``,
@@ -30,6 +33,14 @@ model by jittered HMC or iterative NUTS on the unconstrained log-joint
 chains in one batch).  The log-joint's gradient reaches the likelihood
 through K2's backward kernel (``ops/kernels.py::MeanRSS``).  ``fit_hmc``
 moves the data it is given to its ``device``: the card when None.
+
+The chains of a sweep, of ``run_chain`` and of parallel tempering split
+over the ranks of a ``torch.distributed`` process group through
+``parallel/mesh.py``: ``make_mesh`` lays the ranks out on a (chains, data)
+mesh, ``shard_chain_states`` keeps each rank's rows of an ensemble built
+whole, and inside ``with mesh:`` every rank draws exactly the rows the
+one-process run draws (``dryrun.dryrun_multichip`` holds it to that on
+the CPU).  The data axis above one shard is not ported.
 
 ``reference_api`` holds the reference R package's 33 exported names over
 ``api`` and ``post/``: the nine ``B{F,MV,HDF}MMM_*`` fitters with their
@@ -80,4 +91,13 @@ directory phase 3 wrote (Y, time: lists of each curve's values and times)::
 
 __version__ = "0.1.0"
 
-from bayesfmmm_torch.config import ModelConfig, Priors  # noqa: F401
+from bayesfmmm_torch.config import (ModelConfig, Priors,  # noqa: F401
+                                    SamplerConfig)
+
+
+def __getattr__(name):
+    # Lazy submodule access keeps `import bayesfmmm_torch` light.
+    import importlib
+    if name in ("api", "basis", "diagnostics", "reference_api"):
+        return importlib.import_module(f"bayesfmmm_torch.{name}")
+    raise AttributeError(name)

@@ -9,6 +9,7 @@ definitions equal.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -82,3 +83,32 @@ class ModelConfig:
             raise ValueError("covariate adjustment requires D > 0")
         if self.covariate_cov and not self.covariate_mean:
             raise ValueError("covariate_cov requires covariate_mean")
+
+
+@dataclass(frozen=True)
+class SamplerConfig:
+    """MCMC driver knobs (warm_start defaults: UserFunctions.cpp:1353-1359)."""
+    tot_mcmc_iters: int = 1000
+    r_stored_iters: int | None = None   # batch/ring size; None = keep all
+    thinning_num: int = 1
+    burnin_prop: float = 0.8
+    n_try: int = 1                      # restarts (multi-chain best-of)
+    n_chains: int = 4                   # parallel chains (the chain axis)
+    # Tempered transitions (BFMMM.h:1451-1460)
+    beta_N_t: float = 1.0               # coldest ladder temperature
+    N_t: int = 1                        # ladder half-length
+    n_temp_trans: int = 0               # 0 = disabled
+    seed: int = 0
+
+    def __post_init__(self):
+        if not (0.0 <= self.burnin_prop < 1.0):
+            raise ValueError("burnin_prop must be in [0, 1)")
+        if self.thinning_num < 1 or self.tot_mcmc_iters < 1:
+            raise ValueError("iteration counts must be positive")
+        if self.beta_N_t <= 0 or self.beta_N_t > 1:
+            raise ValueError("beta_N_t must be in (0, 1]")
+
+
+def replace(cfg, **kw):
+    """A copy of the frozen dataclass ``cfg`` with the fields ``kw``."""
+    return dataclasses.replace(cfg, **kw)

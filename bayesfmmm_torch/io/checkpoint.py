@@ -12,6 +12,12 @@ The file is one ``.npz`` with the JAX package's names (``state__<field>``,
 ``iteration``), so a checkpoint that package wrote as ``.npz`` loads too.
 Such a file holds JAX PRNG keys, which are no generator state: the caller
 then gives a seed for a new generator.  A failed write raises.
+
+Under ``with mesh:`` (``parallel/mesh.py``) a rank holds only its rows of
+the ensemble; ``save_checkpoint`` then gathers them and the first rank of
+the chains axis writes the one file the one-process run writes, with the
+generator's state, which every rank shares.  ``load_checkpoint`` followed
+by ``shard_chain_states`` resumes it on any number of ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from bayesfmmm_torch.config import ModelConfig
 from bayesfmmm_torch.models.state import STATE_FIELDS, GibbsState
+from bayesfmmm_torch.parallel import mesh as pmesh
 
 
 def _npz_path(path) -> str:
@@ -37,16 +44,28 @@ def save_checkpoint(path, state: GibbsState, generator: torch.Generator,
 
     A CUDA generator's state is a small host byte tensor (seed and Philox
     offset) that a CPU generator cannot take, so the generator's device
-    type is stored beside it."""
-    arrs = {f"state__{f}": getattr(state, f).detach().cpu().numpy()
-            for f in STATE_FIELDS}
-    arrs["generator_state"] = generator.get_state().numpy()
-    arrs["generator_device"] = np.asarray(generator.device.type)
-    arrs["iteration"] = np.asarray(iteration)
-    if config is not None:
-        for k, v in dataclasses.asdict(config).items():
-            arrs[f"config__{k}"] = np.asarray(v)
-    np.savez(_npz_path(path), **arrs)
+    type is stored beside it.  Under a split mesh every rank calls it with
+    its rows; the file holds the whole ensemble, and every rank returns once
+    it is written."""
+    mesh = pmesh.active_mesh()
+    if mesh is not None:
+        state = pmesh.gather_chain_states(state, mesh)
+        if mesh.coords[pmesh.CHAIN_AXIS] != 0:
+            mesh.barrier()
+            return
+    try:
+        arrs = {f"state__{f}": getattr(state, f).detach().cpu().numpy()
+                for f in STATE_FIELDS}
+        arrs["generator_state"] = generator.get_state().numpy()
+        arrs["generator_device"] = np.asarray(generator.device.type)
+        arrs["iteration"] = np.asarray(iteration)
+        if config is not None:
+            for k, v in dataclasses.asdict(config).items():
+                arrs[f"config__{k}"] = np.asarray(v)
+        np.savez(_npz_path(path), **arrs)
+    finally:
+        if mesh is not None:
+            mesh.barrier()
 
 
 def load_checkpoint(path, device, seed=None, dtype=torch.float32):

@@ -44,10 +44,13 @@ from bayesfmmm_torch.ops.distributions import (
     dirichlet_logpdf_unnormalized,
     log_multi_beta,
     mvn_from_chol,
+    normal,
+    randint,
     rdirichlet,
     standard_gamma,
     truncnorm_logpdf,
     truncnorm_sample,
+    uniform,
 )
 from bayesfmmm_torch.ops.linalg import (
     mvn_from_precision_fused,
@@ -81,9 +84,9 @@ def use_full_f32():
     torch.set_float32_matmul_precision("highest")
 
 
-def _uniform(generator, like, shape):
-    return torch.rand(shape, generator=generator, dtype=like.dtype,
-                      device=like.device)
+def _uniform(generator, like, shape, chain_dim=0):
+    return uniform(generator, shape, dtype=like.dtype, device=like.device,
+                   chain_dim=chain_dim)
 
 
 def _tempered_precision(beta, sigma2):
@@ -399,8 +402,7 @@ def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
         w_excl = w - cols[m][..., None] * Um
         fr = uU[..., m] - (GUm * w_excl).sum(-1)              # F_m' r
         Wm = Wden[..., m]
-        z = torch.randn(fr.shape, generator=generator, dtype=fr.dtype,
-                        device=fr.device)
+        z = normal(generator, fr.shape, dtype=fr.dtype, device=fr.device)
         new = s * fr / Wm + z / torch.sqrt(Wm)
         w = w_excl + new[..., None] * Um
         cols[m] = new
@@ -623,8 +625,7 @@ def select_state(ok, new, old):
 def _ordered_pair(generator, shape, K, device):
     """A uniform ordered pair (a, b) of distinct indices < K, each of the
     given shape."""
-    idx = torch.randint(0, K * (K - 1), shape, generator=generator,
-                        device=device)
+    idx = randint(generator, 0, K * (K - 1), shape, device=device)
     a = idx // (K - 1)
     rem = idx % (K - 1)
     return a, torch.where(rem >= a, rem + 1, rem)
@@ -641,8 +642,7 @@ def _chi_factor(U, GU, s):
 def _chi_draw(generator, L, b):
     """chi rows ~ N(Q^-1 b, Q^-1) for Q = L L' (C, N, M, M), b (C, N, M):
     mean and noise through one pair of triangular solves."""
-    z = torch.randn(b.shape, generator=generator, dtype=b.dtype,
-                    device=b.device)
+    z = normal(generator, b.shape, dtype=b.dtype, device=b.device)
     x = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     out = torch.linalg.solve_triangular(
         L.mT, torch.cat([x, z[..., None]], -1), upper=True)
@@ -695,8 +695,9 @@ def _row_lprior(state, Z2):
 
 def _categorical(generator, logits):
     """One draw per column of an unnormalized log-probability table
-    (K, ...) -> (...), by the Gumbel maximum (as jax.random.categorical)."""
-    u = _uniform(generator, logits, logits.shape)
+    (K, C, ...) -> (C, ...), by the Gumbel maximum (as
+    jax.random.categorical)."""
+    u = _uniform(generator, logits, logits.shape, chain_dim=1)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=0)
 
 
@@ -921,8 +922,8 @@ def update_gauge(generator, state, data, hp):
     eyeK = torch.eye(K, dtype=dt, device=dev)
     eyeM = torch.eye(M, dtype=dt, device=dev)
 
-    def normal():
-        return torch.randn(C, generator=generator, dtype=dt, device=dev)
+    def gauss():
+        return normal(generator, (C,), dtype=dt, device=dev)
 
     def mh(st, lp, prop, log_jac):
         lp_new = _gauge_logprior(prop, data, hp)
@@ -932,17 +933,17 @@ def update_gauge(generator, state, data, hp):
 
     lp = _gauge_logprior(state, data, hp)
     a, b = _ordered_pair(generator, (C,), K, dev)
-    eps = 0.3 * normal()
+    eps = 0.3 * gauss()
     state, lp = mh(state, lp,
                    _mix_features(state, data, eyeK[a], eyeK[b], eps),
                    eps * jac_mix)
-    m = torch.randint(0, M, (C,), generator=generator, device=dev)
-    log_s = 0.3 * normal()
+    m = randint(generator, 0, M, (C,), device=dev)
+    log_s = 0.3 * gauss()
     state, lp = mh(state, lp, _rescale_eigen(state, data, eyeM[m], log_s),
                    log_s * jac_scale)
     if M >= 2:
         m1, m2 = _ordered_pair(generator, (C,), M, dev)
-        theta = 0.5 * normal()
+        theta = 0.5 * gauss()
         state, lp = mh(state, lp, _rotate_eigen(state, data, m1, m2, theta),
                        0.0)
     return state
@@ -965,11 +966,10 @@ def update_mgp_scale(generator, state, data, hp, cache: SweepCache, beta=1.0):
     m_idx = torch.arange(M, device=dev)
     w = cache.w
     for _ in range(4):
-        idx = torch.randint(0, K * M, (C,), generator=generator, device=dev)
+        idx = randint(generator, 0, K * M, (C,), device=dev)
         kf = idx // M
         col = idx % M
-        eps = 0.03 * torch.randn(C, generator=generator, dtype=dt,
-                                 device=dev)
+        eps = 0.03 * normal(generator, (C,), dtype=dt, device=dev)
         fmask = torch.nn.functional.one_hot(kf, K).to(dt)        # (C, K)
         cmask = (m_idx >= col[:, None]).to(dt)                   # (C, M)
         smul = 1.0 + (torch.exp(-eps / 2.0) - 1.0)[:, None, None, None] \
@@ -1042,8 +1042,7 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
     s = torch.ones_like(d0)
     sig2 = state.sigma2
     for _ in range(8):
-        eps = 0.015 * torch.randn(C, generator=generator, dtype=dt,
-                                  device=d0.device)
+        eps = 0.015 * normal(generator, (C,), dtype=dt, device=d0.device)
         log_acc = _noise_scale_log_acc(eps, s, sig2, d0, d0xi, coeffs,
                                        data.n_obs, sumA, hp, beta)
         ok = _mh_accept(log_acc, _uniform(generator, eps, (C,)))
@@ -1138,9 +1137,8 @@ def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     Phi = state.Phi
     ll = _chi_marginal_ll(Phi, state.Z, data, s, ur, sum_rr0, U_xi)
     for _ in range(n_moves):
-        j = torch.randint(0, K * M, (C,), generator=generator, device=dev)
-        noise = torch.randn((C, P), generator=generator, dtype=dt,
-                            device=dev)
+        j = randint(generator, 0, K * M, (C,), device=dev)
+        noise = normal(generator, (C, P), dtype=dt, device=dev)
         u = _uniform(generator, Phi, (C,))
         col = cols(Phi)[rows, j]                               # (C, P)
         sc = (torch.linalg.vector_norm(col, dim=1) + 0.1) / sqrt_n
@@ -1191,7 +1189,7 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
     x = state.Phi
     pot, grad = pot_grad(x)
     for _ in range(n_steps):
-        xi = torch.randn(x.shape, generator=generator, dtype=dt, device=dev)
+        xi = normal(generator, x.shape, dtype=dt, device=dev)
         x_new = x - 0.5 * e2 * V * grad + step * W * xi
         pot_new, grad_new = pot_grad(x_new)
         lq_fwd = -0.5 * (xi * xi).sum((1, 2, 3))
@@ -1245,10 +1243,8 @@ def update_hmc_joint(generator, state, data, hp, c, beta=1.0, *, eps=0.01,
             lambda x: lj(logjoint.unflatten(x, unc, covariate_cov)), q)
 
     logp0, grad0 = vg(q0)
-    p0 = torch.randn((C, dim), generator=generator, **kw) \
-        / torch.sqrt(inv_mass)
-    n = torch.randint(1, n_leapfrog + 1, (C,), generator=generator,
-                      device=q0.device)
+    p0 = normal(generator, (C, dim), **kw) / torch.sqrt(inv_mass)
+    n = randint(generator, 1, n_leapfrog + 1, (C,), device=q0.device)
     q, p, _, logp1 = _leapfrog(vg, q0, p0, grad0, logp0,
                                torch.full((C,), eps, **kw), inv_mass, n,
                                n_max=n_leapfrog)

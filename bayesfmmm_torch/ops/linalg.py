@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from bayesfmmm_torch.ops import kernels
+from bayesfmmm_torch.ops import distributions, kernels
 
 
 def small_chol(A):
@@ -63,7 +63,7 @@ def mvn_from_precision_fused(generator, A, b, *, jitter=1e-6):
     linalg.py:325-326 of the JAX package; K1 adds it to the diagonal it
     holds on chip, so no (..., D, D) tensor is built here); returns
     (sample, mean)."""
-    z = torch.randn(b.shape, generator=generator, dtype=b.dtype,
-                    device=b.device)
+    z = distributions.normal(generator, b.shape, dtype=b.dtype,
+                             device=b.device)
     mean, noise = precision_draw_pair(A, b, z, jitter)
     return mean + noise, mean

@@ -16,6 +16,15 @@ with a traced beta; here the batch is the chain axis itself.
 
 Nothing in the round loop reads the device: the swap decisions, counters
 and the cold chain's draws stay there until the run ends.
+
+Under ``with mesh:`` (``parallel/mesh.py``) the replicas are split over the
+ranks of the chains axis, each rank holding rows [lo, hi) of the ladder.
+Every rank gathers the R energies, draws the R swap uniforms from its copy
+of the generator and so computes the same permutation and counts; a swap
+only crosses ranks at a pair (lo - 1, lo), and then the two edge replicas
+of every rank are exchanged.  The cold chain's trace is broadcast from the
+rank that holds replica 0, so every rank returns what the one-process run
+returns.
 """
 
 from __future__ import annotations
@@ -28,7 +37,9 @@ import torch
 from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
                                           take_chains)
 from bayesfmmm_torch.ops import gibbs
+from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
+from bayesfmmm_torch.parallel import mesh as pmesh
 
 
 def geometric_ladder(n_replicas: int, beta_min: float, *,
@@ -119,21 +130,56 @@ def swap_phase(E, ladder, parity, u):
     return perm, accepted, attempted
 
 
+def _split_take(mesh, states, perm, parity):
+    """This rank's replicas after the permutation ``perm`` of all R: the
+    pair (lo - 1, lo) of each rank boundary lo is the only one that can
+    cross ranks, and only at the parity that pairs it; then every rank's
+    first and last replica are gathered, and each rank takes its
+    neighbours'."""
+    n = states.Z.shape[0]
+    lo, hi = mesh.chain_rows(n)
+    local = perm[lo:hi] - lo
+    crossing = any((b - 1 - parity) % 2 == 0
+                   for b in range(n, mesh.n_chains, n))
+    if not crossing:
+        return take_chains(states, local)
+    edges = mesh.gather_fields({f: getattr(states, f)[[0, -1]]
+                                for f in STATE_FIELDS})
+    k, ranks = mesh.coords[pmesh.CHAIN_AXIS], mesh.shape[pmesh.CHAIN_AXIS]
+    # [the last replica of rank k - 1, this rank's, the first of rank
+    # k + 1]; at the ends a row that no index reaches stands in
+    prev, nxt = max(2 * k - 1, 0), min(2 * k + 2, 2 * ranks - 1)
+    wide = GibbsState(**{f: torch.cat([edges[f][prev:prev + 1],
+                                       getattr(states, f),
+                                       edges[f][nxt:nxt + 1]])
+                         for f in STATE_FIELDS})
+    return take_chains(wide, local + 1)
+
+
 def pt_step(generator, pt: PTState, data, hp, c, ladder, *, parity,
             n_sweeps_between=1, **sweep_flags):
     """One PT round: ``n_sweeps_between`` tempered sweeps of every replica
     (one batched ``sweep_full`` at beta = ladder), then one swap phase.
     ``sweep_flags`` go to ``sweep_full`` (covariate flags and the kernel
-    census)."""
+    census).  Under a split mesh ``ladder`` is the whole ladder and
+    ``pt.states`` this rank's replicas."""
+    mesh = pmesh.active_mesh()
     states = pt.states
+    beta = ladder
+    if mesh is not None:
+        beta = ladder[slice(*mesh.chain_rows(states.Z.shape[0]))]
     for _ in range(n_sweeps_between):
         states = gibbs.sweep_full(generator, states, data, hp, c,
-                                  beta=ladder, **sweep_flags)
+                                  beta=beta, **sweep_flags)
     E = _loglik_portion(states, data)
-    u = torch.rand(E.shape, generator=generator, dtype=E.dtype,
-                   device=E.device)
+    if mesh is not None:
+        E = mesh.gather(E)
+    u = uniform(generator, E.shape, dtype=E.dtype, device=E.device,
+                chain_dim=None)
     perm, accepted, attempted = swap_phase(E, ladder, parity, u)
-    return PTState(take_chains(states, perm), pt.swap_accepts + accepted,
+    states = (take_chains(states, perm) if mesh is None
+              else _split_take(mesh, states, perm, parity))
+    return PTState(states, pt.swap_accepts + accepted,
                    pt.swap_attempts + attempted)
 
 
@@ -142,12 +188,17 @@ def run_parallel_tempering(generator, init_states, data, hp, c, *, n_rounds,
                            **sweep_flags):
     """Run PT; returns (cold trace, PTState, swap rate).
 
-    ``init_states``: replica-stacked GibbsState (R chains).  ``ladder``
-    overrides the geometric spacing (e.g. an ``auto_ladder`` result); its
-    length must be R.  The cold trace is a GibbsState whose leading axis
-    is the round (one draw of replica 0 after each round's swaps), on the
-    device; the swap rate is a () tensor there."""
+    ``init_states``: replica-stacked GibbsState (R chains; under a split
+    mesh this rank's rows of them, ``mesh.shard_chain_states``'s).
+    ``ladder`` overrides the geometric spacing (e.g. an ``auto_ladder``
+    result); its length must be R.  The cold trace is a GibbsState whose
+    leading axis is the round (one draw of replica 0 after each round's
+    swaps), on the device; the swap rate is a () tensor there."""
+    mesh = pmesh.active_mesh()
     R = init_states.Z.shape[0]
+    if mesh is not None:
+        mesh.chain_rows(R)
+        R = mesh.n_chains
     dev, dt = init_states.Z.device, data.y.dtype
     if ladder is None:
         ladder = geometric_ladder(R, beta_min, dtype=dt, device=dev)
@@ -164,6 +215,9 @@ def run_parallel_tempering(generator, init_states, data, hp, c, *, n_rounds,
         for f in STATE_FIELDS:
             # a copy, so the trace does not hold every replica's tensors
             cold[f].append(getattr(pt.states, f)[0].clone())
-    trace = GibbsState(**{f: torch.stack(v) for f, v in cold.items()})
+    trace = {f: torch.stack(v) for f, v in cold.items()}
+    if mesh is not None:
+        trace = mesh.broadcast_fields(trace)
+    trace = GibbsState(**trace)
     rate = pt.swap_accepts / pt.swap_attempts.clamp(min=1.0)
     return trace, pt, rate

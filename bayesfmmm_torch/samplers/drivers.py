@@ -23,6 +23,7 @@ import torch
 from bayesfmmm_torch.models.likelihood import log_likelihood
 from bayesfmmm_torch.models.state import STATE_FIELDS
 from bayesfmmm_torch.ops import gibbs
+from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
 
 
@@ -101,8 +102,8 @@ def tempered_excursion(generator, state, data, hp, c, ladder, *,
         logA = logA + _excursion_weight(ladder, rung - 1) * pz_unit(st)
         st = sweep(generator, st, data, hp, c, beta=float(ladder[temp_ind]))
     logA = logA + _excursion_weight(ladder, 2 * N_t) * pz_unit(st)
-    logu = torch.log(torch.rand(logA.shape, generator=generator,
-                                dtype=logA.dtype, device=logA.device))
+    logu = torch.log(uniform(generator, logA.shape, dtype=logA.dtype,
+                             device=logA.device))
     accept = logu < logA
     return gibbs.select_state(accept, st, state), accept, logA
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from bayesfmmm_torch.ops.distributions import refuse_chain_shard
 
 class HMCState(NamedTuple):
     position: torch.Tensor     # (C, dim)
@@ -208,6 +209,7 @@ def run_hmc(generator, log_joint, init_positions, *, n_warmup=500,
     JAX package's per-chain ``accept_mean``, ``eps`` and ``warm_accept``,
     and ``n_steps`` (C, n_warmup + n_samples), every trajectory's length.
     """
+    refuse_chain_shard("run_hmc")
     step = hmc_kernel(log_joint)
     logp0, grad0 = value_and_grad(log_joint, init_positions)
 

@@ -137,7 +137,23 @@ only with every other phase, whose launch counts they read):
      update_hmc_joint's log-joint at its ensemble on the card against the
      CPU; ms, kernels and device-busy ms an ADVI step and a default-off
      sweep, K2 and its backward at 4 rows beside their bounds;
- 13. [timings] chain-sweeps/s of both paths, and each kernel at the main
+ 13. [mesh] slice 16's path, parallel/mesh.py's chains axis at the headline
+     width, from the production path's final 256-chain ensemble (that path
+     runs first when it was not asked for): 20 production sweeps, a
+     checkpoint, one sweep more and 10 PT rounds of 64 replicas, (a) in one
+     process under a 1 x 1 mesh over NCCL, which must give the bits and
+     launch counts of the same run without it, and (b) in two ranks sharing
+     the one card through gloo (bayesfmmm_torch.dryrun.run_ranks), 128
+     chains and 32 replicas each: after the first sweep at least 99 % of
+     the chains within the JAX tests' atol of one process's in every field
+     (the others printed), the medians after the 20 inside the production
+     path's JAX limits, each rank's launches as the sweep predicts them,
+     PT's swap counts equal to one process's, and the ranks' checkpoint
+     holding their gathered ensemble and resumed here for a sweep that
+     holds 99 % of the chains within that atol of the ranks' own; it prints
+     the share of chains still bit-equal, ms a sweep at one rank and at
+     two ranks sharing the card, and ms of collectives a sweep;
+ 14. [timings] chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
      the one PyTorch call for the same function where there is one (K1: the
@@ -179,7 +195,8 @@ from bayesfmmm_torch import reference_api as R
 from bayesfmmm_torch.convert import (fit_result_from_estimates,
                                      state_to_numpy)
 from bayesfmmm_torch.io import armaio
-from bayesfmmm_torch.io.checkpoint import load_checkpoint
+from bayesfmmm_torch.io.checkpoint import (load_checkpoint,
+                                          save_checkpoint)
 from bayesfmmm_torch.models.likelihood import log_likelihood
 from bayesfmmm_torch.models.state import (STATE_FIELDS, init_state,
                                           make_hd_functional_data,
@@ -356,9 +373,23 @@ DEFAULT_OFF_PROTOCOL = dict(
 ADVI_STATS = ("elbo_tail_mean", "elbo_rise", "loglik_tail_mean",
               "sigma2_median")
 SWEEP_STATS = ("loglik_median", "sigma2_median")
+# Slice 16: the production census over a (chains, data) mesh, from the
+# production path's final ensemble: one process under a 1 x 1 NCCL mesh,
+# then two ranks sharing the one card through gloo
+MESH_PROTOCOL = dict(ranks=2, sweeps=20, seed=16, pt_replicas=64,
+                     pt_rounds=10, pt_beta_min=0.3, pt_seed=17, timeout=300)
+# a split sweep against one process's (tests/test_checkpoint_parallel.py:79),
+# held chain by chain: on the card the two ranks' 128-chain products take
+# other cuBLAS and cuSOLVER kernels than one process's 256-chain ones, and a
+# last-bit difference can turn an accept/reject in a chain (one chain of 256
+# after one production sweep, in its Phi and chi, on an H100 80GB HBM3 at
+# 700 W); the share of chains within the atol must reach MESH_SHARE
+MESH_ATOL = 2e-4
+MESH_SHARE = 0.99
 # the phases, in the order they run; all by default
 PHASES = ("build", "k1", "k2", "k3", "slice", "production", "fit",
-          "families", "refapi", "tempering", "hmc", "advi", "timings")
+          "families", "refapi", "tempering", "hmc", "advi", "mesh",
+          "timings")
 
 K1_TOL = {"mean": 5e-5, "noise": 5e-4}      # tests/test_linalg.py:118-121
 # K1's panels kernel on the path: config 4's model at two covariates, the
@@ -598,7 +629,7 @@ def headline_start(dev):
 
 def path_phase(dev, name):
     """Drive one path through phase_warm_start; returns (seconds, launch
-    counts)."""
+    counts, final ensemble)."""
     flags, ref_path, per_sweep = PATHS[name]
     ref = json.loads(ref_path.read_text())
     check(ref["protocol"] == PROTOCOL and ref["port_chains"] == CHAINS
@@ -650,7 +681,7 @@ def path_phase(dev, name):
               f"({ref['limit_rule']})")
         check(lo <= med <= hi,
               f"{name}: {stat} median {med} outside [{lo}, {hi}]")
-    return seconds, counts
+    return seconds, counts, res.final_state
 
 
 def phase3_launches(per, n, n_temp_trans=0, N_t=1, start=0):
@@ -2381,6 +2412,298 @@ def advi_phase(dev, g, card):
     return paths, numbers, entries
 
 
+# ---------------------------------------------------------------------------
+# Slice 16: the chains axis of parallel/mesh.py on the card
+# ---------------------------------------------------------------------------
+
+def _mesh_data(dev):
+    """The headline protocol's data, priors and c on ``dev``."""
+    p = PROTOCOL
+    data, _ = simulate_functional(seed=p["seed"], N=p["N"], K=p["K"],
+                                  P=p["P"], M=p["M"],
+                                  n_time=tuple(p["n_time"]), device=dev)
+    return data, Priors(), torch.full((p["K"],), 10.0, device=dev)
+
+
+def _mesh_runs(g, st, data, hp, c, flags, pt_states, mesh=None,
+               ckpt=None):
+    """The mesh protocol from the ensemble ``st`` and the generator ``g``:
+    its production sweeps, a checkpoint (to ``ckpt`` when given), one sweep
+    more, then PT over ``pt_states`` with a generator of its own.  Under a
+    split ``mesh`` (inside its ``with``) ``st`` is this rank's rows, and
+    ``pt_states``, whole, are split just before PT.  Returns (sweeps'
+    result, seconds, launch counts, (collectives, their seconds) in the
+    sweeps, the sweep after the checkpoint, PT's (cold trace, PTState,
+    rate))."""
+    from bayesfmmm_torch.parallel import mesh as pmesh
+
+    m = MESH_PROTOCOL
+    split = mesh is not None and mesh.shape[pmesh.CHAIN_AXIS] > 1
+    before = (mesh.collectives, mesh.collective_seconds) if split else (0, 0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = drivers.phase_warm_start(g, st, data, hp, c, n_iters=m["sweeps"],
+                                   **flags)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = counters()
+    coll = ((mesh.collectives - before[0],
+             mesh.collective_seconds - before[1]) if split else (0, 0.0))
+    if ckpt is not None:
+        save_checkpoint(ckpt, res.final_state, g, iteration=m["sweeps"])
+    after = drivers.phase_warm_start(g, res.final_state, data, hp, c,
+                                     n_iters=1, start_iter=m["sweeps"],
+                                     **flags).final_state
+    if split:
+        pt_states = pmesh.shard_chain_states(pt_states, mesh)
+    pt = tempering.run_parallel_tempering(
+        torch.Generator(device=data.device).manual_seed(m["pt_seed"]),
+        pt_states, data, hp, c, n_rounds=m["pt_rounds"],
+        beta_min=m["pt_beta_min"], **flags)
+    return res, seconds, counts, coll, after, pt
+
+
+def mesh_rank(start, out, ckpt):
+    """A rank of the mesh phase's split run (dryrun.run_ranks, two ranks on
+    the one card through gloo): its rows of the start ensemble, the
+    protocol under ``with mesh:``; the first rank saves the gathered
+    results to ``out``, and every rank prints its launch counts and
+    collectives."""
+    from bayesfmmm_torch.parallel import mesh as pmesh
+
+    gibbs.use_full_f32()
+    mesh = pmesh.make_mesh()                # cuda:0 for both on one card
+    dev = mesh.device
+    data, hp, c = _mesh_data(dev)
+    data = pmesh.shard_data(data, mesh)
+    st, g, _, _ = load_checkpoint(start, dev)
+    flags = PATHS["production"][0]
+    pt_states = take_chains(st, torch.arange(MESH_PROTOCOL["pt_replicas"],
+                                             device=dev))
+    local = pmesh.shard_chain_states(st, mesh)
+    # library set-up on a throwaway generator, outside the mesh
+    gibbs.sweep_full(torch.Generator(device=dev).manual_seed(1), local, data,
+                     hp, c, **flags)
+    with mesh:
+        res, seconds, counts, coll, after, pt = _mesh_runs(
+            g, local, data, hp, c, flags, pt_states, mesh, ckpt)
+        first = mesh.gather_fields({f: res.traces[f][:, 0]
+                                    for f in STATE_FIELDS})
+        final = pmesh.gather_chain_states(res.final_state, mesh)
+        after = pmesh.gather_chain_states(after, mesh)
+        loglik = mesh.gather(res.loglik[:, -1])
+    cold, pt_state, rate = pt
+    if mesh.rank == 0:
+        torch.save({
+            "first": {f: v.cpu() for f, v in first.items()},
+            "final": {f: getattr(final, f).cpu() for f in STATE_FIELDS},
+            "after": {f: getattr(after, f).cpu() for f in STATE_FIELDS},
+            "loglik": loglik.cpu(), "seconds": seconds,
+            "pt_counts": [pt_state.swap_accepts.item(),
+                          pt_state.swap_attempts.item()],
+            "pt_cold_sigma2": cold.sigma2.cpu()}, out)
+    print(f"RANK {mesh.rank} counts {json.dumps(counts)} collectives "
+          f"{coll[0]} {coll[1]:.6f} seconds {seconds:.6f}", flush=True)
+
+
+def mesh_chains_within(a, b):
+    """(share of the chains whose every field in ``a`` lies within
+    MESH_ATOL of ``b``, {chain: the fields past it} for the others); a and b
+    map the state's fields to whole-ensemble tensors on the host."""
+    past = {f: ((a[f] - b[f]).abs().reshape(CHAINS, -1) > MESH_ATOL).any(1)
+            for f in STATE_FIELDS if b[f].numel()}
+    bad = torch.stack(list(past.values())).any(0)
+    return (1.0 - bad.float().mean().item(),
+            {c: [f for f, v in past.items() if v[c]]
+             for c in torch.nonzero(bad).flatten().tolist()})
+
+
+def mesh_phase(dev, card, start_state):
+    """Slice 16: the production census over a (chains, data) mesh on the
+    card, from ``start_state`` (the production path's final 256-chain
+    ensemble).  (a) A 1 x 1 mesh over NCCL: the protocol's sweeps under
+    ``with mesh:`` give the bits of the same sweeps without it.  (b) Two
+    ranks on the one card through gloo, 128 chains each: the first sweep
+    within JAX's atol of one process in every field in MESH_SHARE of the
+    chains, the medians after the last inside the production path's JAX
+    limits, PT's swap counts equal to one process's, and the ranks'
+    checkpoint resumed here.  Returns (each
+    rank's launch counts, the phase's numbers)."""
+    import torch.distributed as dist
+
+    from bayesfmmm_torch.dryrun import run_ranks
+    from bayesfmmm_torch.parallel import mesh as pmesh
+
+    m = MESH_PROTOCOL
+    t_phase = time.perf_counter()
+    flags, ref_path, per_sweep = PATHS["production"]
+    ref = json.loads(ref_path.read_text())
+    data, hp, c = _mesh_data(dev)
+    R = m["pt_replicas"]
+    with tempfile.TemporaryDirectory(prefix="bfmmm_mesh_") as tmp:
+        tmp = Path(tmp)
+        start = tmp / "start.npz"
+        save_checkpoint(start, start_state,
+                        torch.Generator(device=dev).manual_seed(m["seed"]))
+
+        def one_process(mesh=None):
+            st, g, _, _ = load_checkpoint(start, dev)
+            pt_states = take_chains(st, torch.arange(R, device=dev))
+            if mesh is None:
+                return _mesh_runs(g, st, data, hp, c, flags, pt_states)
+            with mesh:
+                return _mesh_runs(g, pmesh.shard_chain_states(st, mesh),
+                                  data, hp, c, flags, pt_states, mesh)
+
+        # library set-up, then (a): one process under a 1 x 1 NCCL mesh
+        gibbs.sweep_full(torch.Generator(device=dev).manual_seed(1),
+                         start_state, data, hp, c, **flags)
+        ref_run = one_process()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0)
+        try:
+            one = pmesh.make_mesh(devices=dev)
+            check(one.shape == {"chains": 1, "data": 1},
+                  f"mesh: one process gave the mesh {one.shape}")
+            under = one_process(one)
+        finally:
+            dist.destroy_process_group()
+        for f in STATE_FIELDS:
+            check(torch.equal(getattr(under[0].final_state, f),
+                              getattr(ref_run[0].final_state, f))
+                  and torch.equal(under[0].traces[f], ref_run[0].traces[f]),
+                  f"mesh: the 1 x 1 NCCL mesh changed {f}")
+        check(torch.equal(under[0].loglik, ref_run[0].loglik)
+              and under[2] == ref_run[2],
+              "mesh: the 1 x 1 NCCL mesh changed the loglik or the launches")
+        check(torch.equal(under[5][0].sigma2, ref_run[5][0].sigma2)
+              and torch.equal(under[5][2], ref_run[5][2]),
+              "mesh: the 1 x 1 NCCL mesh changed PT")
+        for k, n in per_sweep.items():
+            check(ref_run[2][k] == n * m["sweeps"],
+                  f"mesh: one process launched {k} {ref_run[2][k]} times in "
+                  f"{m['sweeps']} sweeps, expected {n} a sweep")
+        print(f"  mesh (a): {m['sweeps']} production sweeps of {CHAINS} "
+              f"chains under a 1 x 1 mesh over NCCL: the bits and launches "
+              f"of the same sweeps without it")
+
+        # (b): two ranks on the one card through gloo
+        out, ckpt = tmp / "rank0.pt", tmp / "ckpt.npz"
+        t_ranks = time.perf_counter()
+        logs = run_ranks(m["ranks"], f"{Path(__file__).resolve()}:mesh_rank",
+                         {"start": str(start), "out": str(out),
+                          "ckpt": str(ckpt)},
+                         device="cuda", timeout=m["timeout"])
+        ranks_s = time.perf_counter() - t_ranks
+        got = torch.load(out)
+        rank_lines = [ln for log in logs for ln in log.splitlines()
+                      if ln.startswith("RANK ")]
+        check(len(rank_lines) == m["ranks"], f"mesh: rank lines {rank_lines}")
+        rank_counts, rank_coll = {}, []
+        for ln in rank_lines:
+            head, rest = ln.split(" counts ", 1)
+            cts, rest = rest.split(" collectives ", 1)
+            rank_counts[f"mesh rank {head.split()[1]}"] = json.loads(cts)
+            rank_coll.append(float(rest.split()[1]))
+        for name, cts in rank_counts.items():
+            for k, n in per_sweep.items():
+                check(cts[k] == n * m["sweeps"],
+                      f"mesh: {name} launched {k} {cts[k]} times in "
+                      f"{m['sweeps']} sweeps, expected {n} a sweep")
+
+        # the first sweep against one process, in every field, chain by
+        # chain
+        ref_first = {f: ref_run[0].traces[f][:, 0].cpu() for f in STATE_FIELDS}
+        worst = {f: (got["first"][f] - ref_first[f]).abs().max().item()
+                 if ref_first[f].numel() else 0.0 for f in STATE_FIELDS}
+        near, off = mesh_chains_within(got["first"], ref_first)
+        print(f"  mesh (b) first sweep: {near:.4f} of the chains within "
+              f"{MESH_ATOL} of one process's in every field; the others, "
+              f"with the fields past it: {off}; max |diff| by field "
+              + ", ".join(f"{f} {e:.3g}" for f, e in worst.items() if e))
+        check(near >= MESH_SHARE, f"mesh: only {near} of the chains' first "
+                                  f"sweeps within {MESH_ATOL}")
+        ref_final = {f: getattr(ref_run[0].final_state, f).cpu()
+                     for f in STATE_FIELDS}
+        same = torch.ones(CHAINS, dtype=torch.bool)
+        for f in STATE_FIELDS:
+            a, b = got["final"][f], ref_final[f]
+            same &= (a == b).reshape(CHAINS, -1).all(1)
+        share_equal = same.float().mean().item()
+        first_equal = torch.ones(CHAINS, dtype=torch.bool)
+        for f in STATE_FIELDS:
+            first_equal &= (got["first"][f] == ref_first[f]).reshape(
+                CHAINS, -1).all(1)
+        # the medians after the last sweep, in the production path's limits
+        med = {"loglik": got["loglik"].median().item(),
+               "sigma2": float(np.median(got["final"]["sigma2"].numpy()))}
+        for stat, v in med.items():
+            lo, hi = ref[stat]["limits"]
+            check(lo <= v <= hi, f"mesh: the split run's {stat} median {v} "
+                                 f"outside [{lo}, {hi}]")
+            print(f"  mesh (b) {stat}: split median {v:.6g} after "
+                  f"{m['sweeps']} sweeps, limits [{lo:.6g}, {hi:.6g}] "
+                  f"({ref_path.name})")
+        # PT: swap counts equal to one process's
+        cold, pt_state, rate = ref_run[5]
+        pt_counts = [pt_state.swap_accepts.item(),
+                     pt_state.swap_attempts.item()]
+        check(got["pt_counts"] == pt_counts,
+              f"mesh: split PT's swap counts {got['pt_counts']} != one "
+              f"process's {pt_counts}")
+        pt_err = (got["pt_cold_sigma2"] - cold.sigma2.cpu()).abs().max().item()
+        # the checkpoint the two ranks wrote, resumed here
+        st, g, it, _ = load_checkpoint(ckpt, dev)
+        check(it == m["sweeps"], f"mesh: the ranks' checkpoint is at {it}")
+        for f in STATE_FIELDS:
+            check(torch.equal(getattr(st, f).cpu(), got["final"][f]),
+                  f"mesh: the ranks' checkpoint holds another {f}")
+        resumed = drivers.phase_warm_start(g, st, data, hp, c, n_iters=1,
+                                           start_iter=m["sweeps"], **flags)
+        resumed = {f: getattr(resumed.final_state, f).cpu()
+                   for f in STATE_FIELDS}
+        resume_near, resume_off = mesh_chains_within(resumed, got["after"])
+        check(resume_near >= MESH_SHARE and all(
+            bool(torch.isfinite(v).all()) for v in resumed.values()),
+            f"mesh: only {resume_near} of the chains' resumed sweeps within "
+            f"{MESH_ATOL} of the ranks' own")
+    one_ms = 1e3 * ref_run[1] / m["sweeps"]
+    split_ms = 1e3 * got["seconds"] / m["sweeps"]
+    coll_ms = [1e3 * s / m["sweeps"] for s in rank_coll]
+    seconds = time.perf_counter() - t_phase
+    print(f"  mesh on {card}: {m['ranks']} ranks sharing the one card "
+          f"(gloo), {CHAINS // m['ranks']} chains each; after the first "
+          f"sweep max |split - one process| "
+          + ", ".join(f"{f} {e:.3g}" for f, e in worst.items() if e)
+          + f"; chains bit-equal after 1 sweep "
+          f"{first_equal.float().mean():.4f}"
+          f", after {m['sweeps']} {share_equal:.4f}; launches a rank "
+          f"{rank_counts}; ms a sweep at one rank ({CHAINS} chains) "
+          f"{one_ms:.3f}, at {m['ranks']} ranks sharing the card (rank 0, "
+          f"{CHAINS // m['ranks']} chains; sharing, not scaling) "
+          f"{split_ms:.3f}; collectives "
+          f"{', '.join(f'{x:.3f}' for x in coll_ms)} ms a sweep by rank; "
+          f"PT {R} replicas x {m['pt_rounds']} rounds "
+          f"swap counts {pt_counts} both, cold sigma2 max diff {pt_err:.3g}; "
+          f"resumed sweep {resume_near:.4f} of the chains within the atol "
+          f"(the others {resume_off}); ranks {ranks_s:.1f} s "
+          f"from start to exit; the phase {seconds:.1f} s")
+    return rank_counts, {
+        "card": card, "ranks": m["ranks"], "chains": CHAINS,
+        "sweeps": m["sweeps"], "first_sweep_max_abs": worst,
+        "bit_equal_share_first": first_equal.float().mean().item(),
+        "bit_equal_share_last": share_equal, "medians": med,
+        "ms_per_sweep_one_rank": one_ms,
+        "ms_per_sweep_two_ranks_sharing": split_ms,
+        "collective_ms_per_sweep": coll_ms, "pt_swap_counts": pt_counts,
+        "pt_cold_sigma2_max_abs": pt_err,
+        "first_sweep_share_within_atol": near, "first_sweep_off": off,
+        "resume_share_within_atol": resume_near,
+        "launches_by_rank": rank_counts, "ranks_seconds": ranks_s,
+        "seconds": seconds}
+
+
 def round_profiles(rounds):
     """Kernels and device-busy ms of a PT round and an SMC stage beside
     their ms on the host's clock."""
@@ -2511,11 +2834,11 @@ def main(argv=None):
         lap("k3")
 
     if "slice" in phases:
-        s_seconds, s_counts = path_phase(dev, "slice")
+        s_seconds, s_counts, _ = path_phase(dev, "slice")
         print("phase 5 slice 1 path (reference census): ok")
         lap("slice")
     if "production" in phases:
-        p_seconds, p_counts = path_phase(dev, "production")
+        p_seconds, p_counts, p_final = path_phase(dev, "production")
         print("phase 6 slice 2 path (production census): ok")
         lap("production")
     if "fit" in phases:
@@ -2601,6 +2924,17 @@ def main(argv=None):
         print("phase 12 slice 12 paths (ADVI through api.fit_advi_init, and "
               "the production sweep with every default-off kernel on): ok")
         lap("advi")
+
+    if "mesh" in phases:
+        t13 = time.perf_counter()
+        if "production" not in phases:
+            _, _, p_final = path_phase(dev, "production")
+        mesh_counts, line["mesh"] = mesh_phase(dev, card, p_final)
+        print(f"  the phase {time.perf_counter() - t13:.1f} s")
+        print("phase 13 slice 16 path (the production census over a "
+              "(chains, data) mesh: 1 x 1 over NCCL, two ranks sharing the "
+              "card through gloo, PT and a checkpoint across them): ok")
+        lap("mesh")
 
     if "timings" in phases:
         x = main_path_inputs(dev)
@@ -2726,7 +3060,7 @@ def main(argv=None):
         jitter_ms, jitter_launches = device_ms(jitter_ops), device_launches(
             jitter_ops)
         n = PROTOCOL["sweeps"]
-        print(f"phase 13 timings on {card}: slice 1 "
+        print(f"phase 14 timings on {card}: slice 1 "
               f"{CHAINS * n / s_seconds:.1f} chain-sweeps/s "
               f"({s_seconds / n * 1e3:.3f} ms per sweep); production "
               f"{CHAINS * n / p_seconds:.1f} chain-sweeps/s "
@@ -2820,7 +3154,10 @@ def main(argv=None):
                                          **{f"fit_hmc {m}": c[name]
                                             for m, c in hmc_counts.items()},
                                          **{path: c[name]
-                                            for path, c in slice12.items()}},
+                                            for path, c in slice12.items()},
+                                         **{path: c[name]
+                                            for path, c in
+                                            mesh_counts.items()}},
                     "ms": t["kernel"], "plain_ms": t["plain"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                     "library_ms": t.get("library"),

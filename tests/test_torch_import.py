@@ -30,6 +30,30 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+_LAZY = """
+import sys
+import bayesfmmm_torch
+assert "bayesfmmm_torch.api" not in sys.modules
+assert bayesfmmm_torch.api.__name__ == "bayesfmmm_torch.api"
+assert bayesfmmm_torch.reference_api.BFMMM_warm_start
+assert bayesfmmm_torch.SamplerConfig().n_chains == 4
+try:
+    bayesfmmm_torch.nope
+except AttributeError:
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+def test_package_attributes_load_lazily():
+    """``import bayesfmmm_torch`` loads the configuration only; ``api`` and
+    the other named modules load on first use, and any other name raises
+    AttributeError, as in the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _LAZY], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_cpu_tensors_route_to_plain_versions():
     rng = torch.Generator().manual_seed(0)
     X = torch.randn(4, 7, 7, generator=rng)

@@ -65,6 +65,14 @@ def test_restated_numpy_modules_equal_jax_package(both):
         dataclasses.asdict(jconfig.Priors())
     assert [f.name for f in dataclasses.fields(config.ModelConfig)] == \
         [f.name for f in dataclasses.fields(jconfig.ModelConfig)]
+    assert [(f.name, f.type) for f in dataclasses.fields(
+        config.SamplerConfig)] == [(f.name, f.type) for f in
+                                   dataclasses.fields(jconfig.SamplerConfig)]
+    assert dataclasses.asdict(config.SamplerConfig()) == \
+        dataclasses.asdict(jconfig.SamplerConfig())
+    assert dataclasses.asdict(config.replace(
+        config.SamplerConfig(), n_chains=8, seed=3)) == dataclasses.asdict(
+        jconfig.replace(jconfig.SamplerConfig(), n_chains=8, seed=3))
     t = np.linspace(0, 1, 37)
     for P in (1, 2, 8):
         np.testing.assert_array_equal(basis.rw1_penalty(P),
@@ -181,3 +189,19 @@ def test_state_carriers_with_covariates(dtype):
     again = convert.state_from_numpy(back, chains=3, device="cpu",
                                      dtype=dtype)
     assert torch.equal(again.eta, st.eta) and float(st.eta.abs().max()) > 0
+
+
+@pytest.mark.parametrize("bad", [
+    dict(burnin_prop=1.0), dict(burnin_prop=-0.1), dict(thinning_num=0),
+    dict(tot_mcmc_iters=0), dict(beta_N_t=0.0), dict(beta_N_t=1.5)])
+def test_sampler_config_refuses_what_jax_package_refuses(bad):
+    """SamplerConfig's copy refuses the same knobs with the same message,
+    made directly and through ``replace``."""
+    with pytest.raises(ValueError) as want:
+        jconfig.SamplerConfig(**bad)
+    with pytest.raises(ValueError) as got:
+        config.SamplerConfig(**bad)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match=str(want.value).split(" ")[0]):
+        config.replace(config.SamplerConfig(), **bad)
+
