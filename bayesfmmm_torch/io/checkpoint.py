@@ -13,11 +13,12 @@ The file is one ``.npz`` with the JAX package's names (``state__<field>``,
 Such a file holds JAX PRNG keys, which are no generator state: the caller
 then gives a seed for a new generator.  A failed write raises.
 
-Under ``with mesh:`` (``parallel/mesh.py``) a rank holds only its rows of
-the ensemble; ``save_checkpoint`` then gathers them and the first rank of
-the chains axis writes the one file the one-process run writes, with the
-generator's state, which every rank shares.  ``load_checkpoint`` followed
-by ``shard_chain_states`` resumes it on any number of ranks.
+Under ``with mesh:`` (``parallel/mesh.py``) a rank holds only its chains
+of the ensemble, and of Z and chi only its rows of the data;
+``save_checkpoint`` then gathers them and the first rank of the mesh writes
+the one file the one-process run writes, with the generator's state, which
+every rank shares.  ``load_checkpoint`` followed by ``shard_chain_states``
+resumes it on any mesh.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def save_checkpoint(path, state: GibbsState, generator: torch.Generator,
     mesh = pmesh.active_mesh()
     if mesh is not None:
         state = pmesh.gather_chain_states(state, mesh)
-        if mesh.coords[pmesh.CHAIN_AXIS] != 0:
+        if mesh.rank != int(mesh.devices[0, 0]):
             mesh.barrier()
             return
     try:

@@ -44,10 +44,19 @@ class ModelData:
     family: str = "functional"
     pen_rank: int | None = None    # rank of pen, taken once on the host
                                    # (the log-joint's normalizing power)
+    n_whole: int | None = None     # the whole data set's N once the rows
+                                   # are split over a mesh's data axis
+                                   # (parallel/mesh.py::shard_data)
 
     @property
     def N(self):
+        """This tensor's rows: the rank's share under a data split."""
         return self.y.shape[0]
+
+    @property
+    def N_whole(self):
+        """The whole data set's number of observations."""
+        return self.N if self.n_whole is None else self.n_whole
 
     @property
     def L(self):

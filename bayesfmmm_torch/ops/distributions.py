@@ -14,16 +14,17 @@ as in the JAX package's vmapped code.
     JAX package leaves them to XLA (the joint draws of the sweep take
     linalg.mvn_from_precision_fused, which reaches K1).
   * ``normal`` / ``uniform`` / ``randint`` and ``standard_gamma`` — the
-    draws every sampler of the sweep takes, with the chain axis named.
-    Outside a ``with mesh:`` block (``parallel/mesh.py``), or on a mesh of
-    one chain shard, each is the plain torch call.  Inside one whose
-    chains are split over ranks, each rank draws at the whole ensemble's
-    shape from its copy of the one generator and keeps its own rows, so
-    every rank's generator stays in step with the others' and its rows
-    are those the one-process run draws.  A gamma's shape parameter is
-    gathered over the chains first: torch's CPU gamma sampler spends a
+    draws every sampler of the sweep takes, with the chain axis named and,
+    for a draw on the data's rows, the data axis.  Outside a ``with
+    mesh:`` block (``parallel/mesh.py``), or on a 1 x 1 mesh, each is the
+    plain torch call.  Inside one that splits the chains or the data over
+    ranks, each rank draws at the whole ensemble's and the whole data's
+    shape from its copy of the one generator and keeps its own chains and
+    rows, so every rank's generator stays in step with the others' and its
+    draws are those the one-process run draws.  A gamma's shape parameter
+    is gathered over both axes first: torch's CPU gamma sampler spends a
     number of uniforms that depends on the shape's value, so the draw
-    needs every chain's shape, not this rank's alone.
+    needs every chain's and row's shape, not this rank's alone.
 """
 
 from __future__ import annotations
@@ -42,81 +43,83 @@ __all__ = [
 ]
 
 
-# The mesh whose chains are split over ranks while its ``with`` block runs
-# (parallel/mesh.py::Mesh.__enter__), else None.
-_CHAIN_SHARD = None
+# The mesh whose ``with`` block runs while it splits the chains or the data
+# over ranks (parallel/mesh.py::Mesh.__enter__), else None.
+_MESH = None
 
 
-def refuse_chain_shard(what):
-    """Raise inside a ``with mesh:`` block that splits the chains: ``what``
-    takes its draws at its own shapes, so its ranks would fall out of step
-    with one another and with the one-process run."""
-    if _CHAIN_SHARD is not None:
+def refuse_split_mesh(what):
+    """Raise inside a ``with mesh:`` block that splits the chains or the
+    data: ``what`` takes its draws at its own shapes, so its ranks would
+    fall out of step with one another and with the one-process run."""
+    if _MESH is not None:
         raise NotImplementedError(
-            f"{what} with its chains split over a mesh is not ported (only "
-            f"sweeps, run_chain and parallel tempering are)")
+            f"{what} over a split mesh is not ported (ROADMAP item 15c; "
+            f"only sweeps, run_chain and parallel tempering are)")
 
 
-def _whole(shape, chain_dim):
-    """(shape to draw, (first row, rows) to keep on ``chain_dim``, or None
-    when the draw is kept whole)."""
-    if _CHAIN_SHARD is None or chain_dim is None:
-        return shape, None
-    return _CHAIN_SHARD.whole(shape, chain_dim)
+def _whole(shape, chain_dim, data_dim=None):
+    """(shape to draw, [(dim, first index, length) to keep])."""
+    if _MESH is None:
+        return shape, ()
+    return _MESH.whole(shape, chain_dim, data_dim)
 
 
-def _keep(x, rows, chain_dim):
-    return x if rows is None else x.narrow(chain_dim, *rows)
+def _keep(x, keep):
+    for dim, lo, n in keep:
+        x = x.narrow(dim, lo, n)
+    return x
 
 
-def normal(generator, shape, *, dtype, device, chain_dim=0):
+def normal(generator, shape, *, dtype, device, chain_dim=0, data_dim=None):
     """Standard normal draws of ``shape``, whose chain axis is
-    ``chain_dim`` (None: a draw shared by every chain)."""
-    whole, rows = _whole(shape, chain_dim)
+    ``chain_dim`` (None: a draw shared by every chain) and whose axis over
+    the data's rows is ``data_dim`` (None: no such axis)."""
+    whole, keep = _whole(shape, chain_dim, data_dim)
     return _keep(torch.randn(whole, generator=generator, dtype=dtype,
-                             device=device), rows, chain_dim)
+                             device=device), keep)
 
 
-def uniform(generator, shape, *, dtype, device, chain_dim=0):
-    """U[0, 1) draws of ``shape``, chain axis as in ``normal``."""
-    whole, rows = _whole(shape, chain_dim)
+def uniform(generator, shape, *, dtype, device, chain_dim=0, data_dim=None):
+    """U[0, 1) draws of ``shape``, axes as in ``normal``."""
+    whole, keep = _whole(shape, chain_dim, data_dim)
     return _keep(torch.rand(whole, generator=generator, dtype=dtype,
-                            device=device), rows, chain_dim)
+                            device=device), keep)
 
 
-def randint(generator, low, high, shape, *, device, chain_dim=0):
-    """Integers uniform in [low, high) of ``shape``, chain axis as in
+def randint(generator, low, high, shape, *, device, chain_dim=0,
+            data_dim=None):
+    """Integers uniform in [low, high) of ``shape``, axes as in
     ``normal``."""
-    whole, rows = _whole(shape, chain_dim)
+    whole, keep = _whole(shape, chain_dim, data_dim)
     return _keep(torch.randint(low, high, whole, generator=generator,
-                               device=device), rows, chain_dim)
+                               device=device), keep)
 
 
-def standard_gamma(generator, alpha, chain_dim=0):
-    """Gamma(alpha, 1) draws, elementwise; ``alpha``'s chain axis is
-    ``chain_dim``, and under a split mesh it is gathered over the chains
-    before the draw.
+def standard_gamma(generator, alpha, chain_dim=0, data_dim=None):
+    """Gamma(alpha, 1) draws, elementwise; ``alpha``'s axes as in
+    ``normal``, and under a split mesh it is gathered over the chains and
+    the data's rows before the draw.
 
     torch clamps a draw that underflows up to the smallest normal float;
     jax.random.gamma returns 0.  Tiny Dirichlet concentrations (a_Z_PM * Z
     with Z near 0) underflow routinely, and the Z kernel's boundary
     auto-accept and NaN-reject rules key off that exact 0, so the clamp is
     undone here."""
-    rows = None
-    if _CHAIN_SHARD is not None:
-        _, rows = _CHAIN_SHARD.whole(alpha.shape, chain_dim)
-        alpha = _CHAIN_SHARD.gather(alpha, chain_dim)
+    keep = ()
+    if _MESH is not None:
+        _, keep = _MESH.whole(alpha.shape, chain_dim, data_dim)
+        alpha = _MESH.gather_axes(alpha, chain_dim, data_dim)
     g = torch._standard_gamma(alpha, generator=generator)
-    return _keep(torch.where(g <= torch.finfo(g.dtype).tiny, 0.0, g), rows,
-                 chain_dim)
+    return _keep(torch.where(g <= torch.finfo(g.dtype).tiny, 0.0, g), keep)
 
 
-def rdirichlet(generator, alpha):
-    """Dirichlet draw over the last axis (the chain axis first), with the
-    reference's guard: alpha <= 0 is floored at 10
-    (Distributions.h:24-28)."""
+def rdirichlet(generator, alpha, data_dim=None):
+    """Dirichlet draw over the last axis (the chain axis first; the data's
+    rows on ``data_dim`` when it has them), with the reference's guard:
+    alpha <= 0 is floored at 10 (Distributions.h:24-28)."""
     alpha = torch.where(alpha <= 0, 10.0, alpha)
-    g = standard_gamma(generator, alpha)
+    g = standard_gamma(generator, alpha, data_dim=data_dim)
     return g / g.sum(-1, keepdim=True)
 
 

@@ -28,6 +28,12 @@ are gathers and one-hot masks per chain; an MH accept is a per-chain
 Covariate terms (eta in the mean, xi in the eigen directions) vanish at
 D = 0; with the identity basis of the multivariate family G_n = I, so the
 Gram sums need neither kernel K3 nor K2 and skip them.
+
+Under a mesh that splits the data (parallel/mesh.py) each rank holds N/d
+rows of the data and of Z and chi.  Every sum over n below is a partial sum
+over those rows that ``data_sum`` adds over the data group before a global
+field reads it, and every draw on rows names its data axis; ``data.N`` is
+the rank's rows and ``data.N_whole`` the whole data set's.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from bayesfmmm_torch.ops.mean import (
     gram_vec,
     rss_from_coeffs,
 )
+from bayesfmmm_torch.parallel.mesh import data_sum, refuse_data_split
 from bayesfmmm_torch.samplers.hmc import _leapfrog, value_and_grad
 
 # Joint draw of a whole blocked family (all K*M(*D) blocks of Phi or xi) up
@@ -84,9 +91,9 @@ def use_full_f32():
     torch.set_float32_matmul_precision("highest")
 
 
-def _uniform(generator, like, shape, chain_dim=0):
+def _uniform(generator, like, shape, chain_dim=0, data_dim=None):
     return uniform(generator, shape, dtype=like.dtype, device=like.device,
-                   chain_dim=chain_dim)
+                   chain_dim=chain_dim, data_dim=data_dim)
 
 
 def _tempered_precision(beta, sigma2):
@@ -115,20 +122,24 @@ def _mh_accept(log_acc, u):
 
 
 def _gram_bvec(data, wt, w_excl):
-    """sum_n wt[c, n] (u_n - G_n w_excl[c, n]) -> (C, P)."""
-    return torch.einsum("cn,cnp->cp", wt, data.u - gram_vec(data, w_excl))
+    """sum_n wt[c, n] (u_n - G_n w_excl[c, n]) -> (C, P), over every rank's
+    rows."""
+    return data_sum(torch.einsum("cn,cnp->cp", wt,
+                                 data.u - gram_vec(data, w_excl)))
 
 
 def _weighted_gram(data, W):
     """sum_n W[..., n] G_n -> (..., P, P); the leading axes of W are
-    flattened into the rows of kernel K3 (ops/kernels.py::weighted_gram).
-    With the identity basis every G_n is I and the sum is sum_n W_n times
-    I: no kernel."""
+    flattened into the rows of kernel K3 (ops/kernels.py::weighted_gram),
+    which sums this rank's rows; the sum is over every rank's.  With the
+    identity basis every G_n is I and the sum is sum_n W_n times I: no
+    kernel."""
     N, P = data.G.shape[0], data.G.shape[-1]
     if data.identity_basis:
-        return W.sum(-1)[..., None, None] * torch.eye(
+        return data_sum(W.sum(-1))[..., None, None] * torch.eye(
             P, dtype=W.dtype, device=W.device)
-    out = kernels.weighted_gram(W.reshape(-1, N).contiguous(), data.G)
+    out = data_sum(kernels.weighted_gram(W.reshape(-1, N).contiguous(),
+                                         data.G))
     return out.reshape(W.shape[:-1] + (P, P))
 
 
@@ -143,19 +154,22 @@ def _joint_blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
 
     and one (B*P)-dimensional factor-and-solve (kernel K1 on CUDA) draws it.
     W (C, B, N) block weights, prior_diag and blocks_cur (C, B, P), s (C,).
-    Returns (blocks_new, w_new).
+    The sums over n are over every rank's rows, so every rank of a data
+    group factors the same precision.  Returns (blocks_new, w_new).
     """
     C, Bn, N = W.shape
     P = blocks_cur.shape[2]
     w_excl = w - torch.einsum("cbn,cbp->cnp", W, blocks_cur)
     resid = data.u - gram_vec(data, w_excl)
     if data.identity_basis:                     # A = (W W') kron I
-        A = torch.einsum("can,cbn->cab", W, W)[:, :, None, :, None] \
+        WW, Wr = data_sum(torch.einsum("can,cbn->cab", W, W),
+                          torch.einsum("cbn,cnp->cbp", W, resid))
+        A = WW[:, :, None, :, None] \
             * torch.eye(P, dtype=W.dtype, device=W.device)[:, None, :]
     else:
-        A = torch.einsum("can,cbn,npq->capbq", W, W, data.G)
-    bvec = s[:, None] * torch.einsum("cbn,cnp->cbp", W,
-                                     resid).reshape(C, Bn * P)
+        A, Wr = data_sum(torch.einsum("can,cbn,npq->capbq", W, W, data.G),
+                         torch.einsum("cbn,cnp->cbp", W, resid))
+    bvec = s[:, None] * Wr.reshape(C, Bn * P)
     A = s[:, None, None] * A.reshape(C, Bn * P, Bn * P) \
         + torch.diag_embed(prior_diag.reshape(C, Bn * P))
     new, _ = mvn_from_precision_fused(generator, A, bvec)
@@ -174,7 +188,7 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
     # Row log-likelihoods in residual space (the Gram quadratic cancels in
     # f32); both endpoints stacked into one pass over B.
     T = feature_offsets(state, data.X)                       # (C, N, K, P)
-    Z_new = rdirichlet(generator, hp.a_Z_PM * state.Z)
+    Z_new = rdirichlet(generator, hp.a_Z_PM * state.Z, data_dim=1)
     Z2 = torch.stack([state.Z, Z_new])                        # (2, C, N, K)
     w2 = torch.einsum("ecnk,cnkp->ecnp", Z2, T)
     r = data.y - apply_basis(data, w2)
@@ -192,7 +206,7 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
     # auto-accept when the current row touched the boundary
     # (UpdateMixedMembership.h:170-174)
     boundary = (state.Z <= 0.0).any(-1)
-    u = _uniform(generator, state.Z, log_acc.shape)
+    u = _uniform(generator, state.Z, log_acc.shape, data_dim=1)
     accept = _mh_accept(log_acc, u) | boundary
     Z = torch.where(accept[..., None], Z_new, state.Z)
     w = torch.einsum("cnk,cnkp->cnp", Z, T)
@@ -204,9 +218,11 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # Reference: updatePi_PM / lpdf_pi_PM (UpdatePi.h:39-116)
 # ---------------------------------------------------------------------------
 
-def update_pi(generator, state, hp, c):
-    logZ_colsum = torch.log(state.Z).sum(1)                   # (C, K)
-    N = state.Z.shape[1]
+def update_pi(generator, state, hp, c, N=None):
+    """``N``: the whole data set's number of observations (Z's rows when
+    None; the sweeps pass ``data.N_whole``)."""
+    logZ_colsum = data_sum(torch.log(state.Z).sum(1))         # (C, K)
+    N = state.Z.shape[1] if N is None else N
     a3 = state.alpha3[:, None]
 
     def lpdf(pi):
@@ -231,9 +247,10 @@ def update_pi(generator, state, hp, c):
 # replaces the reference's sign slip (gibbs.py:526-533).
 # ---------------------------------------------------------------------------
 
-def update_alpha3(generator, state, hp):
-    logZ_colsum = torch.log(state.Z).sum(1)
-    N = state.Z.shape[1]
+def update_alpha3(generator, state, hp, N=None):
+    """``N`` as in ``update_pi``."""
+    logZ_colsum = data_sum(torch.log(state.Z).sum(1))
+    N = state.Z.shape[1] if N is None else N
 
     def lpdf(a3):
         return (-hp.b * a3
@@ -402,7 +419,8 @@ def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
         w_excl = w - cols[m][..., None] * Um
         fr = uU[..., m] - (GUm * w_excl).sum(-1)              # F_m' r
         Wm = Wden[..., m]
-        z = normal(generator, fr.shape, dtype=fr.dtype, device=fr.device)
+        z = normal(generator, fr.shape, dtype=fr.dtype, device=fr.device,
+                   data_dim=1)
         new = s * fr / Wm + z / torch.sqrt(Wm)
         w = w_excl + new[..., None] * Um
         cols[m] = new
@@ -622,10 +640,11 @@ def select_state(ok, new, old):
     return old.replace(**changes)
 
 
-def _ordered_pair(generator, shape, K, device):
+def _ordered_pair(generator, shape, K, device, data_dim=None):
     """A uniform ordered pair (a, b) of distinct indices < K, each of the
-    given shape."""
-    idx = randint(generator, 0, K * (K - 1), shape, device=device)
+    given shape (the chain axis first; the data's rows on ``data_dim``)."""
+    idx = randint(generator, 0, K * (K - 1), shape, device=device,
+                  data_dim=data_dim)
     a = idx // (K - 1)
     rem = idx % (K - 1)
     return a, torch.where(rem >= a, rem + 1, rem)
@@ -642,7 +661,8 @@ def _chi_factor(U, GU, s):
 def _chi_draw(generator, L, b):
     """chi rows ~ N(Q^-1 b, Q^-1) for Q = L L' (C, N, M, M), b (C, N, M):
     mean and noise through one pair of triangular solves."""
-    z = normal(generator, b.shape, dtype=b.dtype, device=b.device)
+    z = normal(generator, b.shape, dtype=b.dtype, device=b.device,
+               data_dim=1)
     x = torch.linalg.solve_triangular(L, b[..., None], upper=False)
     out = torch.linalg.solve_triangular(
         L.mT, torch.cat([x, z[..., None]], -1), upper=True)
@@ -697,7 +717,7 @@ def _categorical(generator, logits):
     """One draw per column of an unnormalized log-probability table
     (K, C, ...) -> (C, ...), by the Gumbel maximum (as
     jax.random.categorical)."""
-    u = _uniform(generator, logits, logits.shape, chain_dim=1)
+    u = _uniform(generator, logits, logits.shape, chain_dim=1, data_dim=2)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=0)
 
 
@@ -716,9 +736,9 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     Z = state.Z
     C, N, K = Z.shape
     alpha_ind = (state.alpha3[:, None] * state.pi)[:, None, :].expand_as(Z)
-    Z_rw = rdirichlet(generator, hp.a_Z_PM * Z)
-    Z_ind = rdirichlet(generator, alpha_ind)
-    use_ind = _uniform(generator, Z, (C, N)) < p_indep
+    Z_rw = rdirichlet(generator, hp.a_Z_PM * Z, data_dim=1)
+    Z_ind = rdirichlet(generator, alpha_ind, data_dim=1)
+    use_ind = _uniform(generator, Z, (C, N), data_dim=1) < p_indep
     Z_new = torch.where(use_ind[..., None], Z_ind, Z_rw)
 
     # both mixture densities q(new|old), q(old|new) in one density call
@@ -740,14 +760,15 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     log_acc = ml[1] + lpr[1] - ml[0] - lpr[0] + q_bwd - q_fwd
     # auto-accept when the current row touched the boundary
     boundary = (Z <= 0.0).any(-1)
-    acc = _mh_accept(log_acc, _uniform(generator, Z, (C, N))) | boundary
+    acc = _mh_accept(log_acc, _uniform(generator, Z, (C, N),
+                                       data_dim=1)) | boundary
     Z, a, U, L, Fr, ml_cur, lpr_cur = (
         _where_rows(acc, n_, o_) for n_, o_ in zip(
             (Z_new, a2[1], U2[1], L2[1], Fr2[1], ml[1], lpr[1]),
             (Z, a2[0], U2[0], L2[0], Fr2[0], ml[0], lpr[0])))
 
     # label swap: exchange two coordinates of each row (an involution)
-    i1, i2 = _ordered_pair(generator, (C, N), K, Z.device)
+    i1, i2 = _ordered_pair(generator, (C, N), K, Z.device, data_dim=1)
     cols = torch.arange(K, device=Z.device)
     sel1 = cols == i1[..., None]
     sel2 = cols == i2[..., None]
@@ -758,7 +779,7 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     ml_s = _marg_loglik(s, L_s, Fr_s, rr_s)[0]
     lpr_s = _row_lprior(state, Z_swap[None])[0]
     acc_s = _mh_accept((ml_s + lpr_s) - (ml_cur + lpr_cur),
-                       _uniform(generator, Z, (C, N)))
+                       _uniform(generator, Z, (C, N), data_dim=1))
     Z, a, U, L, Fr = (
         _where_rows(acc_s, n_, o_) for n_, o_ in zip(
             (Z_swap, a_s[0], U_s[0], L_s[0], Fr_s[0]), (Z, a, U, L, Fr)))
@@ -779,7 +800,8 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
         ml_c = _marg_loglik(s, L_c, Fr_c, rr_c)                # (K, C, N)
         log_pa = torch.log(torch.softmax(ml_c, 0) + 1e-38)
         a_sel = _categorical(generator, ml_c)                  # (C, N)
-        Z_anchor = rdirichlet(generator, anchor_conc * corners[a_sel] + 0.5)
+        Z_anchor = rdirichlet(generator, anchor_conc * corners[a_sel] + 0.5,
+                              data_dim=1)
 
         def log_q_anchor(z):
             """log sum_a P(a) Dir_unnorm(z; conc e_a + 1/2) per row: the
@@ -794,7 +816,7 @@ def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
         log_acc_a = ((ml_a + lpr_a) - (ml_cur + lpr_cur)
                      + log_q_anchor(Z) - log_q_anchor(Z_anchor))
         acc_a = (Z > 0.0).all(-1) & _mh_accept(
-            log_acc_a, _uniform(generator, Z, (C, N)))
+            log_acc_a, _uniform(generator, Z, (C, N), data_dim=1))
         Z, a, U, L, Fr = (
             _where_rows(acc_a, n_, o_) for n_, o_ in zip(
                 (Z_anchor, a_a[0], U_a[0], L_a[0], Fr_a[0]), (Z, a, U, L, Fr)))
@@ -838,13 +860,14 @@ def update_chi_joint(generator, state, data, hp, cache: SweepCache,
 
 def _gauge_logprior(state, data, hp):
     """Prior terms that gauge maps can change, per chain (C,)."""
-    lp = _row_lprior(state, state.Z).sum(-1)
+    lp, chi2 = data_sum(_row_lprior(state, state.Z).sum(-1),
+                        (state.chi ** 2).sum((1, 2)))
     quad_nu = torch.einsum("ckp,pq,ckq->ck", state.nu, data.pen, state.nu)
     lp = lp - 0.5 * (state.tau * quad_nu).sum(-1)
     tilde = torch.cumprod(state.delta, dim=2)                 # (C, K, M)
     lp = lp - 0.5 * (tilde[:, :, None, :] * state.gamma
                      * state.Phi ** 2).sum((1, 2, 3))
-    lp = lp - 0.5 * (state.chi ** 2).sum((1, 2))
+    lp = lp - 0.5 * chi2
     if data.D > 0:
         quad_eta = torch.einsum("ckpd,pq,ckqd->ckd", state.eta, data.pen,
                                 state.eta)
@@ -917,8 +940,8 @@ def update_gauge(generator, state, data, hp):
     P = state.nu.shape[2]
     dt, dev = state.nu.dtype, state.nu.device
     D = data.D
-    jac_mix = data.N - P * (1.0 + M + D + D * M)
-    jac_scale = K * P * (1.0 + D) - data.N
+    jac_mix = data.N_whole - P * (1.0 + M + D + D * M)
+    jac_scale = K * P * (1.0 + D) - data.N_whole
     eyeK = torch.eye(K, dtype=dt, device=dev)
     eyeM = torch.eye(M, dtype=dt, device=dev)
 
@@ -1030,8 +1053,8 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
     ac = cache.w - ec
     r0 = data.y - apply_basis(data, ac)
     e = apply_basis(data, ec)
-    coeffs = ((r0 * r0).sum((1, 2)), (r0 * e).sum((1, 2)),
-              (e * e).sum((1, 2)))
+    coeffs = data_sum((r0 * r0).sum((1, 2)), (r0 * e).sum((1, 2)),
+                      (e * e).sum((1, 2)))
     sumA = state.A[:, :, 0].sum(-1)
     d0 = state.delta[:, :, 0].sum(-1)
     if data.D > 0:
@@ -1067,21 +1090,53 @@ def update_noise_scale(generator, state, data, hp, cache: SweepCache,
 # preconditioner per column (||Phi_k[:, m]|| + 0.1)/sqrt(N) frozen at entry,
 # then one exact joint chi | Phi redraw.  The gradient of the potential is
 # autograd's, per chain (the chains' potentials are independent, so the
-# gradient of their sum is each chain's own).
+# gradient of their sum is each chain's own).  Under a data split the
+# likelihood's row sums and their gradient are this rank's rows', reduced
+# over the data group together; the prior's term is added once.
 # ---------------------------------------------------------------------------
 
-def _chi_marginal_ll(Phi, Z, data, s, ur, sum_rr0, U_xi=None):
-    """beta-tempered chi-marginal log-likelihood per chain (C,), up to a
-    constant; ur = u - G a and sum_rr0 = ||y - B a||^2 for the mean-only
-    coefficients a, U_xi the covariate part sum_k Z_nk xi_k x_n of the
-    eigen directions (a constant of the Phi moves; None at D = 0)."""
+def _chi_marginal_sums(Phi, Z, data, s, ur, U_xi=None):
+    """The row sums of the chi-marginal log-likelihood over this rank's
+    rows, per chain: (sum_n log det L_n, sum_n ||v_n||^2), each (C,), for
+    ur = u - G a (a the mean-only coefficients) and U_xi the covariate part
+    sum_k Z_nk xi_k x_n of the eigen directions (a constant of the Phi
+    moves; None at D = 0)."""
     U = torch.einsum("cnk,ckpm->cnpm", Z, Phi)
     if U_xi is not None:
         U = U + U_xi
     L = _chi_factor(U, gram_dirs(data, U), s)
     v = small_solve_lower(L, torch.einsum("cnpm,cnp->cnm", U, ur))
-    return -0.5 * (small_chol_logdet(L).sum(-1) + s * sum_rr0
-                   - s * s * (v * v).sum((1, 2)))
+    return small_chol_logdet(L).sum(-1), (v * v).sum((1, 2))
+
+
+def _chi_marginal_value(s, sum_rr0, logdet, vv):
+    """beta-tempered chi-marginal log-likelihood per chain (C,), up to a
+    constant, from its row sums over every rank's rows; sum_rr0 =
+    ||y - B a||^2."""
+    return -0.5 * (logdet + s * sum_rr0 - s * s * vv)
+
+
+def _chi_marginal_ll(Phi, Z, data, s, ur, sum_rr0, U_xi=None):
+    """``_chi_marginal_value`` of ``_chi_marginal_sums``, over every rank's
+    rows (no gradient crosses the reduction)."""
+    return _chi_marginal_value(
+        s, sum_rr0, *data_sum(*_chi_marginal_sums(Phi, Z, data, s, ur, U_xi)))
+
+
+def _mala_value_and_grad(Phi, Z, data, s, ur, sum_rr0, pri, U_xi=None):
+    """The MALA potential -(chi-marginal loglik + MGP log prior of Phi) per
+    chain (C,) and its gradient in Phi, neither attached to a graph: the
+    likelihood's row sums and autograd's gradient of them over this rank's
+    rows are reduced over the data group in one collective, then the
+    prior's value and gradient (pri Phi) are added once."""
+    x = Phi.detach().requires_grad_()
+    with torch.enable_grad():
+        logdet, vv = _chi_marginal_sums(x, Z, data, s, ur, U_xi)
+        grad, = torch.autograd.grad((0.5 * (logdet - s * s * vv)).sum(), x)
+    logdet, vv, grad = data_sum(logdet.detach(), vv.detach(), grad)
+    x = x.detach()
+    ll = _chi_marginal_value(s, sum_rr0, logdet, vv)
+    return -(ll - 0.5 * (pri * x * x).sum((1, 2, 3))), grad + pri * x
 
 
 def _phi_move_terms(state, data, beta):
@@ -1096,13 +1151,6 @@ def _phi_move_terms(state, data, beta):
     U_xi = (torch.einsum("cnk,ckpdm,nd->cnpm", state.Z, state.xi,
                          data.X).detach() if data.D > 0 else None)
     return s, a, ur, sum_rr0, U_xi
-
-
-def _mala_potential(Phi, Z, data, s, ur, sum_rr0, pri, U_xi=None):
-    """-(beta-tempered chi-marginal loglik + MGP log prior of Phi) per
-    chain (C,)."""
-    ll = _chi_marginal_ll(Phi, Z, data, s, ur, sum_rr0, U_xi)
-    return -(ll - 0.5 * (pri * Phi * Phi).sum((1, 2, 3)))
 
 
 # ---------------------------------------------------------------------------
@@ -1133,7 +1181,7 @@ def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
         * cols(state.gamma)
     rows = torch.arange(C, device=dev)
     j_all = torch.arange(K * M, device=dev)
-    sqrt_n = math.sqrt(data.N)
+    sqrt_n = math.sqrt(data.N_whole)
     Phi = state.Phi
     ll = _chi_marginal_ll(Phi, state.Z, data, s, ur, sum_rr0, U_xi)
     for _ in range(n_moves):
@@ -1174,16 +1222,12 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
     s, a, ur, sum_rr0, U_xi = _phi_move_terms(state, data, beta)
 
     def pot_grad(x):
-        x = x.detach().requires_grad_()
-        with torch.enable_grad():
-            pot = _mala_potential(x, state.Z, data, s, ur, sum_rr0, pri,
-                                  U_xi)
-            grad, = torch.autograd.grad(pot.sum(), x)
-        return pot.detach(), grad
+        return _mala_value_and_grad(x, state.Z, data, s, ur, sum_rr0, pri,
+                                    U_xi)
 
     # frozen diagonal preconditioner: per-column marginal width scale
     W = ((state.Phi ** 2).sum(2, keepdim=True).sqrt() + 0.1) \
-        / math.sqrt(data.N)                                   # (C, K, 1, M)
+        / math.sqrt(data.N_whole)                             # (C, K, 1, M)
     V = W * W
     e2 = step * step
     x = state.Phi
@@ -1229,7 +1273,10 @@ def update_hmc_joint(generator, state, data, hp, c, beta=1.0, *, eps=0.01,
     posterior variances); ones when None.  The gradient goes through
     ``kernels.MeanRSS``: K2 forward and backward once an evaluation on the
     card, 1 + n_leapfrog evaluations; the penalty's rank is the data's
-    (``ModelData.pen_rank``), so nothing is read on the host."""
+    (``ModelData.pen_rank``), so nothing is read on the host.  It moves
+    Z's and chi's rows and the global fields through the whole log-joint in
+    one trajectory, so it raises under a mesh that splits the data."""
+    refuse_data_split("update_hmc_joint")
     lj = logjoint.make_log_joint(data, hp, c, temperature=beta)
     unc = logjoint.from_state(state)
     q0 = logjoint.flatten(unc, covariate_cov)
@@ -1295,8 +1342,8 @@ def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
     use_full_f32()
     cache = build_cache(data, state)
     state, cache = update_z(generator, state, data, hp, cache, beta)
-    state = update_pi(generator, state, hp, c)
-    state = update_alpha3(generator, state, hp)
+    state = update_pi(generator, state, hp, c, data.N_whole)
+    state = update_alpha3(generator, state, hp, data.N_whole)
     state, cache = update_nu(generator, state, data, hp, cache, beta)
     state = update_tau(generator, state, data, hp)
     state = update_sigma(generator, state, data, hp, cache, beta)
@@ -1365,8 +1412,8 @@ def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                                     p_indep=p_indep, anchor_prop=z_anchor)
     else:
         state, cache = update_z(generator, state, data, hp, cache, beta)
-    state = update_pi(generator, state, hp, c)
-    state = update_alpha3(generator, state, hp)
+    state = update_pi(generator, state, hp, c, data.N_whole)
+    state = update_alpha3(generator, state, hp, data.N_whole)
     state, cache = update_phi(generator, state, data, hp, cache, beta)
     state = update_delta(generator, state, hp)
     state = update_a(generator, state, hp)

@@ -1,11 +1,13 @@
-"""Rank mesh and sharding: chain-parallel MCMC over torch.distributed ranks.
+"""Rank mesh and sharding: chain- and data-parallel MCMC over
+torch.distributed ranks.
 
 Port of ``bayesfmmm_tpu/parallel/mesh.py``.  The JAX package lays devices
-out on a (chains, data) mesh, annotates the chain axis of the ensemble (and
-the N axis of the data) with shardings, and leaves the collectives to
+out on a (chains, data) mesh, annotates the chain axis of the ensemble and
+the N axis of the data with shardings, and leaves the collectives to
 GSPMD.  Here each process is one rank of a ``torch.distributed`` process
 group, the ranks form a (chains, data) grid, and a rank holds rows
-[lo, hi) of the ensemble's chain axis.
+[lo, hi) of the ensemble's chain axis and, of the data with Z's and chi's
+rows, observations [lo, hi) of N.
 
   * **Chain parallelism** (this module): the ensemble is built whole, then
     ``shard_chain_states`` keeps each rank's rows.  Chains need no
@@ -20,22 +22,33 @@ group, the ranks form a (chains, data) grid, and a rank holds rows
     the replicas whose swap partner sits on the next rank
     (``parallel/tempering.py``); a checkpoint of a split ensemble is the
     one file the one-process run writes (``io/checkpoint.py``).
-  * **Data parallelism** (the data axis above one shard) is not ported: it
-    puts a collective into every reduction over the N observations, and
-    ``shard_data``, ``data_sharding`` and a split Z or chi raise
-    ``NotImplementedError`` there rather than hand out a replicated copy.
+  * **Data parallelism**: ``shard_data`` keeps each rank's N/d rows of
+    every N-leading field of the data (the penalty whole; ``n_obs``,
+    ``pen_rank`` and the whole N stay the whole data set's), and
+    ``shard_chain_states`` the same rows of Z and chi.  Every sum over n
+    in the sweep is a partial sum over the rank's rows (K2's RSS and K3's
+    Gram sums among them) that ``data_sum`` adds over the data group, so
+    every rank of a group holds the same global fields, bit for bit, and
+    the one-process run's to rounding.  Draws on rows name their data axis
+    and are taken at the whole N.  MALA's gradient is reduced beside its
+    value (a sum built from broadcasts carries no gradient, and
+    ``data_sum`` refuses a tensor that needs one).  ``update_hmc_joint``
+    raises under a data split (ROADMAP item 15c).
 
 The collectives are broadcasts only.  They keep every bit (a gather done as
-a sum over zero-filled buffers would turn -0.0 into +0.0), and every
-backend has them on every device: gloo takes CUDA tensors only for
-broadcast and all_reduce, and two ranks that share one card must use gloo
-(NCCL refuses two ranks on one device).
+a sum over zero-filled buffers would turn -0.0 into +0.0), a sum over the
+data group is every rank's part broadcast and the d parts added in
+data-rank order on every rank (so the ranks hold equal bits, which an
+all_reduce does not promise), and every backend has them on every device:
+gloo takes CUDA tensors only for broadcast and all_reduce, and two ranks
+that share one card must use gloo (NCCL refuses two ranks on one device).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import time
 from typing import NamedTuple
 
@@ -50,9 +63,6 @@ from bayesfmmm_torch.ops import distributions
 CHAIN_AXIS = "chains"
 DATA_AXIS = "data"
 
-_DATA_AXIS_TODO = ("a data axis above one shard (ROADMAP item 15b) is not "
-                   "ported: it needs a collective in every reduction over "
-                   "the N observations")
 _BACKENDS = ("gloo", "nccl")
 
 
@@ -146,12 +156,14 @@ class Mesh:
     ``torch.distributed`` group of the ranks that differ from this one on
     that axis only (None for an axis of size 1); ``device``: this rank's
     device.  ``n_chains`` is the size of the last ensemble
-    ``shard_chain_states`` split over it.
+    ``shard_chain_states`` split over it, ``n_rows`` the N of the last
+    data ``shard_data`` split over it.
 
-    ``with mesh:`` turns on the split draws of ``ops/distributions.py`` (on
-    a mesh of more than one chain shard; on one it changes nothing).  Every
-    draw inside then expects the rank's share of ``n_chains`` on its chain
-    axis and raises otherwise.  ``collectives`` and
+    ``with mesh:`` turns on the split draws of ``ops/distributions.py`` and
+    the sums over the data group of ``data_sum`` (on a mesh of more than
+    one rank; on one it changes nothing).  Every draw inside then expects
+    the rank's share of ``n_chains`` on its chain axis and of ``n_rows`` on
+    its data axis, and raises otherwise.  ``collectives`` and
     ``collective_seconds`` count the broadcasts this rank took part in and
     their time on the host's clock."""
 
@@ -166,6 +178,7 @@ class Mesh:
         self.device = device
         self.groups = groups
         self.n_chains = None
+        self.n_rows = None
         self.collectives = 0
         self.collective_seconds = 0.0
         self._outer = []
@@ -179,73 +192,130 @@ class Mesh:
                 f"coords={self.coords}, device={self.device})")
 
     def __enter__(self):
-        if self.shape[DATA_AXIS] > 1:
-            raise NotImplementedError(_DATA_AXIS_TODO)
-        self._outer.append(distributions._CHAIN_SHARD)
-        distributions._CHAIN_SHARD = (self if self.shape[CHAIN_AXIS] > 1
-                                      else None)
+        self._outer.append(distributions._MESH)
+        distributions._MESH = self if self.size > 1 else None
         return self
 
     def __exit__(self, *exc):
-        distributions._CHAIN_SHARD = self._outer.pop()
+        distributions._MESH = self._outer.pop()
 
-    # --- the chain axis ---------------------------------------------------
+    # --- the rows of each axis -------------------------------------------
+
+    def _rows(self, axis, n_local):
+        """(lo, hi): the rows of the whole ensemble (chains axis) or the
+        whole data (data axis) that this rank's ``n_local`` are; raises
+        unless ``n_local`` is its share."""
+        total, what, how = (
+            (self.n_chains, "ensemble", "shard_chain_states")
+            if axis == CHAIN_AXIS else (self.n_rows, "data", "shard_data"))
+        if total is None:
+            raise RuntimeError(
+                f"no {what} was split over this mesh: call {how}(..., mesh) "
+                f"before drawing under it")
+        share = total // self.shape[axis]
+        if n_local != share:
+            raise ValueError(
+                f"a draw over {n_local} rows of the {axis!r} axis under a "
+                f"mesh whose rank holds {share} of the {what}'s {total}: "
+                f"split it with {how}")
+        lo = self.coords[axis] * share
+        return lo, lo + share
 
     def chain_rows(self, n_local):
         """(lo, hi): the rows of the whole ensemble that this rank's
         ``n_local`` chains are; raises unless ``n_local`` is its share of
         ``n_chains``."""
-        if self.n_chains is None:
-            raise RuntimeError(
-                "no ensemble was split over this mesh: call "
-                "shard_chain_states(states, mesh) before drawing under it")
-        share = self.n_chains // self.shape[CHAIN_AXIS]
-        if n_local != share:
-            raise ValueError(
-                f"a draw over {n_local} chains under a mesh whose rank holds "
-                f"{share} of the ensemble's {self.n_chains}: split the "
-                f"ensemble with shard_chain_states")
-        lo = self.coords[CHAIN_AXIS] * share
-        return lo, lo + share
+        return self._rows(CHAIN_AXIS, n_local)
 
-    def whole(self, shape, chain_dim):
-        """The whole ensemble's draw shape for this rank's ``shape``, and
-        the (first row, rows) to keep on ``chain_dim``."""
-        shape = tuple(shape)
-        lo, hi = self.chain_rows(shape[chain_dim])
-        whole = shape[:chain_dim] + (self.n_chains,) + shape[chain_dim + 1:]
-        return whole, (lo, hi - lo)
+    def whole(self, shape, chain_dim, data_dim=None):
+        """The whole draw's shape for this rank's ``shape`` (the whole
+        ensemble on ``chain_dim``, the whole data's rows on ``data_dim``;
+        None for no such axis), and [(dim, first row, rows)] to keep."""
+        shape, keep = list(shape), []
+        for axis, dim in ((CHAIN_AXIS, chain_dim), (DATA_AXIS, data_dim)):
+            if dim is None or self.shape[axis] == 1:
+                continue
+            lo, hi = self._rows(axis, shape[dim])
+            shape[dim] = (hi - lo) * self.shape[axis]
+            keep.append((dim, lo, hi - lo))
+        return tuple(shape), keep
 
-    def _chain_src(self, k):
-        """The global rank at chain coordinate ``k`` in this rank's
-        column."""
-        return int(self.devices[k, self.coords[DATA_AXIS]])
+    # --- collectives ------------------------------------------------------
 
-    def _broadcast(self, x, src):
+    def _src(self, axis, k):
+        """The global rank at coordinate ``k`` of ``axis`` in this rank's
+        line of the grid."""
+        at = dict(self.coords, **{axis: k})
+        return int(self.devices[at[CHAIN_AXIS], at[DATA_AXIS]])
+
+    def _broadcast(self, x, src, axis):
+        """Broadcast over the ranks of ``axis`` (None: every rank)."""
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
-        dist.broadcast(x, src=src, group=self.groups[CHAIN_AXIS])
+        dist.broadcast(x, src=src,
+                       group=None if axis is None else self.groups[axis])
         self.collectives += 1
         self.collective_seconds += time.perf_counter() - t0
         return x
 
-    def gather(self, x, chain_dim=0):
-        """Every rank's ``x`` (equal shapes), concatenated on ``chain_dim``
-        in chain order, on every rank; the bits kept."""
-        if self.shape[CHAIN_AXIS] == 1:
-            return x
-        x = x.movedim(chain_dim, 0).contiguous()
-        me = self.coords[CHAIN_AXIS]
-        parts = [self._broadcast(x if k == me else torch.empty_like(x),
-                                 self._chain_src(k))
-                 for k in range(self.shape[CHAIN_AXIS])]
-        return torch.cat(parts).movedim(0, chain_dim)
+    def _parts(self, x, axis):
+        """Every rank's ``x`` of the ranks of ``axis``, in their order."""
+        me = self.coords[axis]
+        return [self._broadcast(x if k == me else torch.empty_like(x),
+                                self._src(axis, k), axis)
+                for k in range(self.shape[axis])]
 
-    def gather_fields(self, fields):
-        """``gather`` of a dict of chain-leading tensors of one dtype, as one
-        packed collective per rank."""
-        return _unpack(self.gather(_pack(fields)), fields)
+    def gather(self, x, dim=0, axis=CHAIN_AXIS):
+        """Every rank's ``x`` (equal shapes) of the ranks of ``axis``,
+        concatenated on ``dim`` in their order, on every rank; the bits
+        kept."""
+        if self.shape[axis] == 1:
+            return x
+        x = x.movedim(dim, 0).contiguous()
+        return torch.cat(self._parts(x, axis)).movedim(0, dim)
+
+    def gather_axes(self, x, chain_dim, data_dim=None):
+        """``x`` with every rank's chains on ``chain_dim`` and every rank's
+        rows of the data on ``data_dim`` (None: no such axis)."""
+        if chain_dim is not None:
+            x = self.gather(x, chain_dim)
+        if data_dim is not None:
+            x = self.gather(x, data_dim, DATA_AXIS)
+        return x
+
+    def gather_fields(self, fields, axis=CHAIN_AXIS):
+        """``gather`` of a dict of tensors of one dtype on their first axis,
+        as one packed collective per rank."""
+        if self.shape[axis] == 1:
+            return fields
+        return _unpack(self.gather(_pack(fields), axis=axis), fields)
+
+    def gather_rows(self, fields, dim=1):
+        """The dict of tensors whose axis ``dim`` holds this rank's rows of
+        the data, with every rank's rows there, in one packed collective
+        per rank."""
+        moved = {k: v.movedim(dim, 0) for k, v in fields.items()}
+        return {k: v.movedim(0, dim) for k, v in
+                self.gather_fields(moved, DATA_AXIS).items()}
+
+    def sum_over_data(self, parts):
+        """Each tensor of ``parts`` (one dtype) summed over the ranks of the
+        data axis, as one packed collective per rank: every rank's parts
+        are broadcast and every rank adds the d of them in data-rank
+        order, so every rank of the group gets the same bits."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in parts):
+            raise RuntimeError(
+                "a sum over the data axis is built from broadcasts and "
+                "carries no gradient: reduce the value and its gradient "
+                "apart (as update_phi_mala does)")
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        total = functools.reduce(torch.add, self._parts(flat, DATA_AXIS))
+        out, at = [], 0
+        for p in parts:
+            out.append(total[at:at + p.numel()].view(p.shape))
+            at += p.numel()
+        return out
 
     def broadcast_fields(self, fields):
         """The dict of tensors of the first rank of the chains axis, on
@@ -253,14 +323,15 @@ class Mesh:
         if self.shape[CHAIN_AXIS] == 1:
             return fields
         like = {k: v[None] for k, v in fields.items()}
-        buf = self._broadcast(_pack(like), self._chain_src(0))
+        buf = self._broadcast(_pack(like), self._src(CHAIN_AXIS, 0),
+                              CHAIN_AXIS)
         return {k: v[0] for k, v in _unpack(buf, like).items()}
 
     def barrier(self):
-        """Wait for every rank of the chains axis."""
-        if self.shape[CHAIN_AXIS] > 1:
+        """Wait for every rank of the mesh."""
+        if self.size > 1:
             self._broadcast(torch.zeros(1, device=self.device),
-                            self._chain_src(0))
+                            int(self.devices[0, 0]), None)
 
 
 def _pack(fields):
@@ -283,9 +354,32 @@ def _unpack(buf, like):
 
 
 def active_mesh():
-    """The mesh whose ``with`` block splits the chains right now, else
-    None."""
-    return distributions._CHAIN_SHARD
+    """The mesh whose ``with`` block splits the chains or the data right
+    now, else None."""
+    return distributions._MESH
+
+
+def data_sum(*parts):
+    """The sum over the data group of each partial sum of ``parts`` (sums
+    over this rank's rows of the data), inside a ``with mesh:`` block that
+    splits the data; the tensors themselves elsewhere.  One tensor gives
+    one tensor, several a tuple, summed in one collective.  A tensor that
+    needs a gradient raises there: reduce the value and its gradient
+    apart."""
+    mesh = distributions._MESH
+    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+        parts = tuple(mesh.sum_over_data(parts))
+    return parts[0] if len(parts) == 1 else parts
+
+
+def refuse_data_split(what):
+    """Raise inside a ``with mesh:`` block that splits the data: ``what``
+    needs the whole data set on each rank."""
+    mesh = distributions._MESH
+    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh that splits the data is not ported "
+            f"(ROADMAP item 15c)")
 
 
 def make_mesh(n_chain_shards=None, n_data_shards=None, devices=None) -> Mesh:
@@ -339,8 +433,6 @@ class NamedSharding(NamedTuple):
             if axis is None:
                 continue
             n = self.mesh.shape[axis]
-            if axis == DATA_AXIS and n > 1:
-                raise NotImplementedError(_DATA_AXIS_TODO)
             if x.shape[dim] % n:
                 raise ValueError(f"{x.shape[dim]} rows of axis {dim} do not "
                                  f"split over the {n} ranks of the {axis!r} "
@@ -353,11 +445,7 @@ class NamedSharding(NamedTuple):
 
 def data_sharding(mesh: Mesh):
     """Shardings for ModelData by field name: the N-leading tensors over the
-    data axis, the penalty whole.  Above one data shard it raises (ROADMAP
-    item 15b)."""
-    if mesh.shape[DATA_AXIS] > 1:
-        raise NotImplementedError(_DATA_AXIS_TODO)
-
+    data axis, the penalty whole."""
     def spec(arr_name):
         if arr_name == "pen":
             return NamedSharding(mesh, ())
@@ -366,27 +454,33 @@ def data_sharding(mesh: Mesh):
 
 
 def shard_data(data, mesh: Mesh):
-    """Place a ModelData on the mesh: at one data shard, whole on the rank's
-    device; above one it raises (ROADMAP item 15b)."""
+    """Place a ModelData on the mesh: this rank's rows of every N-leading
+    field on its device, the penalty whole; the whole data set's constants
+    (``n_obs``, ``pen_rank`` and the whole N, ``N_whole``) kept.  An N the
+    data axis does not divide raises.  The N is recorded on the mesh for
+    the draws under it."""
     spec = data_sharding(mesh)
-    return dataclasses.replace(data, **{
+    out = dataclasses.replace(data, n_whole=data.N_whole, **{
         f: spec(f).place(getattr(data, f))
         for f in ("y", "mask", "B", "X", "G", "pen", "u", "yy")})
+    mesh.n_rows = data.N_whole
+    return out
 
 
 def chain_state_sharding(mesh: Mesh, state_batch):
     """Shardings for a chains-leading GibbsState, by field: the chain axis
-    over the chains axis; the per-observation Z and chi also name the data
-    axis for their N axis (whole at one data shard)."""
+    over the chains axis; the per-observation Z and chi also split their N
+    axis over the data axis."""
     return {f: NamedSharding(mesh, (CHAIN_AXIS, DATA_AXIS)
                              if f in ("Z", "chi") else (CHAIN_AXIS,))
             for f in STATE_FIELDS}
 
 
 def shard_chain_states(state_batch, mesh: Mesh):
-    """This rank's rows [lo, hi) of a whole ensemble, on its device; the
-    ensemble's size is recorded on the mesh for the draws under it.  A
-    chain count the chains axis does not divide raises."""
+    """This rank's rows [lo, hi) of a whole ensemble, and of Z's and chi's
+    its rows of the data, on its device; the ensemble's size is recorded
+    on the mesh for the draws under it.  A chain count the chains axis, or
+    an N the data axis, does not divide raises."""
     C = state_batch.Z.shape[0]
     if C % mesh.shape[CHAIN_AXIS]:
         raise ValueError(f"{C} chains do not split over the "
@@ -408,6 +502,9 @@ def key_sharding(mesh: Mesh):
 
 def gather_chain_states(states, mesh: Mesh):
     """The whole ensemble, on every rank, from each rank's rows (the
-    inverse of ``shard_chain_states``; one packed collective)."""
-    return GibbsState(**mesh.gather_fields(
-        {f: getattr(states, f) for f in STATE_FIELDS}))
+    inverse of ``shard_chain_states``; one packed collective over the
+    chains, then one of Z's and chi's rows over the data)."""
+    fields = mesh.gather_fields({f: getattr(states, f) for f in STATE_FIELDS})
+    if mesh.shape[DATA_AXIS] > 1:
+        fields.update(mesh.gather_rows({f: fields[f] for f in ("Z", "chi")}))
+    return GibbsState(**fields)

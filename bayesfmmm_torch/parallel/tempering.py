@@ -24,7 +24,11 @@ of the generator and so computes the same permutation and counts; a swap
 only crosses ranks at a pair (lo - 1, lo), and then the two edge replicas
 of every rank are exchanged.  The cold chain's trace is broadcast from the
 rank that holds replica 0, so every rank returns what the one-process run
-returns.
+returns.  Under a mesh that splits the data each replica's energy is summed
+over the data group (``rss_from_coeffs``) before the chains gather it, the
+edge replicas move between the chain ranks of one data column (each with
+its own rows of Z and chi), and the cold trace's Z and chi rows are
+gathered over the data.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ def auto_ladder(sd_E: float, beta_min: float, *, target_accept=0.4,
 
 def _loglik_portion(state, data):
     """E(state) (C,): the tempered factor (calculatePZeta:46-47 at beta =
-    1); the RSS is kernel K2 on CUDA."""
+    1); the RSS is kernel K2 on CUDA, summed over every rank's rows."""
     rss = rss_from_coeffs(data, effective_coeffs(state, data.X))
     return -0.5 * data.n_obs * torch.log(state.sigma2) \
         - rss / (2.0 * state.sigma2)
@@ -218,6 +222,9 @@ def run_parallel_tempering(generator, init_states, data, hp, c, *, n_rounds,
     trace = {f: torch.stack(v) for f, v in cold.items()}
     if mesh is not None:
         trace = mesh.broadcast_fields(trace)
+        if mesh.shape[pmesh.DATA_AXIS] > 1:
+            trace.update(mesh.gather_rows({f: trace[f]
+                                           for f in ("Z", "chi")}))
     trace = GibbsState(**trace)
     rate = pt.swap_accepts / pt.swap_attempts.clamp(min=1.0)
     return trace, pt, rate

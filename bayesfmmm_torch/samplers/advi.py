@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from bayesfmmm_torch.models import logjoint
-from bayesfmmm_torch.ops.distributions import refuse_chain_shard
+from bayesfmmm_torch.ops.distributions import refuse_split_mesh
 
 
 class ADVIResult(NamedTuple):
@@ -57,7 +57,7 @@ def run_advi(generator, log_joint, init_unc, *, n_steps=500, n_mc=4,
     batched UncState to (R,) log densities (models/logjoint.py::
     make_log_joint).  ``draws`` (n_steps, n_mc, dim), if given, replaces the
     generator's standard normals."""
-    refuse_chain_shard("run_advi")
+    refuse_split_mesh("run_advi")
     like = logjoint.UncState(**{f: t.detach()
                                 for f, t in vars(init_unc).items()})
     flat0 = logjoint.flatten(like, covariate_cov)[0]

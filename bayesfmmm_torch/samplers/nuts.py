@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from bayesfmmm_torch.ops.distributions import refuse_chain_shard
+from bayesfmmm_torch.ops.distributions import refuse_split_mesh
 from bayesfmmm_torch.samplers.hmc import (_rows, run_adapted,
                                           value_and_grad)
 
@@ -266,7 +266,7 @@ def run_nuts(generator, log_joint, init_positions, *, n_warmup=500,
     ``mean_depth`` and ``n_divergent`` (over the samples), and ``depth``
     (C, n_warmup + n_samples), every tree's depth.
     """
-    refuse_chain_shard("run_nuts")
+    refuse_split_mesh("run_nuts")
     step = nuts_kernel(log_joint, max_depth=max_depth)
     logp0, grad0 = value_and_grad(log_joint, init_positions)
     divs = []

@@ -25,7 +25,7 @@ import torch
 
 from bayesfmmm_torch.models.state import take_chains
 from bayesfmmm_torch.ops import gibbs
-from bayesfmmm_torch.ops.distributions import refuse_chain_shard
+from bayesfmmm_torch.ops.distributions import refuse_split_mesh
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
 
 _BISECTION_STEPS = 30
@@ -134,7 +134,7 @@ def run_smc(generator, init_particles, data, hp, c, *, n_mutation_sweeps=2,
     """Adaptive tempered SMC.  ``init_particles``: particle-stacked
     GibbsState; ``sweep_flags`` go to ``sweep_full`` (covariate flags and
     the kernel census)."""
-    refuse_chain_shard("run_smc")
+    refuse_split_mesh("run_smc")
     gibbs.use_full_f32()
     N = init_particles.Z.shape[0]
     kw = dict(dtype=data.y.dtype, device=init_particles.Z.device)

@@ -137,22 +137,28 @@ only with every other phase, whose launch counts they read):
      update_hmc_joint's log-joint at its ensemble on the card against the
      CPU; ms, kernels and device-busy ms an ADVI step and a default-off
      sweep, K2 and its backward at 4 rows beside their bounds;
- 13. [mesh] slice 16's path, parallel/mesh.py's chains axis at the headline
-     width, from the production path's final 256-chain ensemble (that path
-     runs first when it was not asked for): 20 production sweeps, a
-     checkpoint, one sweep more and 10 PT rounds of 64 replicas, (a) in one
-     process under a 1 x 1 mesh over NCCL, which must give the bits and
-     launch counts of the same run without it, and (b) in two ranks sharing
-     the one card through gloo (bayesfmmm_torch.dryrun.run_ranks), 128
-     chains and 32 replicas each: after the first sweep at least 99 % of
-     the chains within the JAX tests' atol of one process's in every field
-     (the others printed), the medians after the 20 inside the production
-     path's JAX limits, each rank's launches as the sweep predicts them,
-     PT's swap counts equal to one process's, and the ranks' checkpoint
-     holding their gathered ensemble and resumed here for a sweep that
-     holds 99 % of the chains within that atol of the ranks' own; it prints
-     the share of chains still bit-equal, ms a sweep at one rank and at
-     two ranks sharing the card, and ms of collectives a sweep;
+ 13. [mesh] slices 16 and 17's paths, parallel/mesh.py's chains and data
+     axes at the headline width, from the production path's final
+     256-chain ensemble (that path runs first when it was not asked for):
+     20 production sweeps, a checkpoint, one sweep more and 10 PT rounds of
+     64 replicas, (a) in one process under a 1 x 1 mesh over NCCL, which
+     must give the bits and launch counts of the same run without it, and
+     in two ranks sharing the one card through gloo
+     (bayesfmmm_torch.dryrun.run_ranks), (b) on a (2, 1) mesh, 128 chains
+     and 32 replicas each, then (c) on a (1, 2) mesh, the data's 100 rows
+     split 50 and 50 with all 256 chains and 64 replicas on each rank:
+     after the first sweep at least 99 % of the chains within the JAX
+     tests' atol of one process's in every field (the others printed), the
+     medians after the 20 inside the production path's JAX limits, each
+     rank's launches as the sweep predicts them (K1, K2 and K3 20, 140 and
+     20), and the ranks' checkpoint holding their gathered ensemble, read
+     back here and resumed for a sweep that holds 99 % of the chains within
+     that atol of the ranks' own; (b) also PT's swap counts equal to one
+     process's, (c) the global fields of both ranks the same bits and K2
+     and K3 against their plain versions at the rank's shapes (N = 50);
+     it prints the share of chains still bit-equal, ms a sweep at one rank
+     and at two ranks sharing the card, and the collectives a sweep and
+     their ms;
  14. [timings] chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
@@ -165,7 +171,8 @@ only with every other phase, whose launch counts they read):
      the jitter inside; the blocked K1 kernel at (16, 64, 256) x 256 beside
      the three torch.linalg calls, K2 and K3 at slice 6's shapes, each
      kernel at PT's shapes (K1 at R and one chain, K2 at R and 2R, K3 at
-     3R), K1's panels kernel at (16, 512) and (256, 512) of the two-covariate
+     3R), K2 and K3 at the data split's shapes (N = 50: K2 at C and 2C,
+     K3 at 3C), K1's panels kernel at (16, 512) and (256, 512) of the two-covariate
      path and at (64, 400), (4, 1024) and (1, 4096) beside the three
      torch.linalg calls, each split by launch (first diagonal block, panel
      products, trailing updates, back substitutions; kernel_bench's
@@ -378,6 +385,12 @@ SWEEP_STATS = ("loglik_median", "sigma2_median")
 # then two ranks sharing the one card through gloo
 MESH_PROTOCOL = dict(ranks=2, sweeps=20, seed=16, pt_replicas=64,
                      pt_rounds=10, pt_beta_min=0.3, pt_seed=17, timeout=300)
+# slice 17: the two ranks split the chains, a (2, 1) mesh of 128 chains a
+# rank, and then the data, a (1, 2) mesh of the 256 chains and 50 rows a
+# rank; the split's name -> data shards
+MESH_SPLITS = {"chains": 1, "data": 2}
+# the fields no rank holds by rows of the data
+MESH_GLOBAL = tuple(f for f in STATE_FIELDS if f not in ("Z", "chi"))
 # a split sweep against one process's (tests/test_checkpoint_parallel.py:79),
 # held chain by chain: on the card the two ranks' 128-chain products take
 # other cuBLAS and cuSOLVER kernels than one process's 256-chain ones, and a
@@ -2430,15 +2443,15 @@ def _mesh_runs(g, st, data, hp, c, flags, pt_states, mesh=None,
     """The mesh protocol from the ensemble ``st`` and the generator ``g``:
     its production sweeps, a checkpoint (to ``ckpt`` when given), one sweep
     more, then PT over ``pt_states`` with a generator of its own.  Under a
-    split ``mesh`` (inside its ``with``) ``st`` is this rank's rows, and
-    ``pt_states``, whole, are split just before PT.  Returns (sweeps'
-    result, seconds, launch counts, (collectives, their seconds) in the
-    sweeps, the sweep after the checkpoint, PT's (cold trace, PTState,
-    rate))."""
+    split ``mesh`` (inside its ``with``) ``st`` is this rank's chains and
+    rows, and ``pt_states``, whole, are split just before PT.  Returns
+    (sweeps' result, seconds, launch counts, (collectives, their seconds)
+    in the sweeps, the sweep after the checkpoint, PT's (cold trace,
+    PTState, rate))."""
     from bayesfmmm_torch.parallel import mesh as pmesh
 
     m = MESH_PROTOCOL
-    split = mesh is not None and mesh.shape[pmesh.CHAIN_AXIS] > 1
+    split = mesh is not None and mesh.size > 1
     before = (mesh.collectives, mesh.collective_seconds) if split else (0, 0)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -2464,16 +2477,19 @@ def _mesh_runs(g, st, data, hp, c, flags, pt_states, mesh=None,
     return res, seconds, counts, coll, after, pt
 
 
-def mesh_rank(start, out, ckpt):
-    """A rank of the mesh phase's split run (dryrun.run_ranks, two ranks on
-    the one card through gloo): its rows of the start ensemble, the
-    protocol under ``with mesh:``; the first rank saves the gathered
-    results to ``out``, and every rank prints its launch counts and
+def mesh_rank(start, out, ckpt, rows=1):
+    """A rank of the mesh phase's split runs (dryrun.run_ranks, two ranks
+    on the one card through gloo), on a mesh of ``rows`` data shards: its
+    chains and rows of the start ensemble and of the data, the protocol
+    under ``with mesh:``; the first rank saves the gathered results to
+    ``out``, every rank its own global fields to ``out`` + ".<rank>", and
+    every rank prints its launch counts (also by shape) and
     collectives."""
+    from bayesfmmm_torch.models.state import GibbsState
     from bayesfmmm_torch.parallel import mesh as pmesh
 
     gibbs.use_full_f32()
-    mesh = pmesh.make_mesh()                # cuda:0 for both on one card
+    mesh = pmesh.make_mesh(n_data_shards=rows)   # cuda:0 for both on one card
     dev = mesh.device
     data, hp, c = _mesh_data(dev)
     data = pmesh.shard_data(data, mesh)
@@ -2485,26 +2501,36 @@ def mesh_rank(start, out, ckpt):
     # library set-up on a throwaway generator, outside the mesh
     gibbs.sweep_full(torch.Generator(device=dev).manual_seed(1), local, data,
                      hp, c, **flags)
-    with mesh:
-        res, seconds, counts, coll, after, pt = _mesh_runs(
+    with mesh, ShapeProbe() as probe:
+        res, seconds, counts, coll, after_local, pt = _mesh_runs(
             g, local, data, hp, c, flags, pt_states, mesh, ckpt)
-        first = mesh.gather_fields({f: res.traces[f][:, 0]
+        first_local = GibbsState(**{f: res.traces[f][:, 0]
                                     for f in STATE_FIELDS})
+        first = pmesh.gather_chain_states(first_local, mesh)
         final = pmesh.gather_chain_states(res.final_state, mesh)
-        after = pmesh.gather_chain_states(after, mesh)
+        after = pmesh.gather_chain_states(after_local, mesh)
         loglik = mesh.gather(res.loglik[:, -1])
     cold, pt_state, rate = pt
+    torch.save({f"{what} {f}": getattr(x, f).cpu() for f in MESH_GLOBAL
+                for what, x in (("first", first_local),
+                                ("final", res.final_state),
+                                ("after", after_local))},
+               f"{out}.{mesh.rank}")
     if mesh.rank == 0:
         torch.save({
-            "first": {f: v.cpu() for f, v in first.items()},
+            "first": {f: getattr(first, f).cpu() for f in STATE_FIELDS},
             "final": {f: getattr(final, f).cpu() for f in STATE_FIELDS},
             "after": {f: getattr(after, f).cpu() for f in STATE_FIELDS},
             "loglik": loglik.cpu(), "seconds": seconds,
             "pt_counts": [pt_state.swap_accepts.item(),
                           pt_state.swap_attempts.item()],
             "pt_cold_sigma2": cold.sigma2.cpu()}, out)
-    print(f"RANK {mesh.rank} counts {json.dumps(counts)} collectives "
-          f"{coll[0]} {coll[1]:.6f} seconds {seconds:.6f}", flush=True)
+    print("RANK " + json.dumps({
+        "rank": mesh.rank, "rows": [data.N, data.N_whole], "counts": counts,
+        "shapes": [[k, list(shape), n] for (k, shape), n
+                   in probe.counts.items()],
+        "collectives": coll[0], "collective_seconds": coll[1],
+        "seconds": seconds}), flush=True)
 
 
 def mesh_chains_within(a, b):
@@ -2519,26 +2545,165 @@ def mesh_chains_within(a, b):
              for c in torch.nonzero(bad).flatten().tolist()})
 
 
+def mesh_split(dev, split, start, tmp, ref_run, data, hp, c):
+    """One split run of the mesh phase: two ranks on the one card through
+    gloo, splitting the chains (128 a rank) or the data (50 rows a rank),
+    held to the one-process run ``ref_run``.  Returns (each rank's launch
+    counts, rank 0's launches by shape, the split's numbers)."""
+    from bayesfmmm_torch.dryrun import run_ranks
+
+    m = MESH_PROTOCOL
+    rows = MESH_SPLITS[split]
+    flags, ref_path, per_sweep = PATHS["production"]
+    ref = json.loads(ref_path.read_text())
+    out, ckpt = tmp / f"{split}.pt", tmp / f"{split}_ckpt.npz"
+    t_ranks = time.perf_counter()
+    logs = run_ranks(m["ranks"], f"{Path(__file__).resolve()}:mesh_rank",
+                     {"start": str(start), "out": str(out),
+                      "ckpt": str(ckpt), "rows": rows},
+                     device="cuda", timeout=m["timeout"])
+    ranks_s = time.perf_counter() - t_ranks
+    got = torch.load(out)
+    lines = [json.loads(ln[5:]) for log in logs for ln in log.splitlines()
+             if ln.startswith("RANK ")]
+    check(len(lines) == m["ranks"], f"mesh {split}: rank lines {lines}")
+    rank_counts = {f"mesh {split} rank {ln['rank']}": ln["counts"]
+                   for ln in lines}
+    for name, cts in rank_counts.items():
+        for k, n in per_sweep.items():
+            check(cts[k] == n * m["sweeps"],
+                  f"mesh: {name} launched {k} {cts[k]} times in "
+                  f"{m['sweeps']} sweeps, expected {n} a sweep")
+    N = PROTOCOL["N"]
+    for ln in lines:
+        check(ln["rows"] == [N // rows, N],
+              f"mesh {split}: rank {ln['rank']} held rows {ln['rows']}")
+    shapes = {(k, tuple(shape)): n for k, shape, n in
+              next(ln for ln in lines if ln["rank"] == 0)["shapes"]}
+    if rows > 1:
+        # every rank of the data group holds the same bits of every field
+        # that is not split by rows
+        mine = [torch.load(f"{out}.{r}") for r in range(m["ranks"])]
+        for k, v in mine[0].items():
+            for r in range(1, m["ranks"]):
+                check(torch.equal(mine[r][k], v),
+                      f"mesh {split}: rank {r}'s {k} differs from rank 0's")
+        print(f"  mesh {split}: the global fields of the first sweep, the "
+              f"last and the one after the checkpoint hold the same bits "
+              f"on both ranks; launches by shape (rank 0) {shapes}")
+
+    # the first sweep against one process, in every field, chain by chain
+    ref_first = {f: ref_run[0].traces[f][:, 0].cpu() for f in STATE_FIELDS}
+    worst = {f: (got["first"][f] - ref_first[f]).abs().max().item()
+             if ref_first[f].numel() else 0.0 for f in STATE_FIELDS}
+    near, off = mesh_chains_within(got["first"], ref_first)
+    print(f"  mesh {split} first sweep: {near:.4f} of the chains within "
+          f"{MESH_ATOL} of one process's in every field; the others, with "
+          f"the fields past it: {off}; max |diff| by field "
+          + ", ".join(f"{f} {e:.3g}" for f, e in worst.items() if e))
+    check(near >= MESH_SHARE, f"mesh {split}: only {near} of the chains' "
+                              f"first sweeps within {MESH_ATOL}")
+    ref_final = {f: getattr(ref_run[0].final_state, f).cpu()
+                 for f in STATE_FIELDS}
+    same = torch.ones(CHAINS, dtype=torch.bool)
+    first_equal = torch.ones(CHAINS, dtype=torch.bool)
+    for f in STATE_FIELDS:
+        same &= (got["final"][f] == ref_final[f]).reshape(CHAINS, -1).all(1)
+        first_equal &= (got["first"][f] == ref_first[f]).reshape(
+            CHAINS, -1).all(1)
+    # the medians after the last sweep, in the production path's limits
+    med = {"loglik": got["loglik"].median().item(),
+           "sigma2": float(np.median(got["final"]["sigma2"].numpy()))}
+    for stat, v in med.items():
+        lo, hi = ref[stat]["limits"]
+        check(lo <= v <= hi, f"mesh {split}: the split run's {stat} median "
+                             f"{v} outside [{lo}, {hi}]")
+        print(f"  mesh {split} {stat}: split median {v:.6g} after "
+              f"{m['sweeps']} sweeps, limits [{lo:.6g}, {hi:.6g}] "
+              f"({ref_path.name})")
+    # PT: the chain split takes one process's swaps (its energies are one
+    # process's bits); the data split sums each energy over two ranks, so
+    # a swap may flip and only the attempts must agree
+    cold, pt_state, _ = ref_run[5]
+    pt_counts = [pt_state.swap_accepts.item(), pt_state.swap_attempts.item()]
+    check((got["pt_counts"] == pt_counts) if rows == 1 else
+          got["pt_counts"][1] == pt_counts[1]
+          and bool(torch.isfinite(got["pt_cold_sigma2"]).all()),
+          f"mesh {split}: split PT's swap counts {got['pt_counts']} against "
+          f"one process's {pt_counts}")
+    pt_err = (got["pt_cold_sigma2"] - cold.sigma2.cpu()).abs().max().item()
+    # the checkpoint the two ranks wrote, read back here: the whole
+    # ensemble, resumed for one sweep
+    st, g, it, _ = load_checkpoint(ckpt, dev)
+    check(it == m["sweeps"], f"mesh {split}: the ranks' checkpoint is at "
+                             f"{it}")
+    for f in STATE_FIELDS:
+        check(tuple(getattr(st, f).shape) == tuple(got["final"][f].shape)
+              and torch.equal(getattr(st, f).cpu(), got["final"][f]),
+              f"mesh {split}: the ranks' checkpoint holds another {f}")
+    resumed = drivers.phase_warm_start(g, st, data, hp, c, n_iters=1,
+                                       start_iter=m["sweeps"], **flags)
+    resumed = {f: getattr(resumed.final_state, f).cpu()
+               for f in STATE_FIELDS}
+    resume_near, resume_off = mesh_chains_within(resumed, got["after"])
+    check(resume_near >= MESH_SHARE and all(
+        bool(torch.isfinite(v).all()) for v in resumed.values()),
+        f"mesh {split}: only {resume_near} of the chains' resumed sweeps "
+        f"within {MESH_ATOL} of the ranks' own")
+    coll_ms = [1e3 * ln["collective_seconds"] / m["sweeps"] for ln in lines]
+    coll_n = [ln["collectives"] / m["sweeps"] for ln in lines]
+    split_ms = 1e3 * got["seconds"] / m["sweeps"]
+    per_rank = (f"{CHAINS // m['ranks']} chains of {N} rows" if rows == 1
+                else f"{CHAINS} chains of {N // rows} rows")
+    print(f"  mesh {split} split: {m['ranks']} ranks sharing the one card "
+          f"(gloo; sharing, not scaling), {per_rank} each; chains bit-equal "
+          f"after 1 sweep {first_equal.float().mean():.4f}, after "
+          f"{m['sweeps']} {same.float().mean():.4f}; launches a rank "
+          f"{rank_counts}; ms a sweep at rank 0 {split_ms:.3f}; collectives "
+          f"a sweep by rank {coll_n}, their ms on the host's clock "
+          f"{', '.join(f'{x:.3f}' for x in coll_ms)}; PT "
+          f"{m['pt_replicas']} replicas x {m['pt_rounds']} rounds swap "
+          f"counts {got['pt_counts']} (one process {pt_counts}), cold sigma2 "
+          f"max diff {pt_err:.3g}; resumed sweep {resume_near:.4f} of the "
+          f"chains within the atol (the others {resume_off}); ranks "
+          f"{ranks_s:.1f} s from start to exit")
+    return rank_counts, shapes, {
+        "rows_a_rank": N // rows,
+        "chains_a_rank": CHAINS // m["ranks"] if rows == 1 else CHAINS,
+        "first_sweep_max_abs": worst,
+        "bit_equal_share_first": first_equal.float().mean().item(),
+        "bit_equal_share_last": same.float().mean().item(), "medians": med,
+        "ms_per_sweep_two_ranks_sharing": split_ms,
+        "collectives_per_sweep": coll_n, "collective_ms_per_sweep": coll_ms,
+        "pt_swap_counts": got["pt_counts"], "pt_swap_counts_one": pt_counts,
+        "pt_cold_sigma2_max_abs": pt_err,
+        "first_sweep_share_within_atol": near, "first_sweep_off": off,
+        "resume_share_within_atol": resume_near,
+        "launches_by_rank": rank_counts, "ranks_seconds": ranks_s}
+
+
 def mesh_phase(dev, card, start_state):
-    """Slice 16: the production census over a (chains, data) mesh on the
-    card, from ``start_state`` (the production path's final 256-chain
-    ensemble).  (a) A 1 x 1 mesh over NCCL: the protocol's sweeps under
-    ``with mesh:`` give the bits of the same sweeps without it.  (b) Two
-    ranks on the one card through gloo, 128 chains each: the first sweep
-    within JAX's atol of one process in every field in MESH_SHARE of the
-    chains, the medians after the last inside the production path's JAX
-    limits, PT's swap counts equal to one process's, and the ranks'
-    checkpoint resumed here.  Returns (each
-    rank's launch counts, the phase's numbers)."""
+    """Slices 16 and 17: the production census over a (chains, data) mesh
+    on the card, from ``start_state`` (the production path's final
+    256-chain ensemble).  (a) A 1 x 1 mesh over NCCL: the protocol's sweeps
+    under ``with mesh:`` give the bits of the same sweeps without it.
+    (b) Two ranks on the one card through gloo splitting the chains, 128
+    each, then (c) splitting the data's 100 rows, 50 each with all 256
+    chains (``mesh_split``): the first sweep within JAX's atol of one
+    process in every field in MESH_SHARE of the chains, the medians after
+    the last inside the production path's JAX limits, the launches a sweep,
+    the checkpoint read back here; the chain split also PT's swap counts,
+    the data split also every global field's bits equal on both ranks and
+    K2 and K3 against their plain versions at the rank's shapes.  Returns
+    (each rank's launch counts, the data split's launches by shape, the
+    phase's numbers)."""
     import torch.distributed as dist
 
-    from bayesfmmm_torch.dryrun import run_ranks
     from bayesfmmm_torch.parallel import mesh as pmesh
 
     m = MESH_PROTOCOL
     t_phase = time.perf_counter()
     flags, ref_path, per_sweep = PATHS["production"]
-    ref = json.loads(ref_path.read_text())
     data, hp, c = _mesh_data(dev)
     R = m["pt_replicas"]
     with tempfile.TemporaryDirectory(prefix="bfmmm_mesh_") as tmp:
@@ -2588,120 +2753,43 @@ def mesh_phase(dev, card, start_state):
               f"chains under a 1 x 1 mesh over NCCL: the bits and launches "
               f"of the same sweeps without it")
 
-        # (b): two ranks on the one card through gloo
-        out, ckpt = tmp / "rank0.pt", tmp / "ckpt.npz"
-        t_ranks = time.perf_counter()
-        logs = run_ranks(m["ranks"], f"{Path(__file__).resolve()}:mesh_rank",
-                         {"start": str(start), "out": str(out),
-                          "ckpt": str(ckpt)},
-                         device="cuda", timeout=m["timeout"])
-        ranks_s = time.perf_counter() - t_ranks
-        got = torch.load(out)
-        rank_lines = [ln for log in logs for ln in log.splitlines()
-                      if ln.startswith("RANK ")]
-        check(len(rank_lines) == m["ranks"], f"mesh: rank lines {rank_lines}")
-        rank_counts, rank_coll = {}, []
-        for ln in rank_lines:
-            head, rest = ln.split(" counts ", 1)
-            cts, rest = rest.split(" collectives ", 1)
-            rank_counts[f"mesh rank {head.split()[1]}"] = json.loads(cts)
-            rank_coll.append(float(rest.split()[1]))
-        for name, cts in rank_counts.items():
-            for k, n in per_sweep.items():
-                check(cts[k] == n * m["sweeps"],
-                      f"mesh: {name} launched {k} {cts[k]} times in "
-                      f"{m['sweeps']} sweeps, expected {n} a sweep")
-
-        # the first sweep against one process, in every field, chain by
-        # chain
-        ref_first = {f: ref_run[0].traces[f][:, 0].cpu() for f in STATE_FIELDS}
-        worst = {f: (got["first"][f] - ref_first[f]).abs().max().item()
-                 if ref_first[f].numel() else 0.0 for f in STATE_FIELDS}
-        near, off = mesh_chains_within(got["first"], ref_first)
-        print(f"  mesh (b) first sweep: {near:.4f} of the chains within "
-              f"{MESH_ATOL} of one process's in every field; the others, "
-              f"with the fields past it: {off}; max |diff| by field "
-              + ", ".join(f"{f} {e:.3g}" for f, e in worst.items() if e))
-        check(near >= MESH_SHARE, f"mesh: only {near} of the chains' first "
-                                  f"sweeps within {MESH_ATOL}")
-        ref_final = {f: getattr(ref_run[0].final_state, f).cpu()
-                     for f in STATE_FIELDS}
-        same = torch.ones(CHAINS, dtype=torch.bool)
-        for f in STATE_FIELDS:
-            a, b = got["final"][f], ref_final[f]
-            same &= (a == b).reshape(CHAINS, -1).all(1)
-        share_equal = same.float().mean().item()
-        first_equal = torch.ones(CHAINS, dtype=torch.bool)
-        for f in STATE_FIELDS:
-            first_equal &= (got["first"][f] == ref_first[f]).reshape(
-                CHAINS, -1).all(1)
-        # the medians after the last sweep, in the production path's limits
-        med = {"loglik": got["loglik"].median().item(),
-               "sigma2": float(np.median(got["final"]["sigma2"].numpy()))}
-        for stat, v in med.items():
-            lo, hi = ref[stat]["limits"]
-            check(lo <= v <= hi, f"mesh: the split run's {stat} median {v} "
-                                 f"outside [{lo}, {hi}]")
-            print(f"  mesh (b) {stat}: split median {v:.6g} after "
-                  f"{m['sweeps']} sweeps, limits [{lo:.6g}, {hi:.6g}] "
-                  f"({ref_path.name})")
-        # PT: swap counts equal to one process's
-        cold, pt_state, rate = ref_run[5]
-        pt_counts = [pt_state.swap_accepts.item(),
-                     pt_state.swap_attempts.item()]
-        check(got["pt_counts"] == pt_counts,
-              f"mesh: split PT's swap counts {got['pt_counts']} != one "
-              f"process's {pt_counts}")
-        pt_err = (got["pt_cold_sigma2"] - cold.sigma2.cpu()).abs().max().item()
-        # the checkpoint the two ranks wrote, resumed here
-        st, g, it, _ = load_checkpoint(ckpt, dev)
-        check(it == m["sweeps"], f"mesh: the ranks' checkpoint is at {it}")
-        for f in STATE_FIELDS:
-            check(torch.equal(getattr(st, f).cpu(), got["final"][f]),
-                  f"mesh: the ranks' checkpoint holds another {f}")
-        resumed = drivers.phase_warm_start(g, st, data, hp, c, n_iters=1,
-                                           start_iter=m["sweeps"], **flags)
-        resumed = {f: getattr(resumed.final_state, f).cpu()
-                   for f in STATE_FIELDS}
-        resume_near, resume_off = mesh_chains_within(resumed, got["after"])
-        check(resume_near >= MESH_SHARE and all(
-            bool(torch.isfinite(v).all()) for v in resumed.values()),
-            f"mesh: only {resume_near} of the chains' resumed sweeps within "
-            f"{MESH_ATOL} of the ranks' own")
+        # (b) and (c): two ranks on the one card through gloo
+        counts, numbers, data_shapes = {}, {}, {}
+        for split in MESH_SPLITS:
+            cts, shapes, numbers[split] = mesh_split(
+                dev, split, start, tmp, ref_run, data, hp, c)
+            counts.update(cts)
+            if MESH_SPLITS[split] > 1:
+                data_shapes = shapes
+    # K2 and K3 against their plain versions at the data split's shapes:
+    # N/2 rows, the sweep's C and 2C chain rows and update_nu's 3C, and
+    # PT's R and 2R rows and 3R
+    g = torch.Generator(device=dev).manual_seed(17)
+    n2, K = PROTOCOL["N"] // MESH_SPLITS["data"], PROTOCOL["K"]
+    k2_shapes = tuple((C1, n2, 100, PROTOCOL["P"], None)
+                      for C1 in (CHAINS, 2 * CHAINS, R, 2 * R))
+    k3_shapes = ((K * CHAINS, n2, PROTOCOL["P"]), (K * R, n2, PROTOCOL["P"]))
+    for k, shape in data_shapes:
+        check(k == "chol_solve" or shape in [s[:4] for s in k2_shapes]
+              + list(k3_shapes),
+              f"mesh data: rank 0 launched {k} at {shape}, a shape the "
+              f"smoke does not hold to its plain version")
+    k2_phase(dev, g, k2_shapes)
+    k3_phase(dev, g, k3_shapes)
     one_ms = 1e3 * ref_run[1] / m["sweeps"]
-    split_ms = 1e3 * got["seconds"] / m["sweeps"]
-    coll_ms = [1e3 * s / m["sweeps"] for s in rank_coll]
     seconds = time.perf_counter() - t_phase
-    print(f"  mesh on {card}: {m['ranks']} ranks sharing the one card "
-          f"(gloo), {CHAINS // m['ranks']} chains each; after the first "
-          f"sweep max |split - one process| "
-          + ", ".join(f"{f} {e:.3g}" for f, e in worst.items() if e)
-          + f"; chains bit-equal after 1 sweep "
-          f"{first_equal.float().mean():.4f}"
-          f", after {m['sweeps']} {share_equal:.4f}; launches a rank "
-          f"{rank_counts}; ms a sweep at one rank ({CHAINS} chains) "
-          f"{one_ms:.3f}, at {m['ranks']} ranks sharing the card (rank 0, "
-          f"{CHAINS // m['ranks']} chains; sharing, not scaling) "
-          f"{split_ms:.3f}; collectives "
-          f"{', '.join(f'{x:.3f}' for x in coll_ms)} ms a sweep by rank; "
-          f"PT {R} replicas x {m['pt_rounds']} rounds "
-          f"swap counts {pt_counts} both, cold sigma2 max diff {pt_err:.3g}; "
-          f"resumed sweep {resume_near:.4f} of the chains within the atol "
-          f"(the others {resume_off}); ranks {ranks_s:.1f} s "
-          f"from start to exit; the phase {seconds:.1f} s")
-    return rank_counts, {
+    print(f"  mesh on {card}: ms a sweep at one rank ({CHAINS} chains of "
+          f"{PROTOCOL['N']} rows) {one_ms:.3f}; two ranks sharing the card, "
+          f"rank 0: chains split "
+          f"{numbers['chains']['ms_per_sweep_two_ranks_sharing']:.3f}, data "
+          f"split {numbers['data']['ms_per_sweep_two_ranks_sharing']:.3f} "
+          f"(of which collectives "
+          f"{numbers['data']['collective_ms_per_sweep'][0]:.3f} on the "
+          f"host's clock); the phase {seconds:.1f} s")
+    return counts, data_shapes, {
         "card": card, "ranks": m["ranks"], "chains": CHAINS,
-        "sweeps": m["sweeps"], "first_sweep_max_abs": worst,
-        "bit_equal_share_first": first_equal.float().mean().item(),
-        "bit_equal_share_last": share_equal, "medians": med,
-        "ms_per_sweep_one_rank": one_ms,
-        "ms_per_sweep_two_ranks_sharing": split_ms,
-        "collective_ms_per_sweep": coll_ms, "pt_swap_counts": pt_counts,
-        "pt_cold_sigma2_max_abs": pt_err,
-        "first_sweep_share_within_atol": near, "first_sweep_off": off,
-        "resume_share_within_atol": resume_near,
-        "launches_by_rank": rank_counts, "ranks_seconds": ranks_s,
-        "seconds": seconds}
+        "sweeps": m["sweeps"], "ms_per_sweep_one_rank": one_ms,
+        "splits": numbers, "seconds": seconds}
 
 
 def round_profiles(rounds):
@@ -2929,11 +3017,13 @@ def main(argv=None):
         t13 = time.perf_counter()
         if "production" not in phases:
             _, _, p_final = path_phase(dev, "production")
-        mesh_counts, line["mesh"] = mesh_phase(dev, card, p_final)
+        mesh_counts, mesh_shapes, line["mesh"] = mesh_phase(dev, card,
+                                                            p_final)
         print(f"  the phase {time.perf_counter() - t13:.1f} s")
-        print("phase 13 slice 16 path (the production census over a "
-              "(chains, data) mesh: 1 x 1 over NCCL, two ranks sharing the "
-              "card through gloo, PT and a checkpoint across them): ok")
+        print("phase 13 slices 16 and 17 paths (the production census over "
+              "a (chains, data) mesh: 1 x 1 over NCCL, two ranks sharing the "
+              "card through gloo splitting the chains, then the data, PT and "
+              "a checkpoint across them): ok")
         lap("mesh")
 
     if "timings" in phases:
@@ -3006,6 +3096,16 @@ def main(argv=None):
                                *fn2, pt_shapes),
             "weighted_gram_pt": ("weighted_gram", dict(R=3 * R, N=N, P=P),
                                  *fn3, pt_shapes),
+            # slice 17: a rank's rows of the data split (N / 2), the sweep's
+            # C and the MGP-scale moves' 2C chain rows, update_nu's 3C
+            "mean_rss_n50_c256": ("mean_rss", dict(C=C, N=N // 2, L=100, P=P),
+                                  *fn2, mesh_shapes),
+            "mean_rss_n50_c512": ("mean_rss",
+                                  dict(C=2 * C, N=N // 2, L=100, P=P), *fn2,
+                                  mesh_shapes),
+            "weighted_gram_n50_r768": ("weighted_gram",
+                                       dict(R=K * C, N=N // 2, P=P), *fn3,
+                                       mesh_shapes),
         }
         # slice 14: K1's panels kernel at the two-covariate path's shapes,
         # and at shapes no path of the smoke reaches (an hd Phi draw on a

@@ -444,7 +444,7 @@ def _port_z_chi(monkeypatch, tdata, st, d, beta=1.0):
     logits = []
     with monkeypatch.context() as mp:
         gs = iter(d["g"].transpose(1, 0, 2, 3))
-        mp.setattr(tg, "rdirichlet", lambda gen, alpha: (
+        mp.setattr(tg, "rdirichlet", lambda gen, alpha, **kw: (
             lambda x: x / x.sum(-1, keepdim=True))(torch.tensor(next(gs))))
         _queue(mp, tg, "_uniform",
                [torch.tensor(x) for x in d["u"].transpose(1, 0, 2)])

@@ -1,18 +1,25 @@
 """The port's rank mesh (``bayesfmmm_torch/parallel/mesh.py``) on the CPU
 under gloo: the chains of a sweep, of parallel tempering and of a
-checkpoint split over 2 and 4 ranks give the one-process run's draws.
+checkpoint split over 2 and 4 ranks give the one-process run's draws, and
+so do the data's rows split over the data axis of (1, 2), (2, 2) and
+(4, 2) meshes, each rank of a data group holding the same global fields.
 
 Each multi-rank case runs in ranks started by ``dryrun.run_ranks`` (a
-``file://`` store in a temporary directory, 120 s for all ranks, killed
-and failed past it); one start of 2 ranks and one of 4 serve every case,
-and the first rank saves what the cases read.  Sizes are the JAX tests'
-``_small`` (tests/test_checkpoint_parallel.py:17-21).
+``file://`` store in a temporary directory, 120 s for all ranks (150 s for
+the data axis's), killed and failed past it); one start of 2 ranks and one
+of 4 serve every chain-axis case, and the first rank saves what the cases
+read; one start of each data mesh serves its cases, every rank saving its
+own.  Sizes are the JAX tests' ``_small``
+(tests/test_checkpoint_parallel.py:17-21).
 
 Where the CPU's float32 products take another summation order at another
 chain count (MKL's sgemm picks its kernel by the matrix's shape, and the
 einsums that meet a data tensor shared by every chain put the chain axis
 into that shape), a split run cannot give the one-process bits; those
-cases hold the JAX test's own ``atol=2e-4`` and say so.
+cases hold the JAX test's own ``atol=2e-4`` and say so.  A sum over n
+split over data ranks rounds in another order than one process's, so the
+data axis's cases hold every field at that atol and the global fields to
+the bit across the ranks of a data group.
 """
 
 import textwrap
@@ -28,7 +35,8 @@ from bayesfmmm_tpu.parallel import mesh as jmesh  # noqa: E402
 from bayesfmmm_torch import dryrun  # noqa: E402
 from bayesfmmm_torch.api import PRODUCTION_FLAGS  # noqa: E402
 from bayesfmmm_torch.config import ModelConfig, Priors  # noqa: E402
-from bayesfmmm_torch.io.checkpoint import load_checkpoint  # noqa: E402
+from bayesfmmm_torch.io.checkpoint import (load_checkpoint,  # noqa: E402
+                                          save_checkpoint)
 from bayesfmmm_torch.models.state import STATE_FIELDS, init_state  # noqa
 from bayesfmmm_torch.ops import distributions, gibbs  # noqa: E402
 from bayesfmmm_torch.parallel import mesh as pmesh  # noqa: E402
@@ -172,13 +180,6 @@ _WORKER = textwrap.dedent('''
                 with mesh:
                     gibbs.sweep_full(torch.Generator(), whole4, data, hp, c)
 
-            split_data = pmesh.make_mesh(n_chain_shards=1, n_data_shards=2,
-                                         devices="cpu")
-
-            def enter_split_data():
-                with split_data:
-                    pass
-
             def unported(module, name, n_args):
                 def run():
                     with mesh:
@@ -191,11 +192,6 @@ _WORKER = textwrap.dedent('''
                    for module, name, n_args in (
                        (smc, "run_smc", 5), (hmc, "run_hmc", 3),
                        (nuts, "run_nuts", 3), (advi, "run_advi", 3))},
-                "shard_data": refused(
-                    lambda: pmesh.shard_data(data, split_data)),
-                "data_sharding": refused(
-                    lambda: pmesh.data_sharding(split_data)),
-                "with": refused(enter_split_data),
                 "indivisible": refused(
                     lambda: pmesh.shard_chain_states(three, mesh)),
                 "local_shape": refused(draw_whole)}
@@ -439,20 +435,15 @@ def test_distributed_sweep_ranks_agree(ranks, one_process, n):
 
 
 @pytest.mark.parametrize("case,error", [
-    ("shard_data", "NotImplementedError"),
-    ("data_sharding", "NotImplementedError"),
-    ("with", "NotImplementedError"),
     ("indivisible", "ValueError"),
     ("local_shape", "ValueError"),
     ("run_smc", "NotImplementedError"), ("run_hmc", "NotImplementedError"),
     ("run_nuts", "NotImplementedError"),
     ("run_advi", "NotImplementedError")])
 def test_split_refusals(ranks, case, error):
-    """On 2 ranks: a data axis of 2 (shard_data, data_sharding and entering
-    the mesh) raises NotImplementedError; 3 chains over 2 ranks, and a
-    sweep of the whole ensemble under the split mesh, raise ValueError; the
-    samplers not ported to a split mesh (SMC, HMC, NUTS, ADVI) raise
-    NotImplementedError under it."""
+    """On 2 ranks: 3 chains over 2 ranks, and a sweep of the whole ensemble
+    under the split mesh, raise ValueError; the samplers not ported to a
+    split mesh (SMC, HMC, NUTS, ADVI) raise NotImplementedError under it."""
     assert ranks[2][0]["refusals"][case] == error
 
 
@@ -469,3 +460,471 @@ def test_entry_is_one_production_sweep():
     assert out.nu.shape == (1, 3, 8) and out.Phi.shape == (1, 3, 8, 4)
     assert all(bool(torch.isfinite(getattr(out, f)).all())
                for f in STATE_FIELDS)
+
+
+# ---------------------------------------------------------------------------
+# the data axis: the N rows of the data, and of Z and chi, over the ranks of
+# (1, 2), (2, 2) and (4, 2) meshes (the JAX test's 4 x 2,
+# tests/test_checkpoint_parallel.py:58-80, on its data)
+
+DATA_MESHES = [(1, 2), (2, 2), (4, 2)]
+# the fields no rank holds by rows: equal bits on every rank of a data group
+GLOBAL_FIELDS = [f for f in STATE_FIELDS if f not in ("Z", "chi")]
+EXC_SWEEPS = 5
+EXC_FLAGS = dict(n_temp_trans=2, N_t=2, beta_N_t=0.5)
+
+_DATA_WORKER = textwrap.dedent('''
+    import torch
+    from bayesfmmm_torch.api import PRODUCTION_FLAGS
+    from bayesfmmm_torch.config import ModelConfig, Priors
+    from bayesfmmm_torch.io.checkpoint import save_checkpoint
+    from bayesfmmm_torch.models.state import STATE_FIELDS, init_state
+    from bayesfmmm_torch.ops import distributions, gibbs
+    from bayesfmmm_torch.parallel import mesh as pmesh
+    from bayesfmmm_torch.parallel import tempering
+    from bayesfmmm_torch.samplers import drivers
+    from bayesfmmm_torch.utils.simulate import (simulate_functional,
+                                                simulate_multivariate)
+
+    GLOBAL = [f for f in STATE_FIELDS if f not in ("Z", "chi")]
+
+
+    def cases():
+        """name -> (data, config, sweep flags), the test module's own."""
+        fn, _ = simulate_functional(seed=31, N=8, K=2, P=5, M=2,
+                                    n_time=(10, 12), device="cpu")
+        cov, _ = simulate_functional(seed=32, N=8, K=2, P=5, M=2, D=1,
+                                     n_time=(10, 12), with_eta=True,
+                                     with_xi=True, device="cpu")
+        mv, _ = simulate_multivariate(seed=33, N=8, K=2, P=4, M=2,
+                                      device="cpu")
+        base = ModelConfig(K=2, P=5, M=2)
+        covariate = dict(covariate_mean=True, covariate_cov=True)
+        return {
+            "reference": (fn, base, {}),
+            "production": (fn, base, PRODUCTION_FLAGS),
+            "covariate": (cov, ModelConfig(K=2, P=5, M=2, D=1, **covariate),
+                          {**PRODUCTION_FLAGS, **covariate}),
+            "multivariate": (mv, ModelConfig(K=2, P=4, M=2),
+                             PRODUCTION_FLAGS)}
+
+
+    def start(data, cfg, chains, seed=0):
+        """chains chains from init_state, eta and xi away from zero."""
+        st = init_state(torch.Generator().manual_seed(seed), cfg, data,
+                        chains=chains)
+        g = torch.Generator().manual_seed(seed + 100)
+        return st.replace(
+            eta=torch.randn(st.eta.shape, generator=g),
+            xi=0.5 * torch.randn(st.xi.shape, generator=g))
+
+
+    def whole(mesh, st):
+        g = pmesh.gather_chain_states(st, mesh)
+        return {f: getattr(g, f) for f in STATE_FIELDS}
+
+
+    def mala(data, st):
+        s, a, ur, rr0, U_xi = gibbs._phi_move_terms(st, data, 0.7)
+        pri = torch.cumprod(st.delta, 2)[:, :, None, :] * st.gamma
+        return gibbs._mala_value_and_grad(st.Phi, st.Z, data, s, ur, rr0,
+                                          pri, U_xi)
+
+
+    def refused(fn):
+        try:
+            fn()
+        except (ValueError, NotImplementedError, RuntimeError) as e:
+            return [type(e).__name__, "15c" in str(e)]
+        return ["nothing", False]
+
+
+    def main(out, ckpt, chains, rows, twin):
+        mesh = pmesh.make_mesh(n_chain_shards=chains, n_data_shards=rows,
+                               devices="cpu")
+        res = {"shape": [mesh.shape["chains"], mesh.shape["data"]],
+               "coords": [mesh.coords["chains"], mesh.coords["data"]]}
+        hp = Priors()
+        for name, (data, cfg, flags) in cases().items():
+            c = torch.full((cfg.K,), 10.0)
+            sdata = pmesh.shard_data(data, mesh)
+            res["rows_" + name] = [sdata.N, sdata.N_whole]
+            local = pmesh.shard_chain_states(start(data, cfg, 4), mesh)
+            with mesh:
+                new = gibbs.sweep_full(torch.Generator().manual_seed(1),
+                                       local, sdata, hp, c, **flags)
+                if name == "covariate":
+                    pot, grad = mala(sdata, local)
+                    res["mala"] = [mesh.gather(pot), mesh.gather(grad)]
+            res["sweep_" + name] = whole(mesh, new)
+            res["global_" + name] = {f: getattr(new, f) for f in GLOBAL}
+
+        data, cfg, _ = cases()["reference"]
+        sdata = pmesh.shard_data(data, mesh)
+        c = torch.full((2,), 10.0)
+        # parallel tempering: 8 replicas, 5 rounds, every swap kept
+        perms, swap = [], tempering.swap_phase
+
+        def spy(E, ladder, parity, u):
+            perm, acc, att = swap(E, ladder, parity, u)
+            perms.append(perm.tolist())
+            return perm, acc, att
+
+        tempering.swap_phase = spy
+        local = pmesh.shard_chain_states(
+            init_state(torch.Generator().manual_seed(11), cfg, data,
+                       chains=8), mesh)
+        with mesh:
+            cold, pt, rate = tempering.run_parallel_tempering(
+                torch.Generator().manual_seed(12), local, sdata, hp, c,
+                n_rounds=5, beta_min=0.4)
+        tempering.swap_phase = swap
+        res["pt"] = {"cold": {f: getattr(cold, f) for f in STATE_FIELDS},
+                     "final": whole(mesh, pt.states), "perms": perms,
+                     "counts": [pt.swap_accepts, pt.swap_attempts],
+                     "rate": rate}
+
+        # the production census with tempered excursions, checkpointed
+        local = pmesh.shard_chain_states(
+            init_state(torch.Generator().manual_seed(5), cfg, data,
+                       chains=4), mesh)
+        g = torch.Generator().manual_seed(6)
+        with mesh:
+            r = drivers.phase_warm_start(
+                g, local, sdata, hp, c, n_iters=EXC_SWEEPS,
+                **EXC_FLAGS, **PRODUCTION_FLAGS)
+            save_checkpoint(ckpt, r.final_state, g, iteration=EXC_SWEEPS,
+                            config=cfg)
+        res["excursion"] = {"loglik": mesh.gather(r.loglik),
+                            "accept": mesh.gather(r.tt_accept)}
+
+        if twin:
+            # the port of tests/test_multiprocess.py: every rank prints the
+            # gathered sigma2 of one sweep of 8 chains
+            local = pmesh.shard_chain_states(
+                init_state(torch.Generator().manual_seed(0), cfg, data,
+                           chains=8), mesh)
+            with mesh:
+                new = gibbs.sweep_full(torch.Generator().manual_seed(1),
+                                       local, sdata, hp, c)
+            sig = mesh.gather(new.sigma2)
+            print("RESULT", mesh.size, " ".join(
+                float(v).hex() for v in sig.tolist()), flush=True)
+
+        if (chains, rows) == (1, 2):
+            from bayesfmmm_torch.samplers import advi, hmc, nuts, smc
+            odd, _ = simulate_functional(seed=31, N=7, K=2, P=5, M=2,
+                                         n_time=(10, 12), device="cpu")
+
+            def unported(module, name, n_args):
+                def run():
+                    with mesh:
+                        getattr(module, name)(*[None] * n_args)
+                return run
+
+            def hmc_joint():
+                with mesh:
+                    gibbs.sweep_full(torch.Generator(), local, sdata, hp, c,
+                                     **PRODUCTION_FLAGS, hmc_steps=2)
+
+            def whole_rows():
+                with mesh:
+                    distributions.normal(torch.Generator(), (8, 8),
+                                         dtype=torch.float32, device="cpu",
+                                         data_dim=1)
+
+            def graph():
+                with mesh:
+                    pmesh.data_sum(torch.ones(3, requires_grad=True))
+
+            res["refusals"] = {
+                **{name: refused(unported(module, name, n_args))
+                   for module, name, n_args in (
+                       (smc, "run_smc", 5), (hmc, "run_hmc", 3),
+                       (nuts, "run_nuts", 3), (advi, "run_advi", 3))},
+                "indivisible_rows": refused(
+                    lambda: pmesh.shard_data(odd, mesh)),
+                "hmc_joint": refused(hmc_joint),
+                "whole_rows": refused(whole_rows),
+                "gradient": refused(graph)}
+        torch.save(res, f"{out}.{mesh.rank}")
+''')
+
+
+def _data_run(tmp_path_factory, c, d):
+    tmp = tmp_path_factory.mktemp(f"data{c}x{d}")
+    worker = tmp / "worker.py"
+    worker.write_text(_DATA_WORKER.replace(
+        "EXC_SWEEPS", str(EXC_SWEEPS)).replace(
+        "**EXC_FLAGS", ", ".join(f"{k}={v!r}" for k, v in EXC_FLAGS.items())))
+    out, ckpt = tmp / "rank", tmp / "ckpt"
+    outs = dryrun.run_ranks(c * d, f"{worker}:main",
+                            {"out": str(out), "ckpt": str(ckpt), "chains": c,
+                             "rows": d, "twin": (c, d) != (4, 2)},
+                            timeout=150)
+    return [torch.load(f"{out}.{r}") for r in range(c * d)], outs, ckpt
+
+
+@pytest.fixture(scope="module")
+def data_ranks(tmp_path_factory):
+    return {cd: _data_run(tmp_path_factory, *cd) for cd in DATA_MESHES}
+
+
+def _data_cases():
+    """The worker's cases, in this process: name -> (data, config,
+    flags)."""
+    from bayesfmmm_torch.utils.simulate import simulate_multivariate
+
+    fn, _ = simulate_functional(seed=31, N=8, K=2, P=5, M=2,
+                                n_time=(10, 12), device="cpu")
+    cov, _ = simulate_functional(seed=32, N=8, K=2, P=5, M=2, D=1,
+                                 n_time=(10, 12), with_eta=True,
+                                 with_xi=True, device="cpu")
+    mv, _ = simulate_multivariate(seed=33, N=8, K=2, P=4, M=2, device="cpu")
+    base = ModelConfig(K=2, P=5, M=2)
+    covariate = dict(covariate_mean=True, covariate_cov=True)
+    return {
+        "reference": (fn, base, {}),
+        "production": (fn, base, PRODUCTION_FLAGS),
+        "covariate": (cov, ModelConfig(K=2, P=5, M=2, D=1, **covariate),
+                      {**PRODUCTION_FLAGS, **covariate}),
+        "multivariate": (mv, ModelConfig(K=2, P=4, M=2), PRODUCTION_FLAGS)}
+
+
+def _start(data, cfg, chains, seed=0):
+    st = init_state(torch.Generator().manual_seed(seed), cfg, data,
+                    chains=chains)
+    g = torch.Generator().manual_seed(seed + 100)
+    return st.replace(eta=torch.randn(st.eta.shape, generator=g),
+                      xi=0.5 * torch.randn(st.xi.shape, generator=g))
+
+
+@pytest.fixture(scope="module")
+def data_one_process(tmp_path_factory):
+    """The data worker's programs in this process, unsplit."""
+    res, hp = {}, Priors()
+    for name, (data, cfg, flags) in _data_cases().items():
+        st = _start(data, cfg, 4)
+        res["sweep_" + name] = _fields(gibbs.sweep_full(
+            torch.Generator().manual_seed(1), st, data, hp,
+            torch.full((cfg.K,), 10.0), **flags))
+        if name == "covariate":
+            s, a, ur, rr0, U_xi = gibbs._phi_move_terms(st, data, 0.7)
+            pri = torch.cumprod(st.delta, 2)[:, :, None, :] * st.gamma
+            res["mala"] = gibbs._mala_value_and_grad(
+                st.Phi, st.Z, data, s, ur, rr0, pri, U_xi)
+    data, cfg, _ = _data_cases()["reference"]
+    c = torch.full((2,), 10.0)
+    perms, swap = [], tempering.swap_phase
+
+    def spy(E, ladder, parity, u):
+        perm, acc, att = swap(E, ladder, parity, u)
+        perms.append(perm.tolist())
+        return perm, acc, att
+
+    tempering.swap_phase = spy
+    try:
+        cold, pt, rate = tempering.run_parallel_tempering(
+            torch.Generator().manual_seed(12),
+            init_state(torch.Generator().manual_seed(11), cfg, data,
+                       chains=8), data, hp, c, n_rounds=5, beta_min=0.4)
+    finally:
+        tempering.swap_phase = swap
+    res["pt"] = {"cold": _fields(cold), "final": _fields(pt.states),
+                 "perms": perms, "counts": [pt.swap_accepts,
+                                            pt.swap_attempts], "rate": rate}
+    g = torch.Generator().manual_seed(6)
+    r = drivers.phase_warm_start(
+        g, init_state(torch.Generator().manual_seed(5), cfg, data, chains=4),
+        data, hp, c, n_iters=EXC_SWEEPS, **EXC_FLAGS, **PRODUCTION_FLAGS)
+    ckpt = tmp_path_factory.mktemp("one") / "ckpt"
+    save_checkpoint(ckpt, r.final_state, g, iteration=EXC_SWEEPS, config=cfg)
+    res["excursion"] = {"loglik": r.loglik, "accept": r.tt_accept,
+                        "ckpt": ckpt}
+    res["twin"] = gibbs.sweep_full(
+        torch.Generator().manual_seed(1),
+        init_state(torch.Generator().manual_seed(0), cfg, data, chains=8),
+        data, hp, c).sigma2
+    return res
+
+
+@pytest.mark.parametrize("cd", DATA_MESHES)
+@pytest.mark.parametrize("census", ["reference", "production", "covariate",
+                                    "multivariate"])
+def test_data_split_sweep_matches_one_process(data_ranks, data_one_process,
+                                              census, cd):
+    """One sweep_full of 4 chains with the 8 rows over the data axis: every
+    field (Z's and chi's rows gathered) within the JAX test's atol of one
+    process, in both censuses, the covariate model (eta and xi) and the
+    multivariate family; every rank of a data group holds the same bits of
+    every global field."""
+    per_rank = data_ranks[cd][0]
+    c, d = cd
+    for r, res in enumerate(per_rank):
+        assert res["shape"] == [c, d]
+        assert res["rows_" + census] == [8 // d, 8]
+        _same(res["sweep_" + census], data_one_process["sweep_" + census],
+              f"{census} sweep over {cd}, rank {r}", ATOL)
+        first = per_rank[r - res["coords"][1]]
+        _same(res["global_" + census], first["global_" + census],
+              f"{census}: rank {r} against its data group's first")
+
+
+@pytest.mark.parametrize("cd", DATA_MESHES)
+def test_data_split_mala_gradient_matches_one_process(data_ranks,
+                                                      data_one_process, cd):
+    """MALA's potential and its gradient in Phi (the covariate model, U_xi
+    non-zero), with the likelihood's row sums over the data axis: the
+    one-process value and gradient to float32 rounding, equal on every
+    rank of a data group; no part of the gradient is dropped."""
+    want_pot, want_grad = data_one_process["mala"]
+    per_rank = data_ranks[cd][0]
+    for res in per_rank:
+        pot, grad = res["mala"]
+        scale = float(want_grad.abs().max())
+        assert float((grad - want_grad).abs().max()) <= 1e-5 * scale
+        assert float((pot - want_pot).abs().max()) <= \
+            1e-5 * float(want_pot.abs().max())
+        first = per_rank[per_rank.index(res) - res["coords"][1]]
+        assert torch.equal(grad, first["mala"][1])
+
+
+@pytest.mark.parametrize("cd", DATA_MESHES)
+def test_data_split_pt_matches_one_process(data_ranks, data_one_process, cd):
+    """8 replicas, 5 rounds at beta_min 0.4 with the rows split: every
+    round's swap permutation, the counts and the rate are one process's;
+    the cold trace (rows gathered) and the replicas within the atol, their
+    global fields the same bits on every rank."""
+    want = data_one_process["pt"]
+    for res in data_ranks[cd][0]:
+        got = res["pt"]
+        assert got["perms"] == want["perms"]
+        for a, b in zip(got["counts"], want["counts"]):
+            assert torch.equal(a, b)
+        assert torch.equal(got["rate"], want["rate"])
+        _same(got["cold"], want["cold"], f"PT cold over {cd}", ATOL)
+        _same(got["final"], want["final"], f"PT over {cd}", ATOL)
+        first = data_ranks[cd][0][0]["pt"]
+        for what in ("cold", "final"):
+            _same({f: got[what][f] for f in GLOBAL_FIELDS},
+                  {f: first[what][f] for f in GLOBAL_FIELDS},
+                  f"PT {what}'s global fields against rank 0's")
+
+
+@pytest.mark.parametrize("cd", DATA_MESHES)
+def test_data_split_checkpoint_and_excursions(data_ranks, data_one_process,
+                                              cd):
+    """The production census with a tempered excursion every 2nd sweep, 5
+    sweeps, then a checkpoint from every rank: the excursions' decisions
+    are one process's and its loglik trace within 1e-5 of the trace's
+    scale (its fields within the atol, a loglik sums ~100 points'
+    terms of size ~n_obs log sigma2 / 2), the file is
+    the one-process file (the whole ensemble within the atol, the same
+    generator state, iteration and config), and both resume alike."""
+    want = data_one_process["excursion"]
+    for res in data_ranks[cd][0]:
+        assert torch.equal(res["excursion"]["accept"], want["accept"])
+        assert torch.equal(res["excursion"]["loglik"],
+                           data_ranks[cd][0][0]["excursion"]["loglik"])
+        scale = float(want["loglik"].abs().max())
+        np.testing.assert_allclose(res["excursion"]["loglik"].numpy(),
+                                   want["loglik"].numpy(), rtol=0,
+                                   atol=1e-5 * scale)
+    st, g, it, cfg = load_checkpoint(data_ranks[cd][2], "cpu")
+    st1, g1, it1, cfg1 = load_checkpoint(want["ckpt"], "cpu")
+    assert (it, cfg) == (it1, cfg1) == (EXC_SWEEPS, ModelConfig(K=2, P=5,
+                                                                M=2))
+    assert torch.equal(g.get_state(), g1.get_state())
+    _same(_fields(st), _fields(st1), f"checkpoint over {cd}", ATOL)
+    data, _, _ = _data_cases()["reference"]
+    hp, c = Priors(), torch.full((2,), 10.0)
+    a, b = (drivers.phase_warm_start(
+        gen, s, data, hp, c, n_iters=2, start_iter=EXC_SWEEPS,
+        **PRODUCTION_FLAGS).final_state for gen, s in ((g, st), (g1, st1)))
+    _same(_fields(a), _fields(b), f"resumed checkpoint over {cd}", ATOL)
+
+
+@pytest.mark.parametrize("cd", [(1, 2), (2, 2)])
+def test_data_split_distributed_sweep_ranks_agree(data_ranks,
+                                                  data_one_process, cd):
+    """The port of tests/test_multiprocess.py::
+    test_two_process_distributed_sweep with the data split: two ranks at
+    (1, 2) and four at (2, 2) each print the gathered sigma2 of one sweep
+    of 8 chains; every rank prints the same bits, and they lie within the
+    atol of one process's."""
+    outs = data_ranks[cd][1]
+    lines = [[ln for ln in out.splitlines() if ln.startswith("RESULT")]
+             for out in outs]
+    assert all(len(ln) == 1 for ln in lines), outs
+    parts = [ln[0].split() for ln in lines]
+    assert all(p[1] == str(cd[0] * cd[1]) for p in parts)
+    assert all(p[2:] == parts[0][2:] for p in parts)
+    sig = np.array([float.fromhex(x) for x in parts[0][2:]])
+    np.testing.assert_allclose(sig, data_one_process["twin"].numpy(),
+                               atol=ATOL, rtol=0)
+    assert sig.shape == (8,) and np.isfinite(sig).all() and (sig > 0).all()
+
+
+@pytest.mark.parametrize("case,error", [
+    ("indivisible_rows", "ValueError"), ("whole_rows", "ValueError"),
+    ("gradient", "RuntimeError"), ("hmc_joint", "NotImplementedError"),
+    ("run_smc", "NotImplementedError"), ("run_hmc", "NotImplementedError"),
+    ("run_nuts", "NotImplementedError"),
+    ("run_advi", "NotImplementedError")])
+def test_data_split_refusals(data_ranks, case, error):
+    """Under a (1, 2) mesh: 7 rows over 2 data ranks, and a draw at the
+    whole N's rows, raise ValueError; a data sum of a tensor that needs a
+    gradient raises RuntimeError (it would drop the other ranks' part);
+    update_hmc_joint (hmc_steps > 0) and SMC, HMC, NUTS and ADVI raise
+    NotImplementedError naming ROADMAP item 15c."""
+    for res in data_ranks[(1, 2)][0]:
+        got, names_item = res["refusals"][case]
+        assert got == error
+        assert names_item == (error == "NotImplementedError")
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+@pytest.mark.parametrize("what", ["mean_rss", "weighted_gram"])
+def test_row_block_partial_sums_match_pallas_kernels(what, d):
+    """K2's and K3's plain versions over d blocks of the rows, added in
+    block order as ``Mesh.sum_over_data`` adds them, against the JAX
+    package's Pallas kernels on the whole data in interpret mode, within
+    tests/test_pallas_kernels.py's tolerances (K3's absolute part scaled
+    by N/21, as test_torch_kernels.py holds it)."""
+    import functools
+
+    import jax.numpy as jnp
+
+    from bayesfmmm_torch.ops import kernels
+    from bayesfmmm_tpu.ops import pallas_kernels as pk
+
+    rng = np.random.default_rng(40 + d)
+    N = 12 * d
+    if what == "mean_rss":
+        L, P, C = 24, 6, 3
+        B = rng.normal(size=(N, L, P)).astype(np.float32)
+        y = rng.normal(size=(N, L)).astype(np.float32)
+        w = rng.normal(size=(C, N, P)).astype(np.float32)
+        blocks = [kernels.mean_rss(
+            torch.from_numpy(B[i * 12:(i + 1) * 12]),
+            torch.from_numpy(y[i * 12:(i + 1) * 12]),
+            torch.from_numpy(w[:, i * 12:(i + 1) * 12].copy()))[0]
+            for i in range(d)]
+        got = functools.reduce(torch.add, blocks)
+        for c in range(C):
+            _, rss = pk.fused_mean_rss(jnp.asarray(B), jnp.asarray(w[c]),
+                                       jnp.asarray(y), tile_n=4)
+            np.testing.assert_allclose(float(got[c]), float(rss), rtol=1e-5)
+    else:
+        P, R = 8, 4
+        G = rng.normal(size=(N, P, P)).astype(np.float32)
+        W = rng.uniform(size=(R, N)).astype(np.float32)
+        blocks = [kernels.weighted_gram(
+            torch.from_numpy(W[:, i * 12:(i + 1) * 12].copy()),
+            torch.from_numpy(G[i * 12:(i + 1) * 12])) for i in range(d)]
+        got = functools.reduce(torch.add, blocks)
+        for r in range(R):
+            ref = np.asarray(pk.weighted_gram(jnp.asarray(G),
+                                              jnp.asarray(W[r]), tile_n=8))
+            np.testing.assert_allclose(got[r].numpy(), ref, rtol=2e-5,
+                                       atol=2e-5 * N / 21)

@@ -264,10 +264,8 @@ def test_mala_potential_and_gradient_match_jax(chains):
     a = torch.einsum("cnk,ckp->cnp", st.Z, st.nu)
     ur = tdata.u - torch.einsum("npq,cnq->cnp", tdata.G, a)
     r0 = tdata.y - torch.einsum("nlp,cnp->cnl", tdata.B, a)
-    Phi = st.Phi.clone().requires_grad_()
-    pot = tg._mala_potential(Phi, st.Z, tdata, st_s, ur,
-                             (r0 * r0).sum((1, 2)), pri)
-    grad, = torch.autograd.grad(pot.sum(), Phi)
+    pot, grad = tg._mala_value_and_grad(st.Phi, st.Z, tdata, st_s, ur,
+                                        (r0 * r0).sum((1, 2)), pri)
     # the potential is a sum of terms of size s*rr; hold it to that scale
     scale = float(np.max(np.abs(np.asarray(jv)))) + float(
         np.max(s * (r0 * r0).sum((1, 2)).numpy()))
