@@ -694,10 +694,7 @@ def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
         uncs = uncs.replace(**{f: torch.zeros_like(getattr(uncs, f))
                                for f in logjoint.XI_TOWER})
     like = logjoint.UncState(**{f: t[:1] for f, t in vars(uncs).items()})
-
-    def log_joint_flat(q):
-        return lj(logjoint.unflatten(q, like, covc))
-
+    log_joint_flat = logjoint.FlatLogJoint(lj, like, covc)
     q0 = logjoint.flatten(uncs, covc)
     if method == "nuts":
         trace, diag = nuts_mod.run_nuts(

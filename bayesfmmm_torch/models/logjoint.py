@@ -27,18 +27,32 @@ fields giving nothing), so a JAX position maps across bit for bit.  With
 ``covariate_cov=False`` the xi tower is held out of the position and keeps
 its value (xi = 0): the JAX package samples it whenever X has columns
 (ROADMAP F13), which the port does not copy.
+
+Under a mesh that splits the data (``parallel/mesh.py``) a rank's
+position holds its rows of ``z_raw`` and ``chi`` beside the whole global
+fields; ``rank_slots`` maps it into the whole position.  The log-joint is
+then the sum over every rank of its row terms (the likelihood's RSS over
+its rows, Z's Dirichlet rows with their ALR Jacobian, chi's N(0, 1)) plus
+the global terms, counted once; ``make_log_joint``'s ``parts`` gives the
+two, and a gradient is taken of each apart (``samplers/hmc.py::
+value_and_grad``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from bayesfmmm_torch.models.state import GibbsState, penalty_rank
+from bayesfmmm_torch.ops import distributions
 from bayesfmmm_torch.ops.distributions import log_multi_beta
-from bayesfmmm_torch.ops.mean import feature_offsets, rss_from_coeffs
+from bayesfmmm_torch.ops.mean import (feature_offsets, rank_rss,
+                                      rss_from_coeffs)
+from bayesfmmm_torch.parallel.mesh import (DATA_AXIS, active_mesh,
+                                           data_split, data_sum)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -70,6 +84,8 @@ class UncState:
 
 UNC_FIELDS = tuple(f.name for f in dataclasses.fields(UncState))
 XI_TOWER = ("xi_raw", "log_gamma_xi", "log_delta_xi", "log_A_xi")
+# the fields that hold the data's rows on their axis 1
+ROW_FIELDS = ("z_raw", "chi")
 
 
 def position_fields(covariate_cov=True):
@@ -104,6 +120,145 @@ def unflatten(q: torch.Tensor, like: UncState,
     return UncState(**{
         f: parts[f].reshape((R,) + shapes[f]) if f in parts
         else getattr(like, f).expand((R,) + shapes[f]) for f in UNC_FIELDS})
+
+
+class Slots(NamedTuple):
+    """Where this rank's flat position (..., local dim) lies in the whole
+    position of ``dim`` coordinates.  Under a mesh that splits the data
+    (``mesh``'s data axis over one rank) the rank holds its rows of Z's and
+    chi's fields and every global field: ``keep`` (local dim,) are their
+    indices in the whole position, ``rows`` and ``glob`` the local indices
+    of its row slots and of its global slots, and ``every`` (d, local dim)
+    every data rank's ``keep``, in data-rank order.  Elsewhere these are
+    None and the position is whole (``mesh`` is the active mesh, which may
+    split the chains)."""
+    dim: int
+    mesh: object = None
+    keep: torch.Tensor | None = None
+    rows: torch.Tensor | None = None
+    glob: torch.Tensor | None = None
+    every: torch.Tensor | None = None
+
+    def sum(self, *xs):
+        """Each (..., local dim) tensor of ``xs`` summed over the whole
+        position: the row slots' part added over the data group (one
+        collective for all of ``xs``), the global slots' once; one tensor
+        gives one sum, several a tuple.  ``x.sum(-1)`` where the position is
+        whole."""
+        if self.keep is None:
+            out = [x.sum(-1) for x in xs]
+        else:
+            parts = data_sum(*[x[..., self.rows].sum(-1) for x in xs])
+            parts = parts if len(xs) > 1 else (parts,)
+            out = [x[..., self.glob].sum(-1) + r for x, r in zip(xs, parts)]
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def take(self, x):
+        """This rank's slots of ``x`` (..., dim), a tensor over the whole
+        position (an inverse mass, a draw)."""
+        return x if self.keep is None else x[..., self.keep]
+
+    def normal(self, generator, n, *, dtype, device, chain_dim=0):
+        """Standard normals (n, local dim): drawn at the whole position, and
+        on ``chain_dim`` 0 at the whole ensemble (None: ``n`` draws every
+        chain shares), so that the draws are the one-process run's and
+        every rank's generator stays in step; this rank's slots kept."""
+        return self.take(distributions.normal(
+            generator, (n, self.dim), dtype=dtype, device=device,
+            chain_dim=chain_dim))
+
+    def reduce(self, value, grad):
+        """(value, grad) of a sum over this rank's rows: the value (C,) and
+        the gradient's global slots added over the data group in one
+        collective; its row slots are the rank's own."""
+        value, g = data_sum(value, grad[..., self.glob])
+        return value, grad.index_copy(-1, self.glob, g)
+
+    def gather(self, x, chain_dim=0):
+        """The whole positions (..., dim) from every rank's (..., local dim),
+        on every rank: its chains on ``chain_dim`` gathered over the chains
+        axis (None: every rank holds every chain), then its slots over the
+        data axis."""
+        if self.mesh is None:
+            return x
+        if chain_dim is not None:
+            x = self.mesh.gather(x, chain_dim)
+        if self.keep is None:
+            return x
+        parts = self.mesh.gather(x, -1, DATA_AXIS)
+        whole = x.new_empty(x.shape[:-1] + (self.dim,))
+        whole[..., self.every.reshape(-1)] = parts
+        return whole
+
+
+def rank_slots(like: UncState, covariate_cov=True) -> Slots:
+    """The ``Slots`` of positions in ``like``'s layout (``flatten`` of an
+    UncState with ``like``'s per-chain shapes) under the active mesh: under
+    one that splits the data, ``like`` holds this rank's rows of Z's and
+    chi's fields, and the whole position has every rank's rows of each
+    where the one-process position has its rows, field after field."""
+    mesh = active_mesh()
+    fields = position_fields(covariate_cov)
+    widths = {f: math.prod(getattr(like, f).shape[1:]) for f in fields}
+    local = sum(widths.values())
+    if data_split() is None:
+        return Slots(local, mesh)
+    d = mesh.shape[DATA_AXIS]
+    mesh.data_rows(like.z_raw.shape[1])         # raises unless its share
+    device = like.z_raw.device
+    every, at = [[] for _ in range(d)], 0
+    for f in fields:
+        w = widths[f]
+        for k in range(d):
+            every[k].append(at + (k * w if f in ROW_FIELDS else 0)
+                            + torch.arange(w, device=device))
+        at += w * d if f in ROW_FIELDS else w
+    every = torch.stack([torch.cat(e) for e in every])
+    is_row = torch.cat([torch.full((widths[f],), f in ROW_FIELDS,
+                                   device=device) for f in fields])
+    return Slots(at, mesh, every[mesh.coords[DATA_AXIS]],
+                 torch.nonzero(is_row).flatten(),
+                 torch.nonzero(~is_row).flatten(), every)
+
+
+def position_slots(log_joint_flat, dim) -> Slots:
+    """The ``Slots`` of the positions a density moves: a ``FlatLogJoint``'s
+    own; a whole position of ``dim`` for any other density, which cannot
+    run under a mesh that splits the data (its positions would hold a
+    rank's rows it cannot tell from the global fields)."""
+    if isinstance(log_joint_flat, FlatLogJoint):
+        return log_joint_flat.slots()
+    if data_split() is not None:
+        raise ValueError("under a mesh that splits the data the log density "
+                         "must be a models/logjoint.py::FlatLogJoint")
+    return Slots(dim, active_mesh())
+
+
+class FlatLogJoint:
+    """``log_joint`` (``make_log_joint``'s) as a density of flat positions
+    (R, dim) in ``like``'s layout (``unflatten``), the form the samplers
+    move.  ``parts(q)`` is (this rank's row terms, the global terms) and
+    ``slots()`` the position's ``Slots`` under the active mesh."""
+
+    def __init__(self, log_joint, like: UncState, covariate_cov=True):
+        self.log_joint = log_joint
+        self.like = like
+        self.covariate_cov = covariate_cov
+        self._slots = None
+
+    def unflatten(self, q):
+        return unflatten(q, self.like, self.covariate_cov)
+
+    def __call__(self, q):
+        return self.log_joint(self.unflatten(q))
+
+    def parts(self, q):
+        return self.log_joint.parts(self.unflatten(q))
+
+    def slots(self) -> Slots:
+        if self._slots is None or self._slots.mesh is not active_mesh():
+            self._slots = rank_slots(self.like, self.covariate_cov)
+        return self._slots
 
 
 def _alr_forward(raw):
@@ -209,12 +364,19 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
     prior of tau with nu's, of tau_eta with eta's; the two columns of A),
     and the model mean is formed as Z times ``ops/mean.py::
     feature_offsets``, with products of two operands.
+
+    ``log_joint.parts(unc)`` is (the row terms over this rank's rows of the
+    data, the global terms), each (C,): under a mesh that splits the data
+    the log-joint is the row terms added over the data group plus the
+    global terms (``- N log B(alpha3 pi)`` with the whole N), which is what
+    ``log_joint`` returns there (no gradient crosses that sum: take one of
+    each part apart).
     """
     if pen_rank is None:        # taken once per data, on the host
         pen_rank = (data.pen_rank if data.pen_rank is not None
                     else penalty_rank(data.pen, data.pen.dtype))
     n_obs = data.n_obs
-    N, D = data.N, data.D
+    N, D = data.N_whole, data.D
     kw = dict(dtype=data.y.dtype, device=data.device)
     # A ~ Gamma(alpha_l, beta_l) (UpdateA.h:17-44), A's two columns at once
     alpha_l = torch.tensor([hp.alpha1l, hp.alpha2l], **kw)
@@ -228,21 +390,35 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
             a = torch.cat([a, A[:, :, 1:].expand_as(delta[:, :, 1:])], 2)
         return a * log_delta - delta - torch.lgamma(a)
 
-    def log_joint(unc: UncState):
+    def evaluate(unc: UncState, split):
+        """The log-joint (C,); with ``split``, (the row terms over this
+        rank's rows, the global terms).  The three terms that hold both
+        (the likelihood, Z's Dirichlet, chi's and Phi's normals) are each
+        one term of the whole form."""
         state, log_Z, jac_z, log_pi, jac_pi = _constrained(unc)
 
         # --- likelihood (CalculateLikelihood.h:19-44), residual-space RSS
         w = torch.einsum("cnk,cnkp->cnp", state.Z,
                          feature_offsets(state, data.X))
-        rss = rss_from_coeffs(data, w)
-        ll = -0.5 * n_obs * (_LOG_2PI + unc.log_sigma2) \
-            - 0.5 * rss / state.sigma2
-        terms = [temperature * ll]
+        if split:
+            rss = rank_rss(data, w)
+            rows = [-temperature * (0.5 * rss / state.sigma2)]
+            terms = [temperature * (-0.5 * n_obs * (_LOG_2PI
+                                                    + unc.log_sigma2))]
+        else:
+            rss = rss_from_coeffs(data, w)
+            ll = -0.5 * n_obs * (_LOG_2PI + unc.log_sigma2) \
+                - 0.5 * rss / state.sigma2
+            terms = [temperature * ll]
 
         # --- Z | pi, alpha3 ~ Dir(alpha3 * pi) + ALR jacobian ---
         a3pi = state.alpha3[:, None] * state.pi                  # (C, K)
-        terms.append(((a3pi[:, None, :] - 1.0) * log_Z).sum((1, 2))
-                     - N * log_multi_beta(a3pi) + jac_z.sum(1))
+        z_rows = ((a3pi[:, None, :] - 1.0) * log_Z).sum((1, 2))
+        if split:
+            rows.append(z_rows + jac_z.sum(1))
+            terms.append(-N * log_multi_beta(a3pi))
+        else:
+            terms.append(z_rows - N * log_multi_beta(a3pi) + jac_z.sum(1))
         # --- pi ~ Dir(c) ---
         terms.append(((c - 1.0) * log_pi).sum(1) + jac_pi)
         # --- alpha3 ~ Exp(b) (UpdateAlpha3.h:16) ---
@@ -256,8 +432,12 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
         terms.append(-hp.alpha_0 * unc.log_sigma2 - hp.beta_0 / state.sigma2)
         # --- chi ~ N(0, 1) (UpdateChi.h:56-58); Phi non-centered: raw ~
         #     N(0, 1) ---
-        terms.append(-0.5 * ((unc.chi ** 2).sum((1, 2))
-                             + (unc.Phi_raw ** 2).sum((1, 2, 3))))
+        if split:
+            rows.append(-0.5 * (unc.chi ** 2).sum((1, 2)))
+            terms.append(-0.5 * (unc.Phi_raw ** 2).sum((1, 2, 3)))
+        else:
+            terms.append(-0.5 * ((unc.chi ** 2).sum((1, 2))
+                                 + (unc.Phi_raw ** 2).sum((1, 2, 3))))
         # --- gamma ~ Gamma(nu1/2, nu1/2) (UpdateGamma.h:29) ---
         terms.append(0.5 * hp.nu_1 * (unc.log_gamma - state.gamma)
                      .sum((1, 2, 3)))
@@ -281,6 +461,14 @@ def make_log_joint(data, hp, c, pen_rank=None, temperature=1.0):
                                      state.delta_xi).sum((1, 2, 3)))
             terms.append((alpha_l[:, None] * unc.log_A_xi
                           - beta_l[:, None] * state.A_xi).sum((1, 2, 3)))
-        return torch.stack(terms).sum(0)
+        total = torch.stack(terms).sum(0)
+        return (torch.stack(rows).sum(0), total) if split else total
 
+    def log_joint(unc: UncState):
+        if data_split() is not None:
+            rows, glob = evaluate(unc, True)
+            return data_sum(rows) + glob
+        return evaluate(unc, False)
+
+    log_joint.parts = lambda unc: evaluate(unc, True)
     return log_joint

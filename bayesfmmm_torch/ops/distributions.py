@@ -48,16 +48,6 @@ __all__ = [
 _MESH = None
 
 
-def refuse_split_mesh(what):
-    """Raise inside a ``with mesh:`` block that splits the chains or the
-    data: ``what`` takes its draws at its own shapes, so its ranks would
-    fall out of step with one another and with the one-process run."""
-    if _MESH is not None:
-        raise NotImplementedError(
-            f"{what} over a split mesh is not ported (ROADMAP item 15c; "
-            f"only sweeps, run_chain and parallel tempering are)")
-
-
 def _whole(shape, chain_dim, data_dim=None):
     """(shape to draw, [(dim, first index, length) to keep])."""
     if _MESH is None:

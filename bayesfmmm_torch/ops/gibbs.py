@@ -74,7 +74,7 @@ from bayesfmmm_torch.ops.mean import (
     gram_vec,
     rss_from_coeffs,
 )
-from bayesfmmm_torch.parallel.mesh import data_sum, refuse_data_split
+from bayesfmmm_torch.parallel.mesh import data_sum
 from bayesfmmm_torch.samplers.hmc import _leapfrog, value_and_grad
 
 # Joint draw of a whole blocked family (all K*M(*D) blocks of Phi or xi) up
@@ -1269,38 +1269,42 @@ def update_hmc_joint(generator, state, data, hp, c, beta=1.0, *, eps=0.01,
                      n_leapfrog=8, inv_mass=None, covariate_cov=False):
     """One jittered-length HMC trajectory of every chain on the whole
     unconstrained model.  ``inv_mass``: a flat diagonal inverse mass (dim,)
-    in ``logjoint.flatten`` order, shared by every chain (say warm-frozen
-    posterior variances); ones when None.  The gradient goes through
-    ``kernels.MeanRSS``: K2 forward and backward once an evaluation on the
-    card, 1 + n_leapfrog evaluations; the penalty's rank is the data's
-    (``ModelData.pen_rank``), so nothing is read on the host.  It moves
-    Z's and chi's rows and the global fields through the whole log-joint in
-    one trajectory, so it raises under a mesh that splits the data."""
-    refuse_data_split("update_hmc_joint")
-    lj = logjoint.make_log_joint(data, hp, c, temperature=beta)
+    in ``logjoint.flatten`` order of the whole data, shared by every chain
+    (say warm-frozen posterior variances); ones when None.  The gradient
+    goes through ``kernels.MeanRSS``: K2 forward and backward once an
+    evaluation on the card, 1 + n_leapfrog evaluations; the penalty's rank
+    is the data's (``ModelData.pen_rank``), so nothing is read on the host.
+    Under a mesh that splits the data the position holds this rank's rows
+    of Z and chi (``logjoint.rank_slots``: the inverse mass and the momenta
+    are cut to its slots, the kinetic energies add the row slots over the
+    data group) and the gradient is reduced beside the log-joint
+    (``samplers/hmc.py::value_and_grad``)."""
     unc = logjoint.from_state(state)
+    lj = logjoint.FlatLogJoint(
+        logjoint.make_log_joint(data, hp, c, temperature=beta), unc,
+        covariate_cov)
+    slots = lj.slots()
     q0 = logjoint.flatten(unc, covariate_cov)
-    C, dim = q0.shape
+    C = q0.shape[0]
     kw = dict(dtype=q0.dtype, device=q0.device)
-    inv_mass = (torch.ones(dim, **kw) if inv_mass is None
-                else torch.as_tensor(inv_mass, **kw))
+    inv_mass = (torch.ones(q0.shape[1], **kw) if inv_mass is None
+                else slots.take(torch.as_tensor(inv_mass, **kw)))
 
     def vg(q):
-        return value_and_grad(
-            lambda x: lj(logjoint.unflatten(x, unc, covariate_cov)), q)
+        return value_and_grad(lj, q)
 
     logp0, grad0 = vg(q0)
-    p0 = normal(generator, (C, dim), **kw) / torch.sqrt(inv_mass)
+    p0 = slots.normal(generator, C, **kw) / torch.sqrt(inv_mass)
     n = randint(generator, 1, n_leapfrog + 1, (C,), device=q0.device)
     q, p, _, logp1 = _leapfrog(vg, q0, p0, grad0, logp0,
                                torch.full((C,), eps, **kw), inv_mass, n,
                                n_max=n_leapfrog)
-    ke0 = 0.5 * (inv_mass * p0 * p0).sum(1)
-    ke1 = 0.5 * (inv_mass * p * p).sum(1)
+    ke0, ke1 = slots.sum(inv_mass * p0 * p0, inv_mass * p * p)
+    ke0, ke1 = 0.5 * ke0, 0.5 * ke1
     ok = _mh_accept((logp1 - ke1) - (logp0 - ke0), _uniform(generator, q0,
                                                            (C,)))
     with torch.no_grad():
-        new = logjoint.to_state(logjoint.unflatten(q, unc, covariate_cov))
+        new = logjoint.to_state(lj.unflatten(q))
     if not covariate_cov:       # the held-out tower keeps its very bits
         new = new.replace(xi=state.xi, gamma_xi=state.gamma_xi,
                           delta_xi=state.delta_xi, A_xi=state.A_xi)

@@ -61,18 +61,25 @@ def build_cache(data, state) -> SweepCache:
 
 def rss_from_coeffs(data, w):
     """Per-chain sum_n ||y_n - B_n w_n||^2 (C,), in residual space, over
-    every rank's rows under a mesh that splits the data (K2 sums this
-    rank's).  B rows and y are zero at padded points, so no mask is needed.
-    When w needs a gradient the RSS goes through ``kernels.MeanRSS``, whose
-    backward is K2's backward kernel on the card (and ``data_sum`` refuses
-    it under a data split, where the gradient would not cross the ranks)."""
+    every rank's rows under a mesh that splits the data: ``rank_rss``
+    added over the data group (``data_sum`` refuses a w that needs a
+    gradient there, where the gradient would not cross the ranks)."""
+    return data_sum(rank_rss(data, w))
+
+
+def rank_rss(data, w):
+    """Per-chain sum over this rank's rows of ||y_n - B_n w_n||^2 (C,); K2
+    on CUDA.  B rows and y are zero at padded points, so no mask is
+    needed.  When w needs a gradient the RSS goes through
+    ``kernels.MeanRSS``, whose backward is K2's backward kernel on the
+    card."""
     if data.identity_basis:
         r = data.y - w
-        return data_sum((r * r).sum((1, 2)))
+        return (r * r).sum((1, 2))
     w = w.contiguous()
     if torch.is_grad_enabled() and w.requires_grad:
-        return data_sum(kernels.MeanRSS.apply(data.B, data.y, w))
-    return data_sum(kernels.mean_rss(data.B, data.y, w)[0])
+        return kernels.MeanRSS.apply(data.B, data.y, w)
+    return kernels.mean_rss(data.B, data.y, w)[0]
 
 
 def rss_rows_from_coeffs(data, w):

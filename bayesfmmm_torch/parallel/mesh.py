@@ -30,10 +30,19 @@ rows, observations [lo, hi) of N.
     Gram sums among them) that ``data_sum`` adds over the data group, so
     every rank of a group holds the same global fields, bit for bit, and
     the one-process run's to rounding.  Draws on rows name their data axis
-    and are taken at the whole N.  MALA's gradient is reduced beside its
-    value (a sum built from broadcasts carries no gradient, and
-    ``data_sum`` refuses a tensor that needs one).  ``update_hmc_joint``
-    raises under a data split (ROADMAP item 15c).
+    and are taken at the whole N.  A gradient is reduced beside its value
+    (a sum built from broadcasts carries no gradient, and ``data_sum``
+    refuses a tensor that needs one): MALA's, and the whole-model
+    log-joint's of HMC, NUTS, ADVI and ``update_hmc_joint``, whose flat
+    position holds the rank's rows of Z and chi beside the whole global
+    fields (``models/logjoint.py::rank_slots``).
+  * **The samplers**: SMC gathers its particles' log-likelihoods over the
+    chains, so the next beta, the weights and the resampling index are the
+    whole ensemble's on every rank, and a resampled particle crosses ranks
+    (``samplers/smc.py``).  HMC and NUTS read the longest trajectory and
+    whether any tree still grows over every rank (``mesh_max``,
+    ``mesh_any``), so every rank takes the same draws; ADVI has no chain
+    axis and runs the same optimisation on every rank of a data group.
 
 The collectives are broadcasts only.  They keep every bit (a gather done as
 a sum over zero-filled buffers would turn -0.0 into +0.0), a sum over the
@@ -227,6 +236,11 @@ class Mesh:
         ``n_chains``."""
         return self._rows(CHAIN_AXIS, n_local)
 
+    def data_rows(self, n_local):
+        """(lo, hi): the rows of the whole data that this rank's ``n_local``
+        rows are; raises unless ``n_local`` is its share of ``n_rows``."""
+        return self._rows(DATA_AXIS, n_local)
+
     def whole(self, shape, chain_dim, data_dim=None):
         """The whole draw's shape for this rank's ``shape`` (the whole
         ensemble on ``chain_dim``, the whole data's rows on ``data_dim``;
@@ -372,14 +386,43 @@ def data_sum(*parts):
     return parts[0] if len(parts) == 1 else parts
 
 
-def refuse_data_split(what):
-    """Raise inside a ``with mesh:`` block that splits the data: ``what``
-    needs the whole data set on each rank."""
+def data_split():
+    """The mesh whose ``with`` block splits the data's rows right now, else
+    None."""
     mesh = distributions._MESH
-    if mesh is not None and mesh.shape[DATA_AXIS] > 1:
-        raise NotImplementedError(
-            f"{what} over a mesh that splits the data is not ported "
-            f"(ROADMAP item 15c)")
+    return mesh if mesh is not None and mesh.shape[DATA_AXIS] > 1 else None
+
+
+def chain_split():
+    """The mesh whose ``with`` block splits the chains right now, else
+    None."""
+    mesh = distributions._MESH
+    return mesh if mesh is not None and mesh.shape[CHAIN_AXIS] > 1 else None
+
+
+def _every_rank(x):
+    """``x`` (one value a rank) of every rank of the active split mesh, on
+    every rank, the chains axis's ranks then the data axis's."""
+    mesh = distributions._MESH
+    return mesh.gather(mesh.gather(x.reshape(1), 0), 0, DATA_AXIS)
+
+
+def mesh_max(x):
+    """``int(x.max())``, the largest over every rank inside a ``with mesh:``
+    block that splits the chains or the data, so that every rank runs as
+    many steps as the longest of all."""
+    m = x.max()
+    return int(m if distributions._MESH is None else _every_rank(m).max())
+
+
+def mesh_any(x):
+    """``bool(x.any())``, over every rank inside a ``with mesh:`` block that
+    splits the chains or the data, so that every rank goes on (and takes
+    the same draws) while any chain of any rank does."""
+    a = x.any()
+    if distributions._MESH is None:
+        return bool(a)
+    return bool(_every_rank(a.to(torch.int32)).any())
 
 
 def make_mesh(n_chain_shards=None, n_data_shards=None, devices=None) -> Mesh:

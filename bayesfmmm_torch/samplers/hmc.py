@@ -18,6 +18,17 @@ Warmup: dual-averaging step size (Nesterov/Hoffman-Gelman schedule, target
 acceptance 0.8) + Welford diagonal mass estimation, two phases: phase 1
 adapts eps under identity mass, phase 2 freezes the estimated mass and
 re-adapts eps.
+
+Under ``with mesh:`` (``parallel/mesh.py``) a rank holds its chains of the
+ensemble, and under a split of the data its rows of Z and chi in each
+position (``models/logjoint.py::rank_slots``).  Every draw is taken at the
+whole ensemble's and the whole position's shape and cut to the rank's
+(``Slots.normal``), the longest trajectory is read over every rank
+(``mesh_max``), every sum over the position adds its row slots over the
+data group (``Slots.sum``), and a gradient of the log-joint is reduced
+beside its value (``value_and_grad``): the rank's run is its part of the
+one-process run, and every rank's generator stays in step.  The traces and
+diagnostics are the rank's (``Slots.gather`` puts positions together).
 """
 
 from __future__ import annotations
@@ -27,7 +38,9 @@ from typing import NamedTuple
 
 import torch
 
-from bayesfmmm_torch.ops.distributions import refuse_split_mesh
+from bayesfmmm_torch.models.logjoint import position_slots
+from bayesfmmm_torch.ops.distributions import randint, uniform
+from bayesfmmm_torch.parallel.mesh import mesh_max
 
 class HMCState(NamedTuple):
     position: torch.Tensor     # (C, dim)
@@ -48,12 +61,25 @@ class AdaptState(NamedTuple):
 def value_and_grad(log_joint_flat, q):
     """(logp (C,), grad (C, dim)) of a batched log density at q (C, dim);
     the chains are independent, so the gradient of the sum is each chain's
-    own.  Nothing returned is attached to a graph."""
+    own.  Nothing returned is attached to a graph.  Under a mesh that
+    splits the data (a ``FlatLogJoint``'s positions there) autograd takes
+    the row terms over this rank's rows and the global terms apart: the
+    row terms' value and their gradient's global slots are added over the
+    data group in one collective, then the global terms' value and
+    gradient are added once."""
+    slots = position_slots(log_joint_flat, q.shape[1])
     q = q.detach().requires_grad_()
+    if slots.keep is None:
+        with torch.enable_grad():
+            lp = log_joint_flat(q)
+            grad, = torch.autograd.grad(lp.sum(), q)
+        return lp.detach(), grad
     with torch.enable_grad():
-        lp = log_joint_flat(q)
-        grad, = torch.autograd.grad(lp.sum(), q)
-    return lp.detach(), grad
+        rows, glob = log_joint_flat.parts(q)
+        g_rows, = torch.autograd.grad(rows.sum(), q, retain_graph=True)
+        g_glob, = torch.autograd.grad(glob.sum(), q)
+    lp, grad = slots.reduce(rows.detach(), g_rows)
+    return lp + glob.detach(), grad + g_glob
 
 
 def _rows(mask, a, b):
@@ -65,12 +91,12 @@ def _leapfrog(grad_fn, q, p, grad, logp, eps, inv_mass, n_steps,
               n_max=None):
     """Chain c takes ``n_steps[c]`` leapfrog steps of size eps[c] (C,);
     ``grad_fn(q) -> (logp, grad)``.  The batch runs the longest length,
-    read once, or ``n_max`` steps without a read when it is given (a bound
-    on every length); a chain past its own keeps its state.  Returns (q, p,
-    grad, logp)."""
+    read once (over every rank of a split mesh), or ``n_max`` steps
+    without a read when it is given (a bound on every length); a chain
+    past its own keeps its state.  Returns (q, p, grad, logp)."""
     half_e = 0.5 * eps[:, None]
     e_im = eps[:, None] * inv_mass
-    for i in range(int(n_steps.max()) if n_max is None else n_max):
+    for i in range(mesh_max(n_steps) if n_max is None else n_max):
         p1 = torch.addcmul(p, half_e, grad)
         q1 = torch.addcmul(q, e_im, p1)
         logp1, grad1 = grad_fn(q1)
@@ -92,20 +118,19 @@ def hmc_kernel(log_joint_flat):
     def step(generator, state: HMCState, eps, inv_mass, n_steps):
         q0 = state.position
         C = q0.shape[0]
+        sl = position_slots(log_joint_flat, q0.shape[1])
         kw = dict(dtype=q0.dtype, device=q0.device)
-        p0 = torch.randn(q0.shape, generator=generator, **kw) \
-            / torch.sqrt(inv_mass)
+
+        p0 = sl.normal(generator, C, **kw) / torch.sqrt(inv_mass)
         # jitter trajectory length in [1, n_steps]
-        n = torch.randint(1, n_steps + 1, (C,), generator=generator,
-                          device=q0.device)
+        n = randint(generator, 1, n_steps + 1, (C,), device=q0.device)
         q, p, grad, logp_new = _leapfrog(grad_fn, q0, p0, state.grad,
                                          state.logp, eps, inv_mass, n)
-        ke0 = 0.5 * (inv_mass * p0 * p0).sum(1)
-        ke1 = 0.5 * (inv_mass * p * p).sum(1)
+        ke0, ke1 = sl.sum(inv_mass * p0 * p0, inv_mass * p * p)
+        ke0, ke1 = 0.5 * ke0, 0.5 * ke1
         log_acc = (logp_new - ke1) - (state.logp - ke0)
         log_acc = torch.where(torch.isnan(log_acc), -math.inf, log_acc)
-        accept = torch.log(torch.rand((C,), generator=generator, **kw)) \
-            < log_acc
+        accept = torch.log(uniform(generator, (C,), **kw)) < log_acc
         new = HMCState(position=_rows(accept, q, q0),
                        logp=_rows(accept, logp_new, state.logp),
                        grad=_rows(accept, grad, state.grad))
@@ -204,12 +229,13 @@ def run_hmc(generator, log_joint, init_positions, *, n_warmup=500,
             init_step_size=0.01):
     """Run C chains of jittered HMC as one batch.
 
-    log_joint: (C, dim) positions -> (C,) log densities; init_positions
-    (C, dim).  Returns (positions (C, n_samples, dim), diagnostics): the
-    JAX package's per-chain ``accept_mean``, ``eps`` and ``warm_accept``,
-    and ``n_steps`` (C, n_warmup + n_samples), every trajectory's length.
+    log_joint: (C, dim) positions -> (C,) log densities (under a mesh that
+    splits the data a ``FlatLogJoint``); init_positions (C, dim).  Returns
+    (positions (C, n_samples, dim), diagnostics): the JAX package's
+    per-chain ``accept_mean``, ``eps`` and ``warm_accept``, and ``n_steps``
+    (C, n_warmup + n_samples), every trajectory's length.  Under a split
+    mesh each is this rank's chains (and position slots).
     """
-    refuse_split_mesh("run_hmc")
     step = hmc_kernel(log_joint)
     logp0, grad0 = value_and_grad(log_joint, init_positions)
 

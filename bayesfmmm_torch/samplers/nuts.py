@@ -28,6 +28,15 @@ the stack is a list of (C, dim) tensors indexed on the host, and no step
 reads the device.  The device is read once a tree doubling from the second
 on, to stop when no chain's tree is still growing.
 
+Under ``with mesh:`` (``parallel/mesh.py``) every draw is taken at the
+whole ensemble's and the whole position's shape and cut to the rank's, the
+read that stops the doubling asks whether any chain of any rank still
+grows (``mesh_any``: a rank that stopped alone would skip the next depth's
+draws and fall out of step), and every sum over the position (the
+energies, the U-turn criterion's dot products) adds its row slots over the
+data group, a leaf's in one collective (``Slots.sum``), as
+``samplers/hmc.py`` does.
+
 The reference has no gradient-based kernel at all (its sampler is
 Gibbs-within-Metropolis); the JAX package is the only reference here.
 """
@@ -39,9 +48,10 @@ from typing import NamedTuple
 
 import torch
 
-from bayesfmmm_torch.ops.distributions import refuse_split_mesh
-from bayesfmmm_torch.samplers.hmc import (_rows, run_adapted,
-                                          value_and_grad)
+from bayesfmmm_torch.models.logjoint import Slots, position_slots
+from bayesfmmm_torch.ops.distributions import uniform
+from bayesfmmm_torch.parallel.mesh import mesh_any
+from bayesfmmm_torch.samplers.hmc import _rows, run_adapted, value_and_grad
 
 _MAX_DELTA_ENERGY = 1000.0
 
@@ -69,21 +79,25 @@ def _where_tree(mask, a: _Tree, b: _Tree) -> _Tree:
     return _Tree(*(_rows(mask, x, y) for x, y in zip(a, b)))
 
 
-def _is_turning(inv_mass, p_first, p_last, rho):
+def _is_turning(inv_mass, p_first, p_last, rho, slots=None):
     v_first = inv_mass * p_first
     v_last = inv_mass * p_last
-    return ((v_first * rho).sum(-1) <= 0.0) | ((v_last * rho).sum(-1) <= 0.0)
+    sl = slots or Slots(rho.shape[-1])
+    first, last = sl.sum(v_first * rho, v_last * rho)
+    return (first <= 0.0) | (last <= 0.0)
 
 
 def _uniform(generator, like):
-    return torch.rand(like.shape[:1], generator=generator, dtype=like.dtype,
-                      device=like.device)
+    """One uniform a chain, (C,) for ``like`` (C, ...)."""
+    return uniform(generator, like.shape[:1], dtype=like.dtype,
+                   device=like.device)
 
 
 def _build_subtree(generator, vg, q0, p0, grad0, eps_signed, depth,
-                   inv_mass, energy0, max_depth, live):
+                   inv_mass, energy0, max_depth, live, slots=None):
     """2^depth new leapfrog leaves starting one step past (q0, p0), for the
-    chains ``live`` (C,) bool; eps_signed (C,).
+    chains ``live`` (C,) bool; eps_signed (C,); ``slots`` the positions'
+    layout (whole when None).
 
     Returns a _Tree whose left endpoint is the FIRST new leaf (closest to
     the main tree) and right endpoint the LAST (farthest), in trajectory
@@ -94,6 +108,7 @@ def _build_subtree(generator, vg, q0, p0, grad0, eps_signed, depth,
     """
     C, dim = q0.shape
     kw = dict(dtype=q0.dtype, device=q0.device)
+    sl = slots or Slots(dim)
     # checkpoint stack: slot k holds the starting momentum and the momentum
     # prefix-sum *before* the currently open level-k range (slot 0 unused)
     ckpt_p = [None] * (max_depth + 1)
@@ -101,7 +116,7 @@ def _build_subtree(generator, vg, q0, p0, grad0, eps_signed, depth,
     half_e = 0.5 * eps_signed[:, None]
     e_im = eps_signed[:, None] * inv_mass
     # the leaves' uniforms for the multinomial proposal, drawn at once
-    log_u = torch.log(torch.rand((1 << depth, C), generator=generator, **kw))
+    log_u = torch.log(uniform(generator, (1 << depth, C), chain_dim=1, **kw))
 
     q, p, grad = q0, p0, grad0
     first_q, first_p, first_grad = q0, p0, grad0
@@ -130,7 +145,17 @@ def _build_subtree(generator, vg, q0, p0, grad0, eps_signed, depth,
             if i % (1 << k) == 0:
                 ckpt_p[k], ckpt_psum[k] = p1, p_sum
         v1 = inv_mass * p1
-        neg_delta = logp - 0.5 * (v1 * p1).sum(1) + energy0  # H0 - H(leaf)
+        p_sum_new = p_sum + p1
+        # close level-k ranges ending at leaf i: (i+1) % 2^k == 0 (none at
+        # an even leaf); the leaf's energy and the ranges' U-turn dot
+        # products are summed over the position together
+        closing = [k for k in range(1, depth + 1) if (i + 1) % (1 << k) == 0]
+        prods = [v1 * p1]
+        for k in closing:
+            rho = p_sum_new - ckpt_psum[k]
+            prods += [inv_mass * ckpt_p[k] * rho, v1 * rho]
+        sums = sl.sum(*prods) if closing else (sl.sum(*prods),)
+        neg_delta = logp - 0.5 * sums[0] + energy0  # H0 - H(leaf)
         div = ~torch.isfinite(neg_delta) | (neg_delta < -_MAX_DELTA_ENERGY)
         lw_leaf = torch.where(div, -math.inf, neg_delta)
 
@@ -140,19 +165,13 @@ def _build_subtree(generator, vg, q0, p0, grad0, eps_signed, depth,
         q_prop = _rows(take, q1, q_prop)
         logp_prop = _rows(take, logp, logp_prop)
         grad_prop = _rows(take, grad1, grad_prop)
-        p_sum_new = p_sum + p1
         if i == 0:
             first_q, first_p, first_grad = q1, p1, grad1
 
-        # close level-k ranges ending at leaf i: (i+1) % 2^k == 0 (none at
-        # an even leaf)
         turn = None
-        for k in range(1, depth + 1):
-            if (i + 1) % (1 << k) == 0:
-                rho = p_sum_new - ckpt_psum[k]
-                t = ((inv_mass * ckpt_p[k] * rho).sum(1) <= 0.0) \
-                    | ((v1 * rho).sum(1) <= 0.0)
-                turn = t if turn is None else turn | t
+        for j in range(len(closing)):
+            t = (sums[1 + 2 * j] <= 0.0) | (sums[2 + 2 * j] <= 0.0)
+            turn = t if turn is None else turn | t
         if turn is not None:
             turning = turning | (go & turn)
 
@@ -186,9 +205,11 @@ def nuts_kernel(log_joint_flat, max_depth=8):
     def step(generator, state, eps, inv_mass):
         q0, logp0, grad0 = state
         C = q0.shape[0]
-        p0 = torch.randn(q0.shape, generator=generator, dtype=q0.dtype,
-                         device=q0.device) / torch.sqrt(inv_mass)
-        energy0 = -logp0 + 0.5 * (inv_mass * p0 * p0).sum(1)
+        sl = position_slots(log_joint_flat, q0.shape[1])
+
+        p0 = sl.normal(generator, C, dtype=q0.dtype, device=q0.device) \
+            / torch.sqrt(inv_mass)
+        energy0 = -logp0 + 0.5 * sl.sum(inv_mass * p0 * p0)
         no = torch.zeros((C,), dtype=torch.bool, device=q0.device)
         tree = _Tree(
             q_left=q0, p_left=p0, grad_left=grad0,
@@ -202,7 +223,7 @@ def nuts_kernel(log_joint_flat, max_depth=8):
         for d in range(max_depth):
             active = ~tree.turning & ~tree.diverging
             # every tree grows at d = 0; later, one read a doubling
-            if d > 0 and not bool(active.any()):
+            if d > 0 and not mesh_any(active):
                 break
             go_right = _uniform(generator, logp0) < 0.5
             sub = _build_subtree(
@@ -210,7 +231,7 @@ def nuts_kernel(log_joint_flat, max_depth=8):
                 _rows(go_right, tree.p_right, tree.p_left),
                 _rows(go_right, tree.grad_right, tree.grad_left),
                 torch.where(go_right, eps, -eps), d, inv_mass, energy0,
-                max_depth, active)
+                max_depth, active, sl)
 
             ok = ~sub.turning & ~sub.diverging
             # biased progressive sampling across the doubling
@@ -240,7 +261,7 @@ def nuts_kernel(log_joint_flat, max_depth=8):
                 sum_accept=tree.sum_accept + sub.sum_accept,
                 n_leaves=tree.n_leaves + sub.n_leaves)
             full_turn = _is_turning(inv_mass, merged.p_left, merged.p_right,
-                                    merged.p_sum)
+                                    merged.p_sum, sl)
             merged = merged._replace(turning=sub.turning | (ok & full_turn))
             tree = _where_tree(active, merged, tree)
             depth = depth + active.to(depth.dtype)
@@ -260,13 +281,14 @@ def run_nuts(generator, log_joint, init_positions, *, n_warmup=500,
     """Run C NUTS chains as one batch with the two-phase warmup of
     ``samplers/hmc.py::run_hmc``.
 
-    log_joint: (C, dim) positions -> (C,) log densities; init_positions
-    (C, dim).  Returns (positions (C, n_samples, dim), diagnostics): the
-    JAX package's per-chain ``accept_mean``, ``eps``, ``warm_accept``,
-    ``mean_depth`` and ``n_divergent`` (over the samples), and ``depth``
-    (C, n_warmup + n_samples), every tree's depth.
+    log_joint: (C, dim) positions -> (C,) log densities (under a mesh that
+    splits the data a ``FlatLogJoint``); init_positions (C, dim).  Returns
+    (positions (C, n_samples, dim), diagnostics): the JAX package's
+    per-chain ``accept_mean``, ``eps``, ``warm_accept``, ``mean_depth`` and
+    ``n_divergent`` (over the samples), and ``depth`` (C, n_warmup +
+    n_samples), every tree's depth.  Under a split mesh each is this
+    rank's chains (and position slots).
     """
-    refuse_split_mesh("run_nuts")
     step = nuts_kernel(log_joint, max_depth=max_depth)
     logp0, grad0 = value_and_grad(log_joint, init_positions)
     divs = []

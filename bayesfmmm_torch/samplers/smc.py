@@ -14,6 +14,15 @@ of the JAX package, run as 30 masked steps on the device; the stage loop
 reads one scalar a stage (whether beta has reached 1).  The resampling
 uniform is drawn every stage, as the JAX package draws it, and a stage
 that does not resample keeps its particles through the identity index.
+
+Under ``with mesh:`` (``parallel/mesh.py``) a rank holds its particles
+(and, under a split of the data, its rows of Z and chi, whose RSS is
+already summed over the data group).  The particles' log-likelihoods are
+gathered over the chains, so the next beta, the weights, the ESS, the
+evidence and the resampling index are the whole ensemble's, with the same
+bits, on every rank; the resampling uniform is one draw every particle
+shares.  A resampled particle may come from another rank: each rank
+gathers the ensemble and keeps the ancestors of its own rows.
 """
 
 from __future__ import annotations
@@ -23,10 +32,12 @@ from typing import NamedTuple
 
 import torch
 
-from bayesfmmm_torch.models.state import take_chains
+from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
+                                          take_chains)
 from bayesfmmm_torch.ops import gibbs
-from bayesfmmm_torch.ops.distributions import refuse_split_mesh
+from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
+from bayesfmmm_torch.parallel.mesh import CHAIN_AXIS, chain_split
 
 _BISECTION_STEPS = 30
 _BISECTION_TOL = 1e-5
@@ -59,10 +70,27 @@ def resample_from_uniform(u, log_weights):
 
 
 def systematic_resample(generator, log_weights):
-    """Systematic resampling; returns ancestor indices (N,)."""
-    u = torch.rand((), generator=generator, dtype=log_weights.dtype,
-                   device=log_weights.device)
+    """Systematic resampling; returns ancestor indices (N,).  The uniform is
+    one draw every particle shares."""
+    u = uniform(generator, (), dtype=log_weights.dtype,
+                device=log_weights.device, chain_dim=None)
     return resample_from_uniform(u, log_weights)
+
+
+def _take_ancestors(particles, idx):
+    """This rank's particles after resampling with the whole ensemble's
+    ancestor indices ``idx`` (N,).  Under a mesh that splits the chains an
+    ancestor may sit on another rank: the ensemble is gathered over the
+    chains axis (one packed collective of every field, each rank's rows
+    broadcast to the others: a stage moves the whole ensemble to every
+    rank) and each rank keeps the ancestors of its rows."""
+    mesh = chain_split()
+    if mesh is None:
+        return take_chains(particles, idx)
+    lo, hi = mesh.chain_rows(particles.Z.shape[0])
+    whole = mesh.gather_fields({f: getattr(particles, f)
+                                for f in STATE_FIELDS})
+    return take_chains(GibbsState(**whole), idx[lo:hi])
 
 
 def _next_beta(beta, logliks, target_frac, n_particles):
@@ -106,9 +134,14 @@ def smc_stage(generator, particles, log_w, beta, log_Z, data, hp, c, *,
               n_mutation_sweeps, target_cess, ess_threshold, **sweep_flags):
     """One stage: the next beta, reweighting, the evidence increment,
     resampling when the ESS is under ``ess_threshold`` N, and the mutation
-    sweeps at the new beta.  Returns (particles, log_w, beta, log_Z)."""
+    sweeps at the new beta.  Returns (particles, log_w, beta, log_Z).
+    Under a split mesh ``particles`` are this rank's and ``log_w`` (N,)
+    the whole ensemble's."""
     N = log_w.shape[0]
     ll = _loglik(particles, data)
+    mesh = chain_split()
+    if mesh is not None:
+        ll = mesh.gather(ll)
     beta_new = _next_beta(beta, ll, target_cess, N)
     inc = (beta_new - beta) * ll
     # the evidence increment: log mean of the incremental weights under the
@@ -119,9 +152,9 @@ def smc_stage(generator, particles, log_w, beta, log_Z, data, hp, c, *,
     do_res = ess_from_log_weights(log_w) < ess_threshold * N
     anc = systematic_resample(generator, log_w)
     idx = torch.where(do_res, anc, torch.arange(N, device=anc.device))
-    particles = take_chains(particles, idx)
+    particles = _take_ancestors(particles, idx)
     log_w = torch.where(do_res, torch.zeros_like(log_w), log_w)
-    betas = beta_new.expand(N)
+    betas = beta_new.expand(particles.Z.shape[0])
     for _ in range(n_mutation_sweeps):
         particles = gibbs.sweep_full(generator, particles, data, hp, c,
                                      beta=betas, **sweep_flags)
@@ -132,11 +165,14 @@ def run_smc(generator, init_particles, data, hp, c, *, n_mutation_sweeps=2,
             target_cess=0.7, ess_threshold=0.5, max_stages=200,
             **sweep_flags):
     """Adaptive tempered SMC.  ``init_particles``: particle-stacked
-    GibbsState; ``sweep_flags`` go to ``sweep_full`` (covariate flags and
-    the kernel census)."""
-    refuse_split_mesh("run_smc")
+    GibbsState (under a split mesh this rank's particles, from
+    ``shard_chain_states``); ``sweep_flags`` go to ``sweep_full``
+    (covariate flags and the kernel census).  Under a split mesh the
+    result's particles are the rank's, its weights the whole ensemble's."""
     gibbs.use_full_f32()
-    N = init_particles.Z.shape[0]
+    mesh = chain_split()
+    N = init_particles.Z.shape[0] * (1 if mesh is None
+                                     else mesh.shape[CHAIN_AXIS])
     kw = dict(dtype=data.y.dtype, device=init_particles.Z.device)
     particles, log_w = init_particles, torch.zeros(N, **kw)
     beta, log_Z = torch.zeros((), **kw), torch.zeros((), **kw)

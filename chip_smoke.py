@@ -137,7 +137,7 @@ only with every other phase, whose launch counts they read):
      update_hmc_joint's log-joint at its ensemble on the card against the
      CPU; ms, kernels and device-busy ms an ADVI step and a default-off
      sweep, K2 and its backward at 4 rows beside their bounds;
- 13. [mesh] slices 16 and 17's paths, parallel/mesh.py's chains and data
+ 13. [mesh] slices 16 to 18's paths, parallel/mesh.py's chains and data
      axes at the headline width, from the production path's final
      256-chain ensemble (that path runs first when it was not asked for):
      20 production sweeps, a checkpoint, one sweep more and 10 PT rounds of
@@ -158,7 +158,27 @@ only with every other phase, whose launch counts they read):
      and K3 against their plain versions at the rank's shapes (N = 50);
      it prints the share of chains still bit-equal, ms a sweep at one rank
      and at two ranks sharing the card, and the collectives a sweep and
-     their ms;
+     their ms.  Then slice 18's samplers over the same three meshes, at
+     the headline width: SMC (256 particles from the prior, 3 stages),
+     HMC (up to 16 steps) and NUTS (to depth 4) of 64 chains for 4 + 4
+     iterations, ADVI (50 steps of 4 draws) and 5 production sweeps of 64
+     chains with the whole-model HMC step (hmc_steps=2), all but SMC from
+     that ensemble: under the 1 x 1 mesh the bits, generator states and
+     launches of one process; in each split after the first transition
+     99 % of the chains within the atol of one process's, relative where a
+     value passes 1 (ADVI's whole position; SMC, whose first stage mutates
+     the prior's draws, where a last-bit change moves a value by ~1e-3 of
+     itself, no fewer chains than one process keeps from particles one
+     ulp away, and its first stage's beta and weights within the atol),
+     every rank's generator in one process's state and its launches one
+     process's, SMC's stage count and HMC's trajectory
+     lengths equal, with the rows split both ranks' global fields and
+     slots the same bits, and the HMC-step sweep's medians inside the
+     production path's limits (the other runs are too short for the JAX
+     limits of phases 10-12, and say so); K2's backward at a rank's rows
+     (64 and 4 chain rows, N = 50) against its plain version and timed,
+     and ms a step of each sampler in one process and at two ranks
+     sharing the card, with the collectives a step and their ms;
  14. [timings] chain-sweeps/s of both paths, and each kernel at the main
      path's shapes (K2 at C and at 2C chain rows, and the restart phases'
      7 and 8 chains) beside its plain version,
@@ -399,6 +419,36 @@ MESH_GLOBAL = tuple(f for f in STATE_FIELDS if f not in ("Z", "chi"))
 # 700 W); the share of chains within the atol must reach MESH_SHARE
 MESH_ATOL = 2e-4
 MESH_SHARE = 0.99
+# slice 18: SMC, HMC, NUTS, ADVI and the sweep's whole-model HMC step
+# (update_hmc_joint) over the same meshes at the headline width: SMC from
+# the prior (3 stages of max_stages' 200), HMC (up to 16 steps) and NUTS (to
+# depth 4) of fit_hmc's 64 chains for 4 + 4 iterations, ADVI 50 steps of 4
+# draws, and 5 production sweeps with the HMC step of 64 chains, all but
+# SMC from the production path's final ensemble.  HMC and NUTS start at a
+# step size of 1e-4: from that ensemble at run_hmc's default 0.01 no
+# trajectory of the 8 iterations is accepted (a CPU run of this protocol),
+# and a first transition that moves no chain compares nothing
+MESH_SAMPLERS = dict(seed=18, smc_particles=256, smc_stages=3,
+                     hmc_chains=64, hmc_warmup=4, hmc_samples=4,
+                     hmc_steps=16, hmc_init_step=1e-4, nuts_depth=4,
+                     advi_steps=50, advi_mc=4,
+                     advi_lr=0.03, sweeps=5,
+                     sweep_flags=dict(hmc_steps=2, hmc_eps=0.003))
+# their first transitions are held to MESH_ATOL times the value's magnitude
+# where it passes 1, and SMC's to no fewer chains than one process keeps
+# from particles one float32 ulp away: its first stage mutates the prior's
+# draws (sigma2 to ~500, nu to ~100, at beta ~1e-4), where a last-bit change
+# moves a value by ~1e-3 of itself (one ulp: 29 of 256 chains past, nu
+# 0.005 and sigma2 0.008; the split: 6 of 256, nu 0.006; an H100 80GB HBM3
+# at 700 W)
+# each sampler's count of steps, by the unit its ms are given in
+MESH_SAMPLER_UNITS = {"smc": ("stage", "smc_stages"),
+                      "hmc": ("iteration", None), "nuts": ("iteration", None),
+                      "advi": ("step", "advi_steps"),
+                      "hmc_sweep": ("sweep", "sweeps")}
+# K2's backward at a rank's rows of the data split (N / 2): HMC's, NUTS's
+# and the sweep's 64 chains, ADVI's 4 draws
+MESH_GRAD_SHAPES = ((64, 50, 100, 8), (4, 50, 100, 8))
 # the phases, in the order they run; all by default
 PHASES = ("build", "k1", "k2", "k3", "slice", "production", "fit",
           "families", "refapi", "tempering", "hmc", "advi", "mesh",
@@ -733,16 +783,18 @@ def counters():
 
 
 class ShapeProbe:
-    """While active, every launch the three kernel wrappers make is also
-    counted by its shape: ``counts[(kernel, shape)]`` rises by what
+    """While active, every launch the kernel wrappers make is also counted
+    by its shape: ``counts[(kernel, shape)]`` rises by what
     ``kernels.LAUNCHES[kernel]`` rose by in the call, the shape being K1's
-    (C, D), K2's (C, N, L, P) or K3's (R, N, P).  The sampler reaches the
-    wrappers through the module's attributes, so they are wrapped there."""
+    (C, D), K2's and its backward's (C, N, L, P) or K3's (R, N, P).  The
+    sampler reaches the wrappers through the module's attributes, so they
+    are wrapped there."""
 
     SHAPES = {
         "chol_solve": lambda A, b, z, *a, **kw: tuple(b.shape),
         "mean_rss": lambda B, y, w, *a, **kw: (w.shape[0], *B.shape),
-        "weighted_gram": lambda W, G: (*W.shape, G.shape[-1])}
+        "weighted_gram": lambda W, G: (*W.shape, G.shape[-1]),
+        "mean_rss_grad": lambda B, y, w, g: (w.shape[0], *B.shape)}
 
     def __init__(self):
         self.counts = {}
@@ -2477,14 +2529,436 @@ def _mesh_runs(g, st, data, hp, c, flags, pt_states, mesh=None,
     return res, seconds, counts, coll, after, pt
 
 
+class _First:
+    """While active, ``module.name`` is wrapped so that ``keep(args,
+    output)`` of its first call is kept in ``value``; with ``factory`` the
+    function returns a step function, and the step's first call is kept."""
+
+    def __init__(self, module, name, keep, factory=False):
+        self.module, self.name, self.keep = module, name, keep
+        self.factory = factory
+        self.value = None
+
+    def __enter__(self):
+        self._original = fn = getattr(self.module, self.name)
+
+        def first(call):
+            def wrapper(*a, **kw):
+                out = call(*a, **kw)
+                if self.value is None:
+                    self.value = self.keep(a, out)
+                return out
+            return wrapper
+
+        setattr(self.module, self.name,
+                (lambda *a, **kw: first(fn(*a, **kw))) if self.factory
+                else first(fn))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._original)
+
+
+def _sampler_inputs(data, start):
+    """The slice-18 samplers' whole inputs on ``data``'s device, made
+    outside any mesh (their draws are the one-process run's): SMC's
+    particles from the prior, HMC's and NUTS's positions and the sweep's
+    ensemble (the first 64 chains of ``start``), ADVI's start (its first
+    chain) and the sweep's inverse mass (the variance of those chains'
+    positions, as bench.py:196-203 takes it)."""
+    from bayesfmmm_torch.models import logjoint
+    m = MESH_SAMPLERS
+    p = PROTOCOL
+    dev = data.device
+    chains = take_chains(start, torch.arange(m["hmc_chains"], device=dev))
+    unc = logjoint.from_state(chains)
+    return {
+        "particles": init_state(torch.Generator(device=dev).manual_seed(
+            m["seed"]), ModelConfig(K=p["K"], P=p["P"], M=p["M"]), data,
+            chains=m["smc_particles"]),
+        "hmc": unc, "sweep": chains,
+        "advi": logjoint.from_state(take_chains(
+            start, torch.zeros(1, dtype=torch.long, device=dev))),
+        "inv_mass": logjoint.flatten(unc, False).var(0, unbiased=False)
+        + 1e-8}
+
+
+def _sampler_runs(data, hp, c, x, mesh=None):
+    """SMC, HMC, NUTS, ADVI and the HMC-step sweep under MESH_SAMPLERS from
+    the whole inputs ``x`` (``_sampler_inputs``), in one process or, inside
+    a ``with mesh:`` that splits the chains or the data (``data`` then the
+    rank's rows), over the mesh's ranks.  Returns sampler -> {"first": the
+    state after its first transition and "final": its results, both whole
+    and on the host; "mine": this rank's global fields and slots; "gen":
+    its generator's state; "launches", "seconds", "steps" and
+    "collectives" (count, seconds)}."""
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.models.state import GibbsState
+    from bayesfmmm_torch.parallel import mesh as pmesh
+    from bayesfmmm_torch.samplers import advi, hmc, nuts
+
+    m = MESH_SAMPLERS
+    split = mesh is not None and mesh.size > 1
+    dev = data.device
+    flags = PATHS["production"][0]
+    out = {}
+
+    def host(fields):
+        return {k: v.cpu() for k, v in fields.items()}
+
+    def shard(st):
+        return pmesh.shard_chain_states(st, mesh) if split else st
+
+    def whole(st):
+        st = pmesh.gather_chain_states(st, mesh) if split else st
+        return host({f: getattr(st, f) for f in STATE_FIELDS})
+
+    def chains(v):
+        return (mesh.gather(v) if split else v).cpu()
+
+    def local_unc(unc, split_chains=True):
+        """The rank's chains (with ``split_chains``) and rows of ``unc``."""
+        if not split:
+            return unc
+        axis = pmesh.CHAIN_AXIS if split_chains else None
+        return logjoint.UncState(**{
+            f: pmesh.NamedSharding(mesh, (axis, pmesh.DATA_AXIS) if f in
+                                   logjoint.ROW_FIELDS else (axis,)).place(t)
+            for f, t in vars(unc).items()})
+
+    def timed(name, steps, fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        before = (mesh.collectives, mesh.collective_seconds) if split \
+            else (0, 0.0)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res.update(seconds=time.perf_counter() - t0, steps=steps,
+                   launches=dict(kernels.LAUNCHES),
+                   collectives=((mesh.collectives - before[0],
+                                 mesh.collective_seconds - before[1])
+                                if split else (0, 0.0)))
+        out[name] = res
+
+    def run_smc():
+        g = torch.Generator(device=dev).manual_seed(m["seed"] + 1)
+        with _First(smc, "smc_stage", lambda a, o: o) as first:
+            r = smc.run_smc(g, shard(x["particles"]), data, hp, c,
+                            max_stages=m["smc_stages"], **flags)
+        particles, log_w, beta, _ = first.value
+        return {"first": whole(particles),
+                "first_stage": {"beta": beta.cpu(), "log_w": log_w.cpu()},
+                "final": {"particles": whole(r.particles),
+                          "log_weights": r.log_weights.cpu(),
+                          "log_evidence": r.log_evidence.cpu(),
+                          "final_beta": r.final_beta.cpu(),
+                          "n_stages": r.n_stages},
+                "mine": host({f: getattr(r.particles, f)
+                              for f in MESH_GLOBAL}),
+                "gen": g.get_state().cpu()}
+
+    unc = local_unc(x["hmc"])
+    lj = logjoint.FlatLogJoint(
+        logjoint.make_log_joint(data, hp, c),
+        logjoint.UncState(**{f: t[:1] for f, t in vars(unc).items()}), False)
+    q0 = logjoint.flatten(unc, False)
+
+    def run_gradient(method):
+        if split:       # the positions' chains are the ensemble's
+            mesh.n_chains = m["hmc_chains"]
+        slots = lj.slots()
+        g = torch.Generator(device=dev).manual_seed(m["seed"] + 2)
+        if method == "hmc":
+            spy = _First(hmc, "hmc_kernel", lambda a, o: o[0].position, True)
+            run, kw = hmc.run_hmc, dict(n_leapfrog=m["hmc_steps"])
+        else:
+            spy = _First(nuts, "nuts_kernel", lambda a, o: o[0][0], True)
+            run, kw = nuts.run_nuts, dict(max_depth=m["nuts_depth"])
+        with spy:
+            qs, diag = run(g, lj, q0, n_warmup=m["hmc_warmup"],
+                           n_samples=m["hmc_samples"],
+                           init_step_size=m["hmc_init_step"], **kw)
+        return {"first": slots.gather(spy.value).cpu(),
+                "start": slots.gather(q0).cpu(),
+                "final": {"trace": slots.gather(qs).cpu(),
+                          **{k: chains(v) for k, v in diag.items()}},
+                "mine": {"trace": (qs if slots.glob is None
+                                   else qs[..., slots.glob]).cpu()},
+                "gen": g.get_state().cpu()}
+
+    def run_advi():
+        g = torch.Generator(device=dev).manual_seed(m["seed"] + 3)
+        with _First(advi, "_advi_step", lambda a, o: [
+                p.detach().clone() for p in a[1]]) as first:
+            r = advi.run_advi(g, logjoint.make_log_joint(data, hp, c),
+                              local_unc(x["advi"], False),
+                              n_steps=m["advi_steps"], n_mc=m["advi_mc"],
+                              learning_rate=m["advi_lr"],
+                              covariate_cov=False)
+        slots = logjoint.rank_slots(r.like, False)
+        mu = logjoint.flatten(r.mean, False)[0]
+        glob = slice(None) if slots.glob is None else slots.glob
+        return {"first": {k: slots.gather(v[None], None)[0].cpu()
+                          for k, v in zip(("mu", "log_sd"), first.value)},
+                "final": {"mu": slots.gather(mu[None], None)[0].cpu(),
+                          "log_sd": slots.gather(r.log_sd_flat[None],
+                                                 None)[0].cpu(),
+                          "elbo": r.elbo_trace.cpu()},
+                "mine": {"mu": mu[glob].cpu(),
+                         "log_sd": r.log_sd_flat[glob].cpu()},
+                "gen": g.get_state().cpu()}
+
+    def run_sweeps():
+        g = torch.Generator(device=dev).manual_seed(m["seed"] + 4)
+        r = drivers.phase_warm_start(g, shard(x["sweep"]), data, hp, c,
+                                     n_iters=m["sweeps"],
+                                     hmc_inv_mass=x["inv_mass"], **flags,
+                                     **m["sweep_flags"])
+        return {"first": whole(GibbsState(**{f: r.traces[f][:, 0]
+                                             for f in STATE_FIELDS})),
+                "final": {"state": whole(r.final_state),
+                          "loglik": chains(r.loglik[:, -1])},
+                "mine": host({f: getattr(r.final_state, f)
+                              for f in MESH_GLOBAL}),
+                "gen": g.get_state().cpu()}
+
+    timed("smc", m["smc_stages"], run_smc)
+    iters = m["hmc_warmup"] + m["hmc_samples"]
+    timed("hmc", iters, lambda: run_gradient("hmc"))
+    timed("nuts", iters, lambda: run_gradient("nuts"))
+    timed("advi", m["advi_steps"], run_advi)
+    timed("hmc_sweep", m["sweeps"], run_sweeps)
+    return out
+
+
+def _same_tree(a, b):
+    """Equal bits in every tensor of two nests of dicts and lists (and
+    equal numbers elsewhere)."""
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                            for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(b, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _max_diffs(a, b):
+    """max |a - b| by field of two tensors or dicts of them."""
+    if not isinstance(b, dict):
+        a, b = {"x": a}, {"x": b}
+    return {k: (a[k] - v).abs().max().item() for k, v in b.items()
+            if v.numel()}
+
+
+def _share_within(a, b, scaled=True):
+    """(share of the chains of ``b`` (a tensor whose first axis is the
+    chains, or a dict of them) whose every entry in ``a`` lies within
+    MESH_ATOL, the chains past it); ``scaled``: MESH_ATOL times the
+    entry's magnitude where that passes 1."""
+    if not isinstance(b, dict):
+        a, b = {"x": a}, {"x": b}
+    C = next(iter(b.values())).shape[0]
+    bad = torch.zeros(C, dtype=torch.bool)
+    for k, v in b.items():
+        if v.numel():
+            tol = MESH_ATOL * (v.abs().clamp(min=1.0) if scaled else 1.0)
+            bad |= ((a[k] - v).abs() > tol).reshape(C, -1).any(1)
+    return 1.0 - bad.float().mean().item(), torch.nonzero(bad).flatten(
+        ).tolist()
+
+
+def _smc_ulp_control(data, hp, c, x):
+    """SMC's first stage in one process from the protocol's particles and
+    from the same particles moved by one float32 ulp (every entry of every
+    field but the simplices Z and pi): what float32 rounding alone does to
+    the stage.  Returns both stages' particles on the host."""
+    from bayesfmmm_torch.models.state import GibbsState
+    out = []
+    for bump in (False, True):
+        p = x["particles"]
+        if bump:
+            p = GibbsState(**{f: v if f in ("Z", "pi") else torch.nextafter(
+                v, torch.full_like(v, float("inf")))
+                for f, v in ((f, getattr(p, f)) for f in STATE_FIELDS)})
+        g = torch.Generator(device=data.device).manual_seed(
+            MESH_SAMPLERS["seed"] + 1)
+        r = smc.run_smc(g, p, data, hp, c, max_stages=1,
+                        **PATHS["production"][0])
+        out.append({f: getattr(r.particles, f).cpu() for f in STATE_FIELDS})
+    return out
+
+
+def _off_chains(a, b, chains):
+    """For ``chains`` of the dicts ``a`` and ``b``: field -> (max |a - b|,
+    max |b|) where the field passes MESH_ATOL, relative above 1."""
+    out = {}
+    for k, v in b.items():
+        if not v.numel() or not chains:
+            continue
+        d = (a[k][chains] - v[chains]).abs()
+        if bool((d > MESH_ATOL * v[chains].abs().clamp(min=1.0)).any()):
+            out[k] = (d.max().item(), v[chains].abs().max().item())
+    return out
+
+
+def _sampler_setup(data, hp, c, x):
+    """Library set-up for the samplers, outside any mesh and on a
+    throwaway generator: two ADVI steps, a gradient of the log-joint and
+    torch.optim's first step (which imports and builds what later steps
+    reuse), so that no sampler's time holds them."""
+    from bayesfmmm_torch.models import logjoint
+    from bayesfmmm_torch.samplers import advi
+    advi.run_advi(torch.Generator(device=data.device).manual_seed(1),
+                  logjoint.make_log_joint(data, hp, c), x["advi"],
+                  n_steps=2, covariate_cov=False)
+    torch.cuda.synchronize()
+
+
+def mesh_samplers_check(split, got, per_rank, ref, ref_path):
+    """Slice 18's samplers over two ranks (``got``, rank 0's whole results;
+    ``per_rank``, each rank's own) held to one process's ``ref``
+    (``_sampler_runs``' results): after the first transition MESH_SHARE of
+    the chains within MESH_ATOL, relative where a value passes 1, in every
+    field (ADVI, which has no chains, its whole position; SMC, whose first
+    stage mutates the prior's draws, at least the share one process keeps
+    from particles one float32 ulp away, ``_smc_ulp_control``, and its
+    first stage's beta and weights within the atol; HMC's and NUTS's first
+    transition moving a chain); SMC's stage count and HMC's trajectory
+    lengths equal; each rank's launches one process's; every rank's
+    generator in one process's state; with rows split, the data group's
+    global fields and slots the same bits on both ranks; the HMC-step
+    sweep's medians
+    inside the production path's JAX limits (``ref_path``).  Returns the
+    split's numbers by sampler."""
+    numbers = {}
+    for name, want in ref.items():
+        mine = got[name]
+        if name == "advi":       # one position, no chains
+            near = min(_share_within(mine["first"][k][None], v[None])[0]
+                       for k, v in want["first"].items())
+            near_abs = min(_share_within(mine["first"][k][None], v[None],
+                                         False)[0]
+                           for k, v in want["first"].items())
+            off = [] if near == 1.0 else ["the position"]
+        else:
+            near, off = _share_within(mine["first"], want["first"])
+            near_abs = _share_within(mine["first"], want["first"], False)[0]
+        worst = _max_diffs(mine["first"], want["first"])
+        stage, bar = "", MESH_SHARE
+        if name == "smc":
+            # the first stage's reweighting reads the split's gathered
+            # logliks; its mutation from the prior's draws moves a value by
+            # ~1e-3 of itself on a last-bit change, so the particles are
+            # held to what one ulp of the particles does in one process
+            a, b = mine["first_stage"], want["first_stage"]
+            plain, bumped = want["ulp_control"]
+            control, control_off = _share_within(bumped, plain)
+            bar = min(MESH_SHARE, control)
+            check(_share_within(a["beta"][None], b["beta"][None])[0] == 1.0
+                  and _share_within(a["log_w"][None], b["log_w"][None])[0]
+                  == 1.0, f"mesh {split} smc: the first stage's beta or log "
+                          f"weights differ from one process's past the atol")
+            w_diff = _max_diffs(a["log_w"], b["log_w"])["x"]
+            split_off = _off_chains(mine["first"], want["first"], off)
+            ulp_off = _off_chains(bumped, plain, control_off)
+            stage = (f"; the first stage's beta {float(a['beta'])!r} (one "
+                     f"process {float(b['beta'])!r}), its log weights "
+                     f"{w_diff:.3g} apart; the split's chains past the "
+                     f"atol, field (max |diff|, max |value|): {split_off}; "
+                     f"one process from the particles one ulp away: "
+                     f"{control:.4f} of the chains within the atol "
+                     f"(relative above 1), past it {ulp_off}; the "
+                     f"control's unmoved run equals the protocol's first "
+                     f"stage: {_same_tree(plain, want['first'])}")
+        if name in ("hmc", "nuts"):
+            moved = (want["first"] != want["start"]).any(1).float().mean()
+            stage = f"; the first transition moved {moved:.4f} of the chains"
+            check(moved > 0, f"mesh {split} {name}: the first transition "
+                             f"moved no chain, so it compares nothing")
+        print(f"  mesh {split} {name} first transition: {near_abs:.4f} of "
+              f"the chains within {MESH_ATOL} of one process's in absolute "
+              f"terms; max |diff| by field "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + stage)
+        check(near >= bar, f"mesh {split} {name}: only {near} of the chains "
+                           f"within {MESH_ATOL} of one process's after the "
+                           f"first transition, {bar} expected (past it: "
+                           f"{off})")
+        for r, res in enumerate(per_rank):
+            check(torch.equal(res["gen"][name], want["gen"]),
+                  f"mesh {split} {name}: rank {r}'s generator is not in "
+                  f"one process's state")
+            check(res["launches"][name] == want["launches"],
+                  f"mesh {split} {name}: rank {r} launched "
+                  f"{res['launches'][name]}, one process {want['launches']}")
+            if MESH_SPLITS[split] > 1:
+                for k, v in per_rank[0]["mine"][name].items():
+                    check(torch.equal(res["mine"][name][k], v),
+                          f"mesh {split} {name}: rank {r}'s global {k} "
+                          f"differs from rank 0's")
+        unit, _ = MESH_SAMPLER_UNITS[name]
+        steps = want["steps"]
+        coll = [res["collectives"][name] for res in per_rank]
+        numbers[name] = {
+            "unit": unit, "first_share_within_atol": near, "first_off": off,
+            "first_share_within_atol_absolute": near_abs,
+            "first_share_required": bar,
+            "first_max_abs": worst,
+            "ms_one_rank": 1e3 * want["seconds"] / steps,
+            "ms_two_ranks_sharing": 1e3 * mine["seconds"] / steps,
+            "collectives_per_unit": [n / steps for n, _ in coll],
+            "collective_ms_per_unit": [1e3 * t / steps for _, t in coll],
+            "launches_a_rank": want["launches"]}
+    check(got["smc"]["final"]["n_stages"] == ref["smc"]["final"]["n_stages"],
+          f"mesh {split} smc: {got['smc']['final']['n_stages']} stages, one "
+          f"process {ref['smc']['final']['n_stages']}")
+    check(torch.equal(got["hmc"]["final"]["n_steps"],
+                      ref["hmc"]["final"]["n_steps"]),
+          f"mesh {split} hmc: other trajectory lengths than one process's")
+    limits = json.loads(ref_path.read_text())
+    sweep = got["hmc_sweep"]["final"]
+    med = {"loglik": sweep["loglik"].median().item(),
+           "sigma2": float(np.median(sweep["state"]["sigma2"].numpy()))}
+    for stat, v in med.items():
+        lo, hi = limits[stat]["limits"]
+        check(lo <= v <= hi, f"mesh {split} hmc_sweep: {stat} median {v} "
+                             f"outside [{lo}, {hi}]")
+    numbers["hmc_sweep"]["medians"] = med
+    for name, v in numbers.items():
+        print(f"  mesh {split} {name}: {v['first_share_within_atol']:.4f} of "
+              f"the chains within {MESH_ATOL} (relative above 1) of one "
+              f"process's after the first transition (past it: "
+              f"{v['first_off']}); ms a "
+              f"{v['unit']} {v['ms_one_rank']:.3f} in one process, "
+              f"{v['ms_two_ranks_sharing']:.3f} at rank 0 of two sharing "
+              f"the card (gloo; sharing, not scaling); collectives a "
+              f"{v['unit']} by rank {v['collectives_per_unit']}, their ms "
+              f"on the host's clock "
+              + ", ".join(f"{x:.3f}" for x in v["collective_ms_per_unit"])
+              + f"; launches a rank {v['launches_a_rank']}")
+    print(f"  mesh {split} samplers: every rank's generator in one "
+          f"process's state after each, its launches one process's; SMC "
+          f"{got['smc']['final']['n_stages']} stages as one process's, HMC's "
+          f"trajectory lengths one process's; NUTS depths of the first "
+          f"chains {got['nuts']['final']['depth'][:4].tolist()}; the "
+          f"HMC-step sweep's medians {med} inside {ref_path.name}'s limits "
+          f"after {MESH_SAMPLERS['sweeps']} sweeps; SMC, HMC, NUTS and ADVI "
+          f"run too few steps here for the JAX limits of phases 10-12 (a "
+          f"whole run's statistics), which are not read")
+    return numbers
+
+
 def mesh_rank(start, out, ckpt, rows=1):
     """A rank of the mesh phase's split runs (dryrun.run_ranks, two ranks
     on the one card through gloo), on a mesh of ``rows`` data shards: its
     chains and rows of the start ensemble and of the data, the protocol
-    under ``with mesh:``; the first rank saves the gathered results to
-    ``out``, every rank its own global fields to ``out`` + ".<rank>", and
-    every rank prints its launch counts (also by shape) and
-    collectives."""
+    under ``with mesh:``, then slice 18's samplers (``_sampler_runs``);
+    the first rank saves the gathered results to ``out``, every rank its
+    own global fields, and its samplers' generator states, launches and
+    collectives, to ``out`` + ".<rank>", and every rank prints its launch
+    counts (also by shape) and collectives."""
     from bayesfmmm_torch.models.state import GibbsState
     from bayesfmmm_torch.parallel import mesh as pmesh
 
@@ -2492,8 +2966,10 @@ def mesh_rank(start, out, ckpt, rows=1):
     mesh = pmesh.make_mesh(n_data_shards=rows)   # cuda:0 for both on one card
     dev = mesh.device
     data, hp, c = _mesh_data(dev)
-    data = pmesh.shard_data(data, mesh)
     st, g, _, _ = load_checkpoint(start, dev)
+    x = _sampler_inputs(data, st)
+    _sampler_setup(data, hp, c, x)
+    data = pmesh.shard_data(data, mesh)
     flags = PATHS["production"][0]
     pt_states = take_chains(st, torch.arange(MESH_PROTOCOL["pt_replicas"],
                                              device=dev))
@@ -2510,11 +2986,15 @@ def mesh_rank(start, out, ckpt, rows=1):
         final = pmesh.gather_chain_states(res.final_state, mesh)
         after = pmesh.gather_chain_states(after_local, mesh)
         loglik = mesh.gather(res.loglik[:, -1])
+        samplers = _sampler_runs(data, hp, c, x, mesh)
     cold, pt_state, rate = pt
-    torch.save({f"{what} {f}": getattr(x, f).cpu() for f in MESH_GLOBAL
-                for what, x in (("first", first_local),
-                                ("final", res.final_state),
-                                ("after", after_local))},
+    torch.save({"globals": {f"{what} {f}": getattr(v, f).cpu()
+                            for f in MESH_GLOBAL
+                            for what, v in (("first", first_local),
+                                            ("final", res.final_state),
+                                            ("after", after_local))},
+                **{k: {name: v[k] for name, v in samplers.items()}
+                   for k in ("mine", "gen", "launches", "collectives")}},
                f"{out}.{mesh.rank}")
     if mesh.rank == 0:
         torch.save({
@@ -2524,7 +3004,10 @@ def mesh_rank(start, out, ckpt, rows=1):
             "loglik": loglik.cpu(), "seconds": seconds,
             "pt_counts": [pt_state.swap_accepts.item(),
                           pt_state.swap_attempts.item()],
-            "pt_cold_sigma2": cold.sigma2.cpu()}, out)
+            "pt_cold_sigma2": cold.sigma2.cpu(),
+            "samplers": {name: {k: v[k] for k in v if k not in (
+                "mine", "gen", "launches", "collectives")}
+                for name, v in samplers.items()}}, out)
     print("RANK " + json.dumps({
         "rank": mesh.rank, "rows": [data.N, data.N_whole], "counts": counts,
         "shapes": [[k, list(shape), n] for (k, shape), n
@@ -2545,10 +3028,11 @@ def mesh_chains_within(a, b):
              for c in torch.nonzero(bad).flatten().tolist()})
 
 
-def mesh_split(dev, split, start, tmp, ref_run, data, hp, c):
+def mesh_split(dev, split, start, tmp, ref_run, ref_samplers, data, hp, c):
     """One split run of the mesh phase: two ranks on the one card through
     gloo, splitting the chains (128 a rank) or the data (50 rows a rank),
-    held to the one-process run ``ref_run``.  Returns (each rank's launch
+    held to the one-process runs ``ref_run`` (the sweeps, checkpoint and
+    PT) and ``ref_samplers`` (slice 18's).  Returns (each rank's launch
     counts, rank 0's launches by shape, the split's numbers)."""
     from bayesfmmm_torch.dryrun import run_ranks
 
@@ -2580,13 +3064,13 @@ def mesh_split(dev, split, start, tmp, ref_run, data, hp, c):
               f"mesh {split}: rank {ln['rank']} held rows {ln['rows']}")
     shapes = {(k, tuple(shape)): n for k, shape, n in
               next(ln for ln in lines if ln["rank"] == 0)["shapes"]}
+    per_rank = [torch.load(f"{out}.{r}") for r in range(m["ranks"])]
     if rows > 1:
         # every rank of the data group holds the same bits of every field
         # that is not split by rows
-        mine = [torch.load(f"{out}.{r}") for r in range(m["ranks"])]
-        for k, v in mine[0].items():
+        for k, v in per_rank[0]["globals"].items():
             for r in range(1, m["ranks"]):
-                check(torch.equal(mine[r][k], v),
+                check(torch.equal(per_rank[r]["globals"][k], v),
                       f"mesh {split}: rank {r}'s {k} differs from rank 0's")
         print(f"  mesh {split}: the global fields of the first sweep, the "
               f"last and the one after the checkpoint hold the same bits "
@@ -2650,6 +3134,12 @@ def mesh_split(dev, split, start, tmp, ref_run, data, hp, c):
         bool(torch.isfinite(v).all()) for v in resumed.values()),
         f"mesh {split}: only {resume_near} of the chains' resumed sweeps "
         f"within {MESH_ATOL} of the ranks' own")
+    samplers = mesh_samplers_check(split, got["samplers"], per_rank,
+                                   ref_samplers, ref_path)
+    for name in samplers:
+        for r, res in enumerate(per_rank):
+            rank_counts[f"mesh {split} {name} rank {r}"] = \
+                res["launches"][name]
     coll_ms = [1e3 * ln["collective_seconds"] / m["sweeps"] for ln in lines]
     coll_n = [ln["collectives"] / m["sweeps"] for ln in lines]
     split_ms = 1e3 * got["seconds"] / m["sweeps"]
@@ -2679,7 +3169,8 @@ def mesh_split(dev, split, start, tmp, ref_run, data, hp, c):
         "pt_cold_sigma2_max_abs": pt_err,
         "first_sweep_share_within_atol": near, "first_sweep_off": off,
         "resume_share_within_atol": resume_near,
-        "launches_by_rank": rank_counts, "ranks_seconds": ranks_s}
+        "launches_by_rank": rank_counts, "ranks_seconds": ranks_s,
+        "samplers": samplers}
 
 
 def mesh_phase(dev, card, start_state):
@@ -2694,9 +3185,14 @@ def mesh_phase(dev, card, start_state):
     the last inside the production path's JAX limits, the launches a sweep,
     the checkpoint read back here; the chain split also PT's swap counts,
     the data split also every global field's bits equal on both ranks and
-    K2 and K3 against their plain versions at the rank's shapes.  Returns
-    (each rank's launch counts, the data split's launches by shape, the
-    phase's numbers)."""
+    K2 and K3 against their plain versions at the rank's shapes.  Then
+    slice 18's samplers (``_sampler_runs``: SMC, HMC, NUTS, ADVI and the
+    HMC-step sweep) in one process, under the 1 x 1 mesh (the same bits,
+    generators and launches) and in both splits' ranks
+    (``mesh_samplers_check``), and K2's backward at a rank's rows against
+    its plain version, timed.  Returns (each rank's launch counts, the data
+    split's launches by shape, the kernels line's entries of K2's backward
+    at a rank's rows, the phase's numbers)."""
     import torch.distributed as dist
 
     from bayesfmmm_torch.parallel import mesh as pmesh
@@ -2721,10 +3217,22 @@ def mesh_phase(dev, card, start_state):
                 return _mesh_runs(g, pmesh.shard_chain_states(st, mesh),
                                   data, hp, c, flags, pt_states, mesh)
 
+        def samplers(mesh=None):
+            x = _sampler_inputs(data, load_checkpoint(start, dev)[0])
+            if mesh is None:
+                control = _smc_ulp_control(data, hp, c, x)
+                runs = _sampler_runs(data, hp, c, x)
+                runs["smc"]["ulp_control"] = control
+                return runs
+            with mesh:
+                return _sampler_runs(data, hp, c, x, mesh)
+
         # library set-up, then (a): one process under a 1 x 1 NCCL mesh
         gibbs.sweep_full(torch.Generator(device=dev).manual_seed(1),
                          start_state, data, hp, c, **flags)
         ref_run = one_process()
+        _sampler_setup(data, hp, c, _sampler_inputs(data, start_state))
+        ref_samplers = samplers()
         dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
                                 world_size=1, rank=0)
         try:
@@ -2732,8 +3240,20 @@ def mesh_phase(dev, card, start_state):
             check(one.shape == {"chains": 1, "data": 1},
                   f"mesh: one process gave the mesh {one.shape}")
             under = one_process(one)
+            under_samplers = samplers(one)
         finally:
             dist.destroy_process_group()
+        for name, want in ref_samplers.items():
+            check(_same_tree(under_samplers[name]["first"], want["first"])
+                  and _same_tree(under_samplers[name]["final"],
+                                 want["final"])
+                  and torch.equal(under_samplers[name]["gen"], want["gen"])
+                  and under_samplers[name]["launches"] == want["launches"],
+                  f"mesh: the 1 x 1 NCCL mesh changed {name}'s bits, "
+                  f"generator or launches")
+        print(f"  mesh (a) samplers: SMC, HMC, NUTS, ADVI and the HMC-step "
+              f"sweep under the 1 x 1 mesh: the bits, generator states and "
+              f"launches of the same runs without it")
         for f in STATE_FIELDS:
             check(torch.equal(getattr(under[0].final_state, f),
                               getattr(ref_run[0].final_state, f))
@@ -2757,25 +3277,65 @@ def mesh_phase(dev, card, start_state):
         counts, numbers, data_shapes = {}, {}, {}
         for split in MESH_SPLITS:
             cts, shapes, numbers[split] = mesh_split(
-                dev, split, start, tmp, ref_run, data, hp, c)
+                dev, split, start, tmp, ref_run, ref_samplers, data, hp, c)
             counts.update(cts)
             if MESH_SPLITS[split] > 1:
                 data_shapes = shapes
     # K2 and K3 against their plain versions at the data split's shapes:
-    # N/2 rows, the sweep's C and 2C chain rows and update_nu's 3C, and
-    # PT's R and 2R rows and 3R
+    # N/2 rows, the sweep's C and 2C chain rows and update_nu's 3C, PT's R
+    # and 2R rows and 3R, and slice 18's: HMC's, NUTS's and the HMC-step
+    # sweep's 64 chains (2 x 64 rows and 3 x 64 in the sweep) and ADVI's
+    # 4 draws; K2's backward at those 64 and 4 rows
     g = torch.Generator(device=dev).manual_seed(17)
     n2, K = PROTOCOL["N"] // MESH_SPLITS["data"], PROTOCOL["K"]
+    H = MESH_SAMPLERS["hmc_chains"]
     k2_shapes = tuple((C1, n2, 100, PROTOCOL["P"], None)
-                      for C1 in (CHAINS, 2 * CHAINS, R, 2 * R))
-    k3_shapes = ((K * CHAINS, n2, PROTOCOL["P"]), (K * R, n2, PROTOCOL["P"]))
+                      for C1 in (CHAINS, 2 * CHAINS, R, 2 * R, H, 2 * H,
+                                 MESH_SAMPLERS["advi_mc"]))
+    k3_shapes = ((K * CHAINS, n2, PROTOCOL["P"]), (K * R, n2, PROTOCOL["P"]),
+                 (K * H, n2, PROTOCOL["P"]))
     for k, shape in data_shapes:
-        check(k == "chol_solve" or shape in [s[:4] for s in k2_shapes]
-              + list(k3_shapes),
-              f"mesh data: rank 0 launched {k} at {shape}, a shape the "
-              f"smoke does not hold to its plain version")
+        check(k == "chol_solve" or shape in (
+            [s[:4] for s in k2_shapes] if k != "weighted_gram"
+            else list(k3_shapes))
+            and (k != "mean_rss_grad" or shape in MESH_GRAD_SHAPES),
+            f"mesh data: rank 0 launched {k} at {shape}, a shape the "
+            f"smoke does not hold to its plain version")
     k2_phase(dev, g, k2_shapes)
     k3_phase(dev, g, k3_shapes)
+    grad_err = k2_grad_phase(dev, g, MESH_GRAD_SHAPES)
+    entries = []
+    for C1, N1, L1, P1 in MESH_GRAD_SHAPES:
+        x = (torch.randn(N1, L1, P1, generator=g, device=dev),
+             torch.randn(N1, L1, generator=g, device=dev),
+             torch.randn(C1, N1, P1, generator=g, device=dev),
+             torch.randn(C1, generator=g, device=dev))
+        cands = {"kernel": lambda x=x: kernels.mean_rss_grad(*x),
+                 "plain": lambda x=x: kernels.mean_rss_grad_plain(*x),
+                 "empty": lambda: kernels.empty_launch(dev)}
+        t = {k: r["device_ms"] for k, r in in_turns(cands, rounds=3).items()}
+        t.update(kernels.kernel_bound("mean_rss_grad", C=C1, N=N1, L=L1,
+                                      P=P1))
+        launched = data_shapes.get(("mean_rss_grad", (C1, N1, L1, P1)), 0)
+        check(launched > 0, f"mesh data: rank 0 never launched K2's "
+                            f"backward at {(C1, N1, L1, P1)}")
+        print(f"  mean_rss_grad at a rank's rows (C={C1}, N={N1}, L={L1}, "
+              f"P={P1}): device {1e3 * t['kernel']:.2f} us vs plain "
+              f"{1e3 * t['plain']:.2f} us, empty kernel "
+              f"{1e3 * t['empty']:.2f} us; bound {1e3 * t['bound_ms']:.3f} us "
+              f"by {t['bound_by']} ({t['bytes']} bytes, {t['flop']:.0f} "
+              f"FLOP; {100 * t['bound_ms'] / t['kernel']:.2f} % of it); "
+              f"{launched} launches at rank 0 of the data split")
+        entries.append({
+            "name": f"mean_rss_grad_n{N1}_c{C1}", "route": "cuda",
+            "source": "bayesfmmm_torch/csrc/mean_rss.cu",
+            "replaces": "bayesfmmm_tpu/ops/pallas_kernels.py:68",
+            "backward_of": "mean_rss", "launches": launched,
+            "max_abs_err": grad_err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "shape": dict(C=C1, N=N1, L=L1, P=P1), "bytes": t["bytes"],
+            "flop": t["flop"], "empty_ms": t["empty"]})
     one_ms = 1e3 * ref_run[1] / m["sweeps"]
     seconds = time.perf_counter() - t_phase
     print(f"  mesh on {card}: ms a sweep at one rank ({CHAINS} chains of "
@@ -2786,10 +3346,11 @@ def mesh_phase(dev, card, start_state):
           f"(of which collectives "
           f"{numbers['data']['collective_ms_per_sweep'][0]:.3f} on the "
           f"host's clock); the phase {seconds:.1f} s")
-    return counts, data_shapes, {
+    return counts, data_shapes, entries, {
         "card": card, "ranks": m["ranks"], "chains": CHAINS,
         "sweeps": m["sweeps"], "ms_per_sweep_one_rank": one_ms,
-        "splits": numbers, "seconds": seconds}
+        "splits": numbers, "samplers_protocol": MESH_SAMPLERS,
+        "seconds": seconds}
 
 
 def round_profiles(rounds):
@@ -3017,13 +3578,14 @@ def main(argv=None):
         t13 = time.perf_counter()
         if "production" not in phases:
             _, _, p_final = path_phase(dev, "production")
-        mesh_counts, mesh_shapes, line["mesh"] = mesh_phase(dev, card,
-                                                            p_final)
+        mesh_counts, mesh_shapes, mesh_entries, line["mesh"] = mesh_phase(
+            dev, card, p_final)
         print(f"  the phase {time.perf_counter() - t13:.1f} s")
-        print("phase 13 slices 16 and 17 paths (the production census over "
+        print("phase 13 slices 16 to 18 paths (the production census over "
               "a (chains, data) mesh: 1 x 1 over NCCL, two ranks sharing the "
               "card through gloo splitting the chains, then the data, PT and "
-              "a checkpoint across them): ok")
+              "a checkpoint across them; SMC, HMC, NUTS, ADVI and the "
+              "HMC-step sweep over the same meshes): ok")
         lap("mesh")
 
     if "timings" in phases:
@@ -3319,7 +3881,15 @@ def main(argv=None):
             for path, c in slice12.items():
                 grad_entry["launches_by_path"][path] = c["mean_rss_grad"]
                 grad_entry["launches"] += c["mean_rss_grad"]
+        if "mesh" in phases:
+            for path, c in mesh_counts.items():
+                if c.get("mean_rss_grad"):
+                    grad_entry["launches_by_path"][path] = \
+                        c["mean_rss_grad"]
+                    grad_entry["launches"] += c["mean_rss_grad"]
         line["kernels"].append(grad_entry)
+    if "mesh" in phases:
+        line["kernels"].extend(mesh_entries)
     if "advi" in phases:
         line["kernels"].extend(advi_entries)
     if "timings" in phases:

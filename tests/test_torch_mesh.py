@@ -84,7 +84,7 @@ _WORKER = textwrap.dedent('''
     def refused(fn):
         try:
             fn()
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             return type(e).__name__
         return "nothing"
 
@@ -180,18 +180,7 @@ _WORKER = textwrap.dedent('''
                 with mesh:
                     gibbs.sweep_full(torch.Generator(), whole4, data, hp, c)
 
-            def unported(module, name, n_args):
-                def run():
-                    with mesh:
-                        getattr(module, name)(*[None] * n_args)
-                return run
-
-            from bayesfmmm_torch.samplers import advi, hmc, nuts, smc
             res["refusals"] = {
-                **{name: refused(unported(module, name, n_args))
-                   for module, name, n_args in (
-                       (smc, "run_smc", 5), (hmc, "run_hmc", 3),
-                       (nuts, "run_nuts", 3), (advi, "run_advi", 3))},
                 "indivisible": refused(
                     lambda: pmesh.shard_chain_states(three, mesh)),
                 "local_shape": refused(draw_whole)}
@@ -436,14 +425,10 @@ def test_distributed_sweep_ranks_agree(ranks, one_process, n):
 
 @pytest.mark.parametrize("case,error", [
     ("indivisible", "ValueError"),
-    ("local_shape", "ValueError"),
-    ("run_smc", "NotImplementedError"), ("run_hmc", "NotImplementedError"),
-    ("run_nuts", "NotImplementedError"),
-    ("run_advi", "NotImplementedError")])
+    ("local_shape", "ValueError")])
 def test_split_refusals(ranks, case, error):
     """On 2 ranks: 3 chains over 2 ranks, and a sweep of the whole ensemble
-    under the split mesh, raise ValueError; the samplers not ported to a
-    split mesh (SMC, HMC, NUTS, ADVI) raise NotImplementedError under it."""
+    under the split mesh, raise ValueError."""
     assert ranks[2][0]["refusals"][case] == error
 
 
@@ -534,9 +519,9 @@ _DATA_WORKER = textwrap.dedent('''
     def refused(fn):
         try:
             fn()
-        except (ValueError, NotImplementedError, RuntimeError) as e:
-            return [type(e).__name__, "15c" in str(e)]
-        return ["nothing", False]
+        except (ValueError, RuntimeError) as e:
+            return type(e).__name__
+        return "nothing"
 
 
     def main(out, ckpt, chains, rows, twin):
@@ -612,20 +597,8 @@ _DATA_WORKER = textwrap.dedent('''
                 float(v).hex() for v in sig.tolist()), flush=True)
 
         if (chains, rows) == (1, 2):
-            from bayesfmmm_torch.samplers import advi, hmc, nuts, smc
             odd, _ = simulate_functional(seed=31, N=7, K=2, P=5, M=2,
                                          n_time=(10, 12), device="cpu")
-
-            def unported(module, name, n_args):
-                def run():
-                    with mesh:
-                        getattr(module, name)(*[None] * n_args)
-                return run
-
-            def hmc_joint():
-                with mesh:
-                    gibbs.sweep_full(torch.Generator(), local, sdata, hp, c,
-                                     **PRODUCTION_FLAGS, hmc_steps=2)
 
             def whole_rows():
                 with mesh:
@@ -638,13 +611,8 @@ _DATA_WORKER = textwrap.dedent('''
                     pmesh.data_sum(torch.ones(3, requires_grad=True))
 
             res["refusals"] = {
-                **{name: refused(unported(module, name, n_args))
-                   for module, name, n_args in (
-                       (smc, "run_smc", 5), (hmc, "run_hmc", 3),
-                       (nuts, "run_nuts", 3), (advi, "run_advi", 3))},
                 "indivisible_rows": refused(
                     lambda: pmesh.shard_data(odd, mesh)),
-                "hmc_joint": refused(hmc_joint),
                 "whole_rows": refused(whole_rows),
                 "gradient": refused(graph)}
         torch.save(res, f"{out}.{mesh.rank}")
@@ -867,20 +835,13 @@ def test_data_split_distributed_sweep_ranks_agree(data_ranks,
 
 @pytest.mark.parametrize("case,error", [
     ("indivisible_rows", "ValueError"), ("whole_rows", "ValueError"),
-    ("gradient", "RuntimeError"), ("hmc_joint", "NotImplementedError"),
-    ("run_smc", "NotImplementedError"), ("run_hmc", "NotImplementedError"),
-    ("run_nuts", "NotImplementedError"),
-    ("run_advi", "NotImplementedError")])
+    ("gradient", "RuntimeError")])
 def test_data_split_refusals(data_ranks, case, error):
     """Under a (1, 2) mesh: 7 rows over 2 data ranks, and a draw at the
     whole N's rows, raise ValueError; a data sum of a tensor that needs a
-    gradient raises RuntimeError (it would drop the other ranks' part);
-    update_hmc_joint (hmc_steps > 0) and SMC, HMC, NUTS and ADVI raise
-    NotImplementedError naming ROADMAP item 15c."""
+    gradient raises RuntimeError (it would drop the other ranks' part)."""
     for res in data_ranks[(1, 2)][0]:
-        got, names_item = res["refusals"][case]
-        assert got == error
-        assert names_item == (error == "NotImplementedError")
+        assert res["refusals"][case] == error
 
 
 @pytest.mark.parametrize("d", [2, 3, 4])
