@@ -20,6 +20,11 @@ take the device from the data of the result they are given, and
 ``fit_hmc`` moves the data it is given to its ``device`` (the card when
 None).  Traces and estimates are host NumPy arrays; states are tensors on
 the device with a leading chain axis.
+
+Under torch.profiler every ``fit_*`` call is a span of its own name
+(``api.fit_warm_start``), whose spans below it share its index as their
+call id, and every copy of draws to the host is a span ``api.host_copy``
+with the bytes copied (utils/observability.py).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from bayesfmmm_torch.models.state import (STATE_FIELDS, GibbsState,
                                           make_hd_functional_data,
                                           make_multivariate_data)
 from bayesfmmm_torch.samplers import drivers
+from bayesfmmm_torch.utils.observability import span, traced
 
 __all__ = ["FitResult", "build_data", "fit_nu_z", "fit_theta",
            "fit_warm_start", "fit_pt", "fit_smc", "fit_hmc", "fit_advi_init",
@@ -145,6 +151,19 @@ def _pinned(state, est, fields):
     return state.replace(**{f: dev(f) for f in fields})
 
 
+def _host(*objs):
+    """Each of ``objs``, a tensor or a dict of tensors, as host NumPy
+    arrays, copied in one span ``api.host_copy`` that counts their
+    bytes."""
+    with span("api.host_copy") as s:
+        out = [{k: v.cpu().numpy() for k, v in o.items()}
+               if isinstance(o, dict) else o.cpu().numpy() for o in objs]
+        s.set(bytes=sum(a.nbytes for o in out
+                        for a in (o.values() if isinstance(o, dict)
+                                  else (o,))))
+    return out
+
+
 def _one_chain(state, i):
     return GibbsState(**{f: getattr(state, f)[i:i + 1]
                          for f in STATE_FIELDS})
@@ -165,13 +184,14 @@ def _run_restarts(generator, data, cfg, c, phase_fn, n_chains, n_iters,
         states = spectral_ensemble(generator, states, data, cfg.K, cfg.M,
                                    z_jitter=0.02)
     res = phase_fn(generator, states)
-    loglik = res.loglik.cpu().numpy()
+    loglik, = _host(res.loglik)
     best = drivers.best_chain(loglik, window=min(select_window, n_iters))
-    traces = {k: v[best].cpu().numpy() for k, v in res.traces.items()}
+    traces, = _host({k: v[best] for k, v in res.traces.items()})
     return FitResult(traces, loglik[best], _one_chain(res.final_state, best),
                      best)
 
 
+@traced("api.fit_nu_z")
 def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
              n_try=1, X=None, c=None, priors: Priors | None = None,
              family="functional", basis_degree=3, internal_knots=None,
@@ -213,6 +233,7 @@ def fit_nu_z(Y=None, time=None, *, data=None, K, tot_mcmc_iters=1000,
     return res
 
 
+@traced("api.fit_theta")
 def fit_theta(nu_z_result: FitResult, *, tot_mcmc_iters=1000, n_try=1,
               M=None, covariate_cov=False, priors: Priors | None = None,
               burnin_prop=0.8, seed=1):
@@ -270,6 +291,7 @@ _WARM_FROM_PHASE_2 = ("Phi", "gamma", "delta", "A", "sigma2", "chi", "xi",
                       "gamma_xi", "delta_xi", "A_xi")
 
 
+@traced("api.fit_warm_start")
 def fit_warm_start(nu_z_result: FitResult | None = None,
                    theta_result: FitResult | None = None, *,
                    tot_mcmc_iters=2000, thinning_num=1, burnin_prop=0.8,
@@ -402,10 +424,11 @@ def fit_warm_start(nu_z_result: FitResult | None = None,
             start_iter=it0 + done, covariate_mean=cfg.covariate_mean,
             covariate_cov=cfg.covariate_cov, **flags)
         states = res.final_state
-        ll_parts.append(res.loglik.cpu().numpy())
-        t_parts.append({k: v.cpu().numpy() for k, v in res.traces.items()})
-        if res.tt_accept is not None:
-            tt_parts.append(res.tt_accept.cpu().numpy())
+        tt = () if res.tt_accept is None else (res.tt_accept,)
+        ll, tr, *tt = _host(res.loglik, res.traces, *tt)
+        ll_parts.append(ll)
+        t_parts.append(tr)
+        tt_parts += tt
         done += n
         if stream is not None:
             stream.update(done - 1, ll_parts[-1].mean(axis=0))
@@ -454,6 +477,7 @@ def _seeded_state(est1, est2, chains, data):
     return GibbsState(**{f: dev(f) for f in STATE_FIELDS})
 
 
+@traced("api.fit_pt")
 def fit_pt(nu_z_result: FitResult, theta_result: FitResult, *,
            tot_mcmc_iters=2000, n_replicas=8, beta_min=0.3,
            n_sweeps_between=1, burnin_prop=0.8,
@@ -511,7 +535,7 @@ def fit_pt(nu_z_result: FitResult, theta_result: FitResult, *,
         for _ in range(pilot_sweeps):
             st = gibbs.sweep_full(generator, st, data, hp, c_vec, **flags)
             E.append(_loglik_portion(st, data))
-        half = torch.cat(E).cpu().numpy()[pilot_sweeps // 2:] if E else []
+        half = _host(torch.cat(E))[0][pilot_sweeps // 2:] if E else []
         # too short a pilot has no sd: auto_ladder refuses the NaN
         sd_E = float(np.std(half, ddof=1)) if len(half) > 1 \
             else float("nan")
@@ -530,7 +554,7 @@ def fit_pt(nu_z_result: FitResult, theta_result: FitResult, *,
                 f"{float(ladder_t[-1]):.3f} instead; on large-n posteriors "
                 f"PT buys little here (adjacent-rung energy overlap needs "
                 f"dbeta ~ n^(-1/2); BENCH_SUITE.md section 4.1).",
-                UserWarning, stacklevel=2)
+                UserWarning, stacklevel=3)
 
     replicas = _seeded_state(est1, est2, n_replicas, data)
     cold, pt, swap_rate = run_parallel_tempering(
@@ -546,18 +570,20 @@ def fit_pt(nu_z_result: FitResult, theta_result: FitResult, *,
             f"cost buys no tempering benefit (the failure mode of fixed "
             f"ladders on large-n posteriors, BENCH_SUITE.md section 4.1).  "
             f"Use ladder='auto', reduce beta_min, or prefer fit_smc for "
-            f"multimodality at scale.", UserWarning, stacklevel=2)
-    traces = {f: getattr(cold, f).cpu().numpy() for f in STATE_FIELDS}
-    res = FitResult(traces, loglik.cpu().numpy(), _one_chain(pt.states, 0))
+            f"multimodality at scale.", UserWarning, stacklevel=3)
+    traces, loglik = _host({f: getattr(cold, f) for f in STATE_FIELDS},
+                           loglik)
+    res = FitResult(traces, loglik, _one_chain(pt.states, 0))
     res.data = data
     res.config = cfg
     res.swap_rate = swap_rate
-    res.ladder = ladder_t.cpu().numpy() if ladder_t is not None else None
+    res.ladder = _host(ladder_t)[0] if ladder_t is not None else None
     if directory is not None:
         export_traces(directory, traces, cfg)
     return res
 
 
+@traced("api.fit_smc")
 def fit_smc(Y=None, time=None, *, data=None, K, M=1, X=None,
             family="functional", n_particles=256, n_mutation_sweeps=2,
             target_cess=0.7, ess_threshold=0.5,
@@ -601,10 +627,10 @@ def fit_smc(Y=None, time=None, *, data=None, K, M=1, X=None,
                      n_mutation_sweeps=n_mutation_sweeps,
                      target_cess=target_cess, ess_threshold=ess_threshold,
                      **_census(kernels, cfg))
-    w = torch.softmax(result.log_weights, 0).cpu().numpy()
-    est = {f: np.tensordot(w, getattr(result.particles, f).cpu().numpy(),
-                           axes=1)
-           for f in STATE_FIELDS}
+    w, particles = _host(torch.softmax(result.log_weights, 0),
+                         {f: getattr(result.particles, f)
+                          for f in STATE_FIELDS})
+    est = {f: np.tensordot(w, particles[f], axes=1) for f in STATE_FIELDS}
     return {"particles": result.particles, "weights": w,
             "log_evidence": float(result.log_evidence),
             "n_stages": int(result.n_stages),
@@ -622,6 +648,7 @@ def _on_device(data, device):
         if isinstance(getattr(data, f.name), torch.Tensor)})
 
 
+@traced("api.fit_hmc")
 def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
             n_chains=4, n_leapfrog=24, init="spectral", method="hmc",
             max_depth=8, priors: Priors | None = None, seed=0, device=None):
@@ -709,20 +736,23 @@ def fit_hmc(data, *, K, M, covariate_cov=False, n_warmup=500, n_samples=500,
         return logjoint.to_state(logjoint.unflatten(q, like, covc))
 
     with torch.no_grad():
-        ll = log_likelihood(states(trace.reshape(n_chains * n_samples, -1)),
-                            data).reshape(n_chains, n_samples).cpu().numpy()
+        ll, = _host(log_likelihood(
+            states(trace.reshape(n_chains * n_samples, -1)),
+            data).reshape(n_chains, n_samples))
         best = drivers.best_chain(ll, window=min(100, n_samples))
         drawn = states(trace[best])
-        traces = {f: getattr(drawn, f).cpu().numpy() for f in STATE_FIELDS}
+        traces, diagnostics = _host(
+            {f: getattr(drawn, f) for f in STATE_FIELDS}, diag)
         final = states(trace[best, -1:])
     res = FitResult(traces, ll[best], final, best)
     res.data = data
     res.config = cfg
-    res.hmc_diagnostics = {k: v.cpu().numpy() for k, v in diag.items()}
+    res.hmc_diagnostics = diagnostics
     res.all_chain_loglik = ll
     return res
 
 
+@traced("api.fit_advi_init")
 def fit_advi_init(data, *, K, M, covariate_cov=False, warm_iters=2000,
                   advi_steps=600, advi_lr=0.03, n_chains=4, thinning_num=1,
                   n_temp_trans=0, beta_N_t=1.0, N_t=1,
@@ -771,14 +801,15 @@ def fit_advi_init(data, *, K, M, covariate_cov=False, warm_iters=2000,
         generator, states, data, hp, c_vec, n_iters=warm_iters,
         thin=thinning_num, n_temp_trans=n_temp_trans, beta_N_t=beta_N_t,
         N_t=N_t, covariate_mean=covm, covariate_cov=covc)
-    loglik = out.loglik.cpu().numpy()
+    loglik, = _host(out.loglik)
     best = drivers.best_chain(loglik, window=min(100, warm_iters))
-    traces = {k: v[best].cpu().numpy() for k, v in out.traces.items()}
+    traces, elbo = _host({k: v[best] for k, v in out.traces.items()},
+                         res.elbo_trace)
     result = FitResult(traces, loglik[best], _one_chain(out.final_state, best),
                        best)
     result.data = data
     result.config = cfg
-    result.elbo_trace = res.elbo_trace.cpu().numpy()
+    result.elbo_trace = elbo
     result.all_chain_loglik = loglik
     if directory is not None:
         export_traces(directory, result.traces, cfg)

@@ -19,11 +19,16 @@ of the ensemble, and of Z and chi only its rows of the data;
 the one file the one-process run writes, with the generator's state, which
 every rank shares.  ``load_checkpoint`` followed by ``shard_chain_states``
 resumes it on any mesh.
+
+Under torch.profiler a save and a load are the spans
+``io.checkpoint.save`` and ``io.checkpoint.load``, with the file's bytes
+(utils/observability.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -31,6 +36,7 @@ import torch
 from bayesfmmm_torch.config import ModelConfig
 from bayesfmmm_torch.models.state import STATE_FIELDS, GibbsState
 from bayesfmmm_torch.parallel import mesh as pmesh
+from bayesfmmm_torch.utils.observability import span
 
 
 def _npz_path(path) -> str:
@@ -55,15 +61,17 @@ def save_checkpoint(path, state: GibbsState, generator: torch.Generator,
             mesh.barrier()
             return
     try:
-        arrs = {f"state__{f}": getattr(state, f).detach().cpu().numpy()
-                for f in STATE_FIELDS}
-        arrs["generator_state"] = generator.get_state().numpy()
-        arrs["generator_device"] = np.asarray(generator.device.type)
-        arrs["iteration"] = np.asarray(iteration)
-        if config is not None:
-            for k, v in dataclasses.asdict(config).items():
-                arrs[f"config__{k}"] = np.asarray(v)
-        np.savez(_npz_path(path), **arrs)
+        with span("io.checkpoint.save") as s:
+            arrs = {f"state__{f}": getattr(state, f).detach().cpu().numpy()
+                    for f in STATE_FIELDS}
+            arrs["generator_state"] = generator.get_state().numpy()
+            arrs["generator_device"] = np.asarray(generator.device.type)
+            arrs["iteration"] = np.asarray(iteration)
+            if config is not None:
+                for k, v in dataclasses.asdict(config).items():
+                    arrs[f"config__{k}"] = np.asarray(v)
+            np.savez(_npz_path(path), **arrs)
+            s.set(bytes=os.path.getsize(_npz_path(path)))
     finally:
         if mesh is not None:
             mesh.barrier()
@@ -80,7 +88,8 @@ def load_checkpoint(path, device, seed=None, dtype=torch.float32):
     another, since the two generators' streams are not the same.  A file
     without a generator state needs ``seed``."""
     device = torch.device(device)
-    with np.load(_npz_path(path)) as z:
+    with span("io.checkpoint.load", bytes=os.path.getsize(_npz_path(path))), \
+            np.load(_npz_path(path)) as z:
         state = GibbsState(**{
             f: torch.tensor(z[f"state__{f}"], dtype=dtype, device=device)
             for f in STATE_FIELDS})

@@ -14,6 +14,7 @@ import torch
 
 from bayesfmmm_torch.ops.mean import (compute_mu, effective_coeffs,
                                       rss_from_coeffs)
+from bayesfmmm_torch.utils.observability import traced
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -23,6 +24,7 @@ def model_mean(state, data):
     return compute_mu(data, state)
 
 
+@traced("models.likelihood.log_likelihood")
 def log_likelihood(state, data):
     """Total Gaussian log likelihood per chain (C,); the RSS is taken in
     residual space (kernel K2 on CUDA)."""

@@ -34,6 +34,11 @@ rows of the data and of Z and chi.  Every sum over n below is a partial sum
 over those rows that ``data_sum`` adds over the data group before a global
 field reads it, and every draw on rows names its data axis; ``data.N`` is
 the rank's rows and ``data.N_whole`` the whole data set's.
+
+Under torch.profiler every updater and sweep is a span named
+``ops.gibbs.<function>`` (utils/observability.py).  The sweeps look their
+updaters up as this module's attributes at each call, so a test can
+replace one.
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from bayesfmmm_torch.ops.mean import (
 )
 from bayesfmmm_torch.parallel.mesh import data_sum
 from bayesfmmm_torch.samplers.hmc import _leapfrog, value_and_grad
+from bayesfmmm_torch.utils.observability import traced
 
 # Joint draw of a whole blocked family (all K*M(*D) blocks of Phi or xi) up
 # to this dimension, as in the JAX package; above it the dense joint
@@ -184,6 +190,7 @@ def _joint_blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
 # chains are conditionally independent and move in one batch.
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_z")
 def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
     # Row log-likelihoods in residual space (the Gram quadratic cancels in
     # f32); both endpoints stacked into one pass over B.
@@ -218,6 +225,7 @@ def update_z(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # Reference: updatePi_PM / lpdf_pi_PM (UpdatePi.h:39-116)
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_pi")
 def update_pi(generator, state, hp, c, N=None):
     """``N``: the whole data set's number of observations (Z's rows when
     None; the sweeps pass ``data.N_whole``)."""
@@ -247,6 +255,7 @@ def update_pi(generator, state, hp, c, N=None):
 # replaces the reference's sign slip (gibbs.py:526-533).
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_alpha3")
 def update_alpha3(generator, state, hp, N=None):
     """``N`` as in ``update_pi``."""
     logZ_colsum = data_sum(torch.log(state.Z).sum(1))
@@ -273,6 +282,7 @@ def update_alpha3(generator, state, hp, N=None):
 #   linear    = (beta/sigma2) sum_i Z_ij B_i' r_ij
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_nu")
 def update_nu(generator, state, data, hp, cache: SweepCache, beta=1.0):
     s = _tempered_precision(beta, state.sigma2)               # (C,)
     # every row's precision depends only on (Z, tau, sigma2): factor all K
@@ -331,6 +341,7 @@ def _blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
 # batched Cholesky; the draws use the generator in loop order.
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_eta")
 def update_eta(generator, state, data, hp, cache: SweepCache, beta=1.0):
     K, D = state.K, data.D
     if D == 0:
@@ -360,6 +371,7 @@ def update_eta(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # tilde_tau(j,m) * gamma(j,:,m) with tilde_tau = cumprod(delta).
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_phi")
 def update_phi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     C, K, P, M = state.Phi.shape
     tilde_tau = torch.cumprod(state.delta, dim=2)             # (C, K, M)
@@ -382,6 +394,7 @@ def update_phi(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # transpose (0, 1, 4, 3, 2).
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_xi")
 def update_xi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     D = data.D
     if D == 0:
@@ -406,6 +419,7 @@ def update_xi(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # Reference: updateChi (UpdateChi.h:19-64): posterior precision 1 + W/sigma2.
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_chi")
 def update_chi(generator, state, data, hp, cache: SweepCache, beta=1.0):
     s = _tempered_precision(beta, state.sigma2)[:, None]      # (C, 1)
     U = eigen_directions(state, data.X)                       # (C, N, P, M)
@@ -444,6 +458,7 @@ def sigma_shape_rate(state, data, hp, cache: SweepCache, beta=1.0):
     return a, hp.beta_0 + beta * rss / 2.0
 
 
+@traced("ops.gibbs.update_sigma")
 def update_sigma(generator, state, data, hp, cache: SweepCache, beta=1.0):
     a, b = sigma_shape_rate(state, data, hp, cache, beta)
     return state.replace(sigma2=b / standard_gamma(generator, a))
@@ -453,6 +468,7 @@ def update_sigma(generator, state, data, hp, cache: SweepCache, beta=1.0):
 # tau — mean smoothness precisions (conjugate Gamma, UpdateTau.h:18-36)
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_tau")
 def update_tau(generator, state, data, hp):
     P = state.nu.shape[2]
     quad = torch.einsum("ckp,pq,ckq->ck", state.nu, data.pen, state.nu)
@@ -461,6 +477,7 @@ def update_tau(generator, state, data, hp):
     return state.replace(tau=g / rate)
 
 
+@traced("ops.gibbs.update_tau_eta")
 def update_tau_eta(generator, state, data, hp):
     """Reference: updateTauEta (UpdateTau.h:75-95) / MV (:106-124)."""
     if data.D == 0:
@@ -502,6 +519,7 @@ def _mgp_delta_draw(generator, S, delta, a1, a2, P):
     return torch.stack(cols, 2)
 
 
+@traced("ops.gibbs.update_delta")
 def update_delta(generator, state, hp):
     P = state.Phi.shape[2]
     S = (state.gamma * state.Phi ** 2).sum(2)                 # (C, K, M)
@@ -509,6 +527,7 @@ def update_delta(generator, state, hp):
         generator, S, state.delta, state.A[..., 0], state.A[..., 1], P))
 
 
+@traced("ops.gibbs.update_delta_xi")
 def update_delta_xi(generator, state, hp):
     """Reference: updateDeltaXi (UpdateDelta.h:76-125): one MGP tower per
     covariate, the same shapes and rates as ``update_delta``."""
@@ -526,6 +545,7 @@ def update_delta_xi(generator, state, hp):
 #   gamma_kjm ~ Gamma((nu1+1)/2, rate = (nu1 + tilde_tau_km phi_kjm^2)/2)
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_gamma")
 def update_gamma(generator, state, hp):
     tilde_tau = torch.cumprod(state.delta, dim=2)             # (C, K, M)
     rate = (hp.nu_1 + tilde_tau[:, :, None, :] * state.Phi ** 2) / 2.0
@@ -534,6 +554,7 @@ def update_gamma(generator, state, hp):
     return state.replace(gamma=g / rate)
 
 
+@traced("ops.gibbs.update_gamma_xi")
 def update_gamma_xi(generator, state, hp):
     """Reference: updateGammaXi (UpdateGamma.h:48-73)."""
     if state.gamma_xi.shape[3] == 0:
@@ -567,6 +588,7 @@ def _mh_truncnorm(generator, a_cur, sd, lpdf):
     return torch.where(accept, a_new, a_cur)
 
 
+@traced("ops.gibbs.update_a")
 def update_a(generator, state, hp):
     M = state.delta.shape[2]
     a1 = _mh_truncnorm(generator, state.A[..., 0], hp.var_epsilon1 / hp.beta1l,
@@ -577,6 +599,7 @@ def update_a(generator, state, hp):
     return state.replace(A=torch.stack([a1, a2], -1))
 
 
+@traced("ops.gibbs.update_a_xi")
 def update_a_xi(generator, state, hp):
     """Reference: updateAXi (UpdateA.h:137-205), over (K, D) at once."""
     if state.A_xi.shape[3] == 0:
@@ -721,6 +744,7 @@ def _categorical(generator, logits):
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=0)
 
 
+@traced("ops.gibbs.update_z_chi")
 def update_z_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
                  p_indep=0.3, anchor_prop=False, anchor_conc=300.0):
     """Collapsed (Z, chi) block update.
@@ -838,6 +862,7 @@ def _redraw_chi(generator, data, s, U, a):
     return chi, a + torch.einsum("cnpm,cnm->cnp", U, chi)
 
 
+@traced("ops.gibbs.update_chi_joint")
 def update_chi_joint(generator, state, data, hp, cache: SweepCache,
                      beta=1.0):
     """Exact joint draw of every chi row (JAX gibbs.py:759-797): one
@@ -932,6 +957,7 @@ def _rotate_eigen(state, data, m1, m2, theta):
     return state.replace(**new)
 
 
+@traced("ops.gibbs.update_gauge")
 def update_gauge(generator, state, data, hp):
     """One feature-mixing, one eigen-rescale and (M >= 2) one
     eigen-rotation MH proposal, with the JAX package's default steps 0.3,
@@ -980,6 +1006,7 @@ def update_gauge(generator, state, data, hp):
 # The two RSS endpoints go through kernel K2 stacked on the chain axis.
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_mgp_scale")
 def update_mgp_scale(generator, state, data, hp, cache: SweepCache, beta=1.0):
     """Four interweaved MGP-scale moves of step 0.03 (the JAX package's
     defaults), each at a random (feature, column) per chain."""
@@ -1042,6 +1069,7 @@ def _noise_scale_log_acc(eps, s, sig2, d0, d0xi, rss_coeffs, n_tot, sumA,
             - sumA * eps - (em - 1.0) * (d0 + d0xi))
 
 
+@traced("ops.gibbs.update_noise_scale")
 def update_noise_scale(generator, state, data, hp, cache: SweepCache,
                        beta=1.0):
     """Eight chained joint (sigma2, MGP/eigen-scale) slide moves of step
@@ -1160,6 +1188,7 @@ def _phi_move_terms(state, data, beta):
 # draws its own column each move: gathers and one-hot masks per chain.
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_phi_chi")
 def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
                    *, sigma_rw=0.1, n_moves=6):
     """``n_moves`` chi-marginal MH column moves on Phi, then the joint chi
@@ -1212,6 +1241,7 @@ def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
     return state.replace(Phi=Phi, chi=chi), cache.replace(w=w)
 
 
+@traced("ops.gibbs.update_phi_mala")
 def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
                     *, step=0.05, n_steps=4):
     """``n_steps`` preconditioned MALA steps on Phi, then the joint chi
@@ -1265,6 +1295,7 @@ def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
 # moves it whenever X has columns (ROADMAP F14).
 # ---------------------------------------------------------------------------
 
+@traced("ops.gibbs.update_hmc_joint")
 def update_hmc_joint(generator, state, data, hp, c, beta=1.0, *, eps=0.01,
                      n_leapfrog=8, inv_mass=None, covariate_cov=False):
     """One jittered-length HMC trajectory of every chain on the whole
@@ -1334,6 +1365,7 @@ def _covariate_tail(generator, state, data, hp, cache, beta, covariate_mean,
     return state, cache
 
 
+@traced("ops.gibbs.sweep_nu_z")
 def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
                beta=1.0):
     """One phase-1 sweep of every chain: Z, pi, alpha3, nu, tau, sigma
@@ -1355,6 +1387,7 @@ def sweep_nu_z(generator, state, data, hp, c, *, covariate_mean=False,
                            covariate_mean, False)[0]
 
 
+@traced("ops.gibbs.sweep_theta")
 def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
                 covariate_cov=False, beta=1.0):
     """One phase-2 sweep of every chain: Phi, delta, A, gamma, tau, sigma,
@@ -1374,6 +1407,7 @@ def sweep_theta(generator, state, data, hp, *, covariate_mean=False,
                            covariate_mean, covariate_cov, eta=False)[0]
 
 
+@traced("ops.gibbs.sweep_full")
 def sweep_full(generator, state, data, hp, c, *, covariate_mean=False,
                covariate_cov=False, beta=1.0, collapsed_z=False,
                gauge=False, p_indep=0.3, phi_chi_moves=0,

@@ -23,6 +23,7 @@ import torch
 
 from bayesfmmm_torch.ops import kernels
 from bayesfmmm_torch.parallel.mesh import data_sum
+from bayesfmmm_torch.utils.observability import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,7 @@ def compute_mu(data, state):
     return kernels.mean_rss(data.B, data.y, w, want_mu=True)[1]
 
 
+@traced("ops.mean.build_cache")
 def build_cache(data, state) -> SweepCache:
     return SweepCache(w=effective_coeffs(state, data.X))
 

@@ -44,6 +44,7 @@ from bayesfmmm_torch.ops import gibbs
 from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
 from bayesfmmm_torch.parallel import mesh as pmesh
+from bayesfmmm_torch.utils.observability import span
 
 
 def geometric_ladder(n_replicas: int, beta_min: float, *,
@@ -163,7 +164,8 @@ def _split_take(mesh, states, perm, parity):
 def pt_step(generator, pt: PTState, data, hp, c, ladder, *, parity,
             n_sweeps_between=1, **sweep_flags):
     """One PT round: ``n_sweeps_between`` tempered sweeps of every replica
-    (one batched ``sweep_full`` at beta = ladder), then one swap phase.
+    (one batched ``sweep_full`` at beta = ladder), then one swap phase (the
+    span ``parallel.tempering.swap`` under torch.profiler).
     ``sweep_flags`` go to ``sweep_full`` (covariate flags and the kernel
     census).  Under a split mesh ``ladder`` is the whole ladder and
     ``pt.states`` this rank's replicas."""
@@ -175,14 +177,15 @@ def pt_step(generator, pt: PTState, data, hp, c, ladder, *, parity,
     for _ in range(n_sweeps_between):
         states = gibbs.sweep_full(generator, states, data, hp, c,
                                   beta=beta, **sweep_flags)
-    E = _loglik_portion(states, data)
-    if mesh is not None:
-        E = mesh.gather(E)
-    u = uniform(generator, E.shape, dtype=E.dtype, device=E.device,
-                chain_dim=None)
-    perm, accepted, attempted = swap_phase(E, ladder, parity, u)
-    states = (take_chains(states, perm) if mesh is None
-              else _split_take(mesh, states, perm, parity))
+    with span("parallel.tempering.swap"):
+        E = _loglik_portion(states, data)
+        if mesh is not None:
+            E = mesh.gather(E)
+        u = uniform(generator, E.shape, dtype=E.dtype, device=E.device,
+                    chain_dim=None)
+        perm, accepted, attempted = swap_phase(E, ladder, parity, u)
+        states = (take_chains(states, perm) if mesh is None
+                  else _split_take(mesh, states, perm, parity))
     return PTState(states, pt.swap_accepts + accepted,
                    pt.swap_attempts + attempted)
 

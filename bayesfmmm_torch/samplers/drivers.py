@@ -9,7 +9,9 @@ production chains are the chain axis.
 Tempered transitions (BFMMM.h:1556-1669) are a Python loop over the 2*N_t
 ladder rungs in place of one iteration's sweep; each chain accepts or
 rejects its own excursion wholesale (CalculateTTAcceptance.h:65-97).
-Nothing in the loops reads a device value on the host.
+Nothing in the loops reads a device value on the host.  Under
+torch.profiler ``run_chain`` (with its sweeps), ``tempered_excursion`` and
+the stacking of the traces are spans (utils/observability.py).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from bayesfmmm_torch.models.state import STATE_FIELDS
 from bayesfmmm_torch.ops import gibbs
 from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
+from bayesfmmm_torch.utils.observability import span, traced
 
 
 class TraceResult(NamedTuple):
@@ -66,6 +69,7 @@ def _excursion_weight(ladder, s):
     return 0.0
 
 
+@traced("samplers.drivers.tempered_excursion")
 def tempered_excursion(generator, state, data, hp, c, ladder, *,
                        sweep_fn=None):
     """One tempered-transition excursion of every chain, accepted or
@@ -126,22 +130,25 @@ def run_chain(generator, state, data, hp, c, *, sweep, n_iters, thin=1,
     gibbs.use_full_f32()
     traces = {f: [] for f in STATE_FIELDS}
     loglik, tt_accept = [], []
-    for i in range(n_iters):
-        it = start_iter + i
-        if use_tt and it > 0 and it % n_temp_trans == 0:
-            state, accept, _ = tempered_excursion(
-                generator, state, data, hp, c, ladder, sweep_fn=sweep)
-            tt_accept.append(accept)
-        else:
-            beta = 1.0 if betas is None else float(betas[i])
-            state = sweep(generator, state, data, hp, c, beta=beta)
-        if (i + 1) % thin == 0:
-            for f in STATE_FIELDS:
-                traces[f].append(getattr(state, f))
-            loglik.append(log_likelihood(state, data))
-    return TraceResult({f: torch.stack(v, 1) for f, v in traces.items()},
-                       torch.stack(loglik, 1), state,
-                       torch.stack(tt_accept, 1) if tt_accept else None)
+    with span("samplers.drivers.run_chain", sweeps=n_iters):
+        for i in range(n_iters):
+            it = start_iter + i
+            if use_tt and it > 0 and it % n_temp_trans == 0:
+                state, accept, _ = tempered_excursion(
+                    generator, state, data, hp, c, ladder, sweep_fn=sweep)
+                tt_accept.append(accept)
+            else:
+                beta = 1.0 if betas is None else float(betas[i])
+                state = sweep(generator, state, data, hp, c, beta=beta)
+            if (i + 1) % thin == 0:
+                for f in STATE_FIELDS:
+                    traces[f].append(getattr(state, f))
+                loglik.append(log_likelihood(state, data))
+        with span("samplers.drivers.stack_traces"):
+            return TraceResult(
+                {f: torch.stack(v, 1) for f, v in traces.items()},
+                torch.stack(loglik, 1), state,
+                torch.stack(tt_accept, 1) if tt_accept else None)
 
 
 # ---------------------------------------------------------------------------

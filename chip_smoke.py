@@ -203,7 +203,9 @@ only with every other phase, whose launch counts they read):
 It then prints the card's name and power limit, one JSON line of kernel
 numbers, and as its last line {"ok": true, "device": {...}}.  Where the
 production sweep's time goes, updater by updater, is measured apart:
-python3 -m bayesfmmm_torch.utils.profile_sweep.
+python3 portbench/run.py --workload <cell> --seed <n> --seconds 51
+--trace 1, and the program's spans that utils/observability.py's
+trace_profile writes beside the profiler's events.
 """
 
 import json

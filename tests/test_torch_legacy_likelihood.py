@@ -10,8 +10,9 @@ hooks, against the JAX package's, on the CPU.
   ``observation_marginal_loglik`` equal JAX's on identical states, with and
   without covariates, to float32 rounding (relative 2e-5; the covariance's
   and the marginal's sums run over L = 15 points of order-one terms).
-* ``trace_profile`` writes a Chrome trace; ``debug_nans`` raises on a NaN in
-  a backward pass and restores the previous setting.
+* ``trace_profile`` writes a Chrome trace with the program's spans on a
+  track of their own; ``debug_nans`` raises on a NaN in a backward pass and
+  restores the previous setting.
 """
 
 import json
@@ -200,13 +201,24 @@ def test_observation_marginal_is_the_chi_integral():
 
 def test_trace_profile_writes_a_trace(tmp_path):
     with observability.trace_profile(str(tmp_path / "prof")) as prof:
-        x = torch.randn(64, 64)
-        (x @ x).sum()
+        with observability.span("test.region", bytes=64):
+            x = torch.randn(64, 64)
+            (x @ x).sum()
     files = list((tmp_path / "prof").glob("trace_*.json"))
     assert len(files) == 1
-    events = json.loads(files[0].read_text())["traceEvents"]
-    assert any("matmul" in str(e.get("name", "")) for e in events)
+    trace = json.loads(files[0].read_text())
+    events = trace["traceEvents"]
+    matmul = [e for e in events if "matmul" in str(e.get("name", ""))]
+    assert matmul
     assert len(prof.key_averages()) > 0
+    # the program's span, on a track of its own around the matmul
+    spans = [e for e in events if e.get("cat") == "span"]
+    assert [(e["name"], e["ph"], e["args"]) for e in spans] == [
+        ("test.region", "X", {"bytes": 64})]
+    assert all(e["pid"] != spans[0]["pid"] for e in matmul)
+    m = matmul[0]
+    assert spans[0]["ts"] - 1e3 <= m["ts"] <= m["ts"] + m["dur"] \
+        <= spans[0]["ts"] + spans[0]["dur"] + 1e3
 
 
 def test_debug_nans_raises_in_backward_and_restores():
