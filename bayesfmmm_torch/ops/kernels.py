@@ -27,7 +27,10 @@ bound with ctypes; each C entry point launches on PyTorch's current stream,
 allocates nothing and returns cudaGetLastError().
 
 ``LAUNCHES`` counts kernel launches (one per launch, nowhere else), so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels.  A sweep that a
+CUDA graph replays (samplers/drivers.py) launches its kernels from the
+graph: they are counted once, when the graph is captured, and not at its
+replays (``drivers.SWEEP_GRAPHS`` counts those).
 
 What surrounds the CUDA code is kept here, where the CPU tests reach it:
 ``chol_solve_plan`` chooses which of K1's three kernels serves a shape, and

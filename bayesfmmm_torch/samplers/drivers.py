@@ -6,12 +6,25 @@ batched sweeps of ops/gibbs.py, and the traces stack on the device with the
 chain axis first.  Restarts ("n_try", UserFunctions.cpp:302-325) and
 production chains are the chain axis.
 
+On the card ``phase_warm_start`` runs ``sweep_full``'s reference census as
+replays of a CUDA graph instead (``replay_chain``; ``replays_sweep`` says
+when): one sweep, its log-likelihood and the copy of the new state into the
+graph's buffers, captured once.  A process keeps one graph, so later runs
+on the same data and shapes replay without a capture; a run that needs
+another captures it in its place.  The replays draw what the eager sweeps
+draw, bit for bit: the graph's generator takes the run's generator state
+before them and gives it back after.  Both loops keep their draws the same
+way (``_run``).  ``SWEEP_GRAPHS`` counts captures, replays and the
+iterations run eagerly.
+
 Tempered transitions (BFMMM.h:1556-1669) are a Python loop over the 2*N_t
 ladder rungs in place of one iteration's sweep; each chain accepts or
 rejects its own excursion wholesale (CalculateTTAcceptance.h:65-97).
 Nothing in the loops reads a device value on the host.  Under
-torch.profiler ``run_chain`` (with its sweeps), ``tempered_excursion`` and
-the stacking of the traces are spans (utils/observability.py).
+torch.profiler ``run_chain`` (with its sweeps), ``tempered_excursion``, the
+stacking of the traces and a graph's capture (``capture_sweep``) are spans
+(utils/observability.py); a replay is a span ``ops.gibbs.sweep_full``
+without updater spans inside.
 """
 
 from __future__ import annotations
@@ -23,10 +36,11 @@ import numpy as np
 import torch
 
 from bayesfmmm_torch.models.likelihood import log_likelihood
-from bayesfmmm_torch.models.state import STATE_FIELDS
+from bayesfmmm_torch.models.state import STATE_FIELDS, GibbsState
 from bayesfmmm_torch.ops import gibbs
 from bayesfmmm_torch.ops.distributions import uniform
 from bayesfmmm_torch.ops.mean import effective_coeffs, rss_from_coeffs
+from bayesfmmm_torch.parallel.mesh import active_mesh
 from bayesfmmm_torch.utils.observability import span, traced
 
 
@@ -112,6 +126,44 @@ def tempered_excursion(generator, state, data, hp, c, ladder, *,
     return gibbs.select_state(accept, st, state), accept, logA
 
 
+# ---------------------------------------------------------------------------
+# The run's loop
+# ---------------------------------------------------------------------------
+
+def _run(step, state, data, *, n_iters, thin, betas, hold=None):
+    """The loop of a run: ``step(i, state, beta)`` gives iteration i's
+    state, its log-likelihood where the step takes one (None where not) and
+    a tempered excursion's acceptance (None after a sweep).  Every
+    ``thin``-th state and its log-likelihood are kept, and the traces stack
+    on the device at the end; ``hold`` copies what the step gives where it
+    overwrites it later (a captured sweep's buffers)."""
+    if betas is not None and len(betas) != n_iters:
+        raise ValueError(f"betas has {len(betas)} entries for {n_iters} "
+                         f"sweeps")
+    keep = hold or (lambda t: t)
+    traces = {f: [] for f in STATE_FIELDS}
+    loglik, tt_accept = [], []
+    with span("samplers.drivers.run_chain", sweeps=n_iters):
+        for i in range(n_iters):
+            beta = 1.0 if betas is None else float(betas[i])
+            state, ll, accept = step(i, state, beta)
+            if accept is not None:
+                tt_accept.append(accept)
+            if (i + 1) % thin == 0:
+                for f in STATE_FIELDS:
+                    traces[f].append(keep(getattr(state, f)))
+                loglik.append(log_likelihood(state, data) if ll is None
+                              else keep(ll))
+        if hold:
+            state = GibbsState(**{f: hold(getattr(state, f))
+                                  for f in STATE_FIELDS})
+        with span("samplers.drivers.stack_traces"):
+            return TraceResult(
+                {f: torch.stack(v, 1) for f, v in traces.items()},
+                torch.stack(loglik, 1), state,
+                torch.stack(tt_accept, 1) if tt_accept else None)
+
+
 def run_chain(generator, state, data, hp, c, *, sweep, n_iters, thin=1,
               betas=None, n_temp_trans=0, ladder=None, start_iter=0):
     """Run ``n_iters`` sweeps of every chain, keeping every ``thin``-th
@@ -122,33 +174,180 @@ def run_chain(generator, state, data, hp, c, *, sweep, n_iters, thin=1,
     ``ladder``, a tempered excursion replaces the sweep of every iteration
     i > 0 with i % n_temp_trans == 0, where i counts from ``start_iter``:
     a run continued from iteration ``start_iter`` keeps the schedule of the
-    unbroken run."""
-    if betas is not None and len(betas) != n_iters:
-        raise ValueError(f"betas has {len(betas)} entries for {n_iters} "
-                         f"sweeps")
+    unbroken run.  Every iteration runs eagerly; ``phase_warm_start``
+    replays a captured sweep instead where it can (``replay_chain``)."""
     use_tt = bool(n_temp_trans) and ladder is not None
     gibbs.use_full_f32()
-    traces = {f: [] for f in STATE_FIELDS}
-    loglik, tt_accept = [], []
-    with span("samplers.drivers.run_chain", sweeps=n_iters):
-        for i in range(n_iters):
-            it = start_iter + i
-            if use_tt and it > 0 and it % n_temp_trans == 0:
-                state, accept, _ = tempered_excursion(
-                    generator, state, data, hp, c, ladder, sweep_fn=sweep)
-                tt_accept.append(accept)
-            else:
-                beta = 1.0 if betas is None else float(betas[i])
-                state = sweep(generator, state, data, hp, c, beta=beta)
-            if (i + 1) % thin == 0:
-                for f in STATE_FIELDS:
-                    traces[f].append(getattr(state, f))
-                loglik.append(log_likelihood(state, data))
-        with span("samplers.drivers.stack_traces"):
-            return TraceResult(
-                {f: torch.stack(v, 1) for f, v in traces.items()},
-                torch.stack(loglik, 1), state,
-                torch.stack(tt_accept, 1) if tt_accept else None)
+
+    def step(i, st, beta):
+        SWEEP_GRAPHS["eager"] += 1
+        it = start_iter + i
+        if use_tt and it > 0 and it % n_temp_trans == 0:
+            st, accept, _ = tempered_excursion(
+                generator, st, data, hp, c, ladder, sweep_fn=sweep)
+            return st, None, accept
+        return sweep(generator, st, data, hp, c, beta=beta), None, None
+
+    return _run(step, state, data, n_iters=n_iters, thin=thin, betas=betas)
+
+
+# ---------------------------------------------------------------------------
+# The captured sweep
+# ---------------------------------------------------------------------------
+
+# Events of the captured sweep, each counted once: a graph captured, a sweep
+# replayed, an iteration run eagerly (a warm-up sweep before a capture, or an
+# iteration of a run that replays nothing).
+SWEEP_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
+
+# Eager sweeps of a run before it captures its graph: they load every
+# kernel and library the sweep uses, which a capture cannot do.
+WARMUP_SWEEPS = 1
+
+# sweep_full's flags that turn on a kernel outside the reference census.
+_CENSUS_SWITCHES = ("collapsed_z", "gauge", "phi_chi_moves",
+                    "phi_mala_steps", "z_anchor", "hmc_steps")
+
+# The process's one captured sweep (a SweepGraph), replaced by the next
+# capture.
+_GRAPH = None
+
+
+def replays_sweep(device, mesh, flags, n_temp_trans):
+    """Whether a run of ``sweep_full(**flags)`` replays a captured sweep:
+    only on CUDA, outside a mesh (whose draws broadcast over the host's
+    collectives), without tempered excursions, and for the reference census
+    (covariate flags allowed)."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and not n_temp_trans
+            and not any(flags.get(k) for k in _CENSUS_SWITCHES))
+
+
+class SweepBuffers(NamedTuple):
+    """What a captured sweep reads and writes, at fixed addresses."""
+    state: GibbsState     # the chains' state, updated in place
+    c: torch.Tensor       # pi's Dirichlet prior (K,)
+    beta: torch.Tensor    # (C,) temperature
+    loglik: torch.Tensor  # (C,) log-likelihood of the new state
+
+
+def buffered_sweep(generator, buf, data, hp, flags):
+    """One ``sweep_full`` of ``buf.state`` at ``buf.beta`` and the new
+    state's log-likelihood, both written into ``buf``: the step a captured
+    graph replays."""
+    new = gibbs.sweep_full(generator, buf.state, data, hp, buf.c,
+                           beta=buf.beta, **flags)
+    for f in STATE_FIELDS:
+        getattr(buf.state, f).copy_(getattr(new, f))
+    buf.loglik.copy_(log_likelihood(new, data))
+
+
+def sweep_graph_key(data, hp, flags, state, c):
+    """What a captured sweep bakes in: the data object (by identity), the
+    priors and flags by value, the state's shapes and dtypes, c's shape,
+    the device, the matmul TF32 switch, and the sweep and log-likelihood
+    functions the step calls as they are now."""
+    return (id(data), repr(hp), tuple(sorted(flags.items())),
+            tuple((tuple(getattr(state, f).shape), getattr(state, f).dtype)
+                  for f in STATE_FIELDS),
+            tuple(c.shape), c.dtype, state.Z.device,
+            torch.backends.cuda.matmul.allow_tf32, gibbs.sweep_full,
+            log_likelihood)
+
+
+class SweepGraph:
+    """``buffered_sweep`` captured once, with its buffers and a generator of
+    its own; ``load`` gives it a run's state, c and generator state before
+    the replays.  It holds its data, whose tensors the graph reads."""
+
+    def __init__(self, key, data, hp, flags, state, c):
+        self.key, self.data, self.hp, self.flags = key, data, hp, flags
+        self.generator = torch.Generator(device=state.Z.device)
+        self.buf = SweepBuffers(
+            GibbsState(**{f: getattr(state, f).clone()
+                          for f in STATE_FIELDS}),
+            c.clone(), torch.ones_like(state.sigma2),
+            torch.empty_like(state.sigma2))
+        self.beta = 1.0
+        with span("samplers.drivers.capture_sweep"):
+            self.graph = self._capture()
+        SWEEP_GRAPHS["captures"] += 1
+
+    def _capture(self):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.device(self.buf.c.device):
+            # captured on a stream of the graph's own device; a replay
+            # launches on that device's current stream
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
+                                  capture_error_mode="thread_local"):
+                self.step()
+        return graph
+
+    def step(self):
+        buffered_sweep(self.generator, self.buf, self.data, self.hp,
+                       self.flags)
+
+    def replay(self):
+        self.graph.replay()
+
+    def load(self, generator, state, c):
+        self.generator.set_state(generator.get_state())
+        for f in STATE_FIELDS:
+            getattr(self.buf.state, f).copy_(getattr(state, f))
+        self.buf.c.copy_(c)
+
+    def set_beta(self, beta):
+        if beta != self.beta:
+            self.buf.beta.fill_(beta)
+            self.beta = beta
+
+
+def _capture(key, data, hp, flags, state, c):
+    """The process's graph for ``key``, captured from ``state``; the graph
+    held before is dropped first, and its memory pool with it."""
+    global _GRAPH
+    _GRAPH = None
+    _GRAPH = SweepGraph(key, data, hp, flags, state, c)
+    return _GRAPH
+
+
+def replay_chain(generator, state, data, hp, c, flags, *, n_iters, thin=1,
+                 betas=None):
+    """``run_chain`` of ``sweep_full(**flags)`` as replays of the process's
+    captured sweep, which also takes the new state's log-likelihood; for
+    the runs ``replays_sweep`` allows.  Where the process holds no graph for
+    this key (``sweep_graph_key``), the run's first ``WARMUP_SWEEPS`` sweeps
+    run eagerly and the next is captured, in place of the graph held
+    before.  The graph's generator takes ``generator``'s state before the
+    replays and gives it back after, so the draws, log-likelihoods, final
+    state and generator state are those of the eager loop, bit for bit; the
+    kept draws are copies of the graph's buffers."""
+    gibbs.use_full_f32()
+    key = sweep_graph_key(data, hp, flags, state, c)
+    graph = _GRAPH if _GRAPH is not None and _GRAPH.key == key else None
+    n_eager = 0 if graph is not None else min(WARMUP_SWEEPS, n_iters)
+
+    def step(i, st, beta):
+        nonlocal graph
+        if i < n_eager:
+            SWEEP_GRAPHS["eager"] += 1
+            return (gibbs.sweep_full(generator, st, data, hp, c, beta=beta,
+                                     **flags), None, None)
+        if i == n_eager:
+            graph = graph or _capture(key, data, hp, flags, st, c)
+            graph.load(generator, st, c)
+        graph.set_beta(beta)
+        with span("ops.gibbs.sweep_full"):
+            graph.replay()
+        SWEEP_GRAPHS["replays"] += 1
+        return graph.buf.state, graph.buf.loglik, None
+
+    res = _run(step, state, data, n_iters=n_iters, thin=thin, betas=betas,
+               hold=torch.clone)
+    if n_iters > n_eager:
+        generator.set_state(graph.generator.get_state())
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +388,14 @@ def phase_warm_start(generator, state, data, hp, c, *, n_iters, thin=1,
     ops/gibbs.py::sweep_full (the reference census without any; the bench's
     production census with collapsed_z=True, gauge=True, p_indep=0.3,
     phi_mala_steps=4, phi_mala_step=0.05); the excursions' rungs run the
-    same sweep."""
+    same sweep.  Where ``replays_sweep`` allows (the card, no mesh, no
+    excursions, the reference census), the run replays a captured sweep
+    (``replay_chain``) with the eager loop's bits; elsewhere it is
+    ``run_chain``'s eager loop."""
+    if replays_sweep(state.Z.device, active_mesh(), sweep_flags,
+                     n_temp_trans):
+        return replay_chain(generator, state, data, hp, c, sweep_flags,
+                            n_iters=n_iters, thin=thin, betas=betas)
     sweep = functools.partial(gibbs.sweep_full, **sweep_flags)
     ladder = make_temperature_ladder(beta_N_t, N_t) if n_temp_trans else None
     return run_chain(generator, state, data, hp, c, sweep=sweep,

@@ -200,6 +200,14 @@ only with every other phase, whose launch counts they read):
      configs 4 (16 and 256 chains), 4 at two covariates (16 and 256), 3, 1
      and 5.
 
+Launch counts are those ops/kernels.py counts where a kernel is launched:
+a sweep run eagerly, or a sweep captured in a CUDA graph.  A run of the
+reference census replays its captured sweep (samplers/drivers.py), whose
+launches come from the graph and are not counted; such a run is predicted
+one sweep's launches for each sweep run eagerly or captured, and its
+captures, replays and eager sweeps (``drivers.SWEEP_GRAPHS``) are printed
+beside it and kept under "sweep_graphs" in the line of kernel numbers.
+
 It then prints the card's name and power limit, one JSON line of kernel
 numbers, and as its last line {"ok": true, "device": {...}}.  Where the
 production sweep's time goes, updater by updater, is measured apart:
@@ -713,12 +721,14 @@ def path_phase(dev, name):
     torch.cuda.synchronize()
 
     kernels.reset_launch_counts()
+    events = graph_events()
     t0 = time.perf_counter()
     res = drivers.phase_warm_start(g, st, data, hp, c, n_iters=p["sweeps"],
                                    betas=betas, **flags)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = counters()
+    counted = counted_sweeps(name, graph_events(events), p["sweeps"])
 
     final = state_to_numpy(res.final_state)
     for f, v in final.items():
@@ -736,9 +746,9 @@ def path_phase(dev, name):
           f"median sigma2 {med_s2:.6f}; launches {counts}")
     check(med_ll > med0, f"{name}: ensemble loglik did not rise")
     for k, n in per_sweep.items():
-        check(counts[k] == n * p["sweeps"],
-              f"{name}: {k} launched {counts[k]} times in {p['sweeps']} "
-              f"sweeps, expected {n} per sweep")
+        check(counts[k] == n * counted,
+              f"{name}: {k} launched {counts[k]} times in {counted} "
+              f"counted sweeps, expected {n} per sweep")
     for stat, med in (("loglik", med_ll), ("sigma2", med_s2)):
         lo, hi = ref[stat]["limits"]
         print(f"  {name} {stat}: port median {med:.6g}, JAX median "
@@ -839,15 +849,45 @@ class ShapeProbe:
               f"kernel{'s' if want else ''}: {shapes}")
 
 
+# the captured sweep's events (drivers.SWEEP_GRAPHS) of each run that
+# counted_sweeps saw, by the run's name
+SWEEP_GRAPH_RUNS = {}
+
+
+def graph_events(before=None):
+    """What drivers.SWEEP_GRAPHS counts, as a dict of its own; with
+    ``before`` (such a dict), what it rose by since."""
+    now = dict(drivers.SWEEP_GRAPHS)
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+def counted_sweeps(what, events, n):
+    """Of ``n`` sweeps that a run made with the captured sweep's ``events``
+    (graph_events' rise over the run), the number whose launches
+    ``kernels.LAUNCHES`` counted: each sweep run eagerly, and one for each
+    capture, which counted one sweep with its loglik probe.  A replayed
+    sweep launches its kernels from the graph and is not counted.  Checks
+    that every sweep ran, eagerly or as a replay, and keeps the events
+    under ``what`` for the line."""
+    check(events["eager"] + events["replays"] == n,
+          f"{what}: {events} for {n} sweeps")
+    SWEEP_GRAPH_RUNS[what] = events
+    print(f"  {what}: {events['eager']} sweeps eager, {events['captures']} "
+          f"captured, {events['replays']} replayed")
+    return events["eager"] + events["captures"]
+
+
 class PhaseProbe:
     """While active, api.fit_nu_z, api.fit_theta and api.fit_warm_start (the
     names api.fit calls its phases by) record for each call (result,
-    seconds ending in a synchronise, what every counter rose by)."""
+    seconds ending in a synchronise, what every counter rose by) in
+    ``calls``, and what the captured sweep's events rose by in
+    ``graphs``."""
 
     NAMES = ("fit_nu_z", "fit_theta", "fit_warm_start")
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.graphs = [], []
 
     def __enter__(self):
         self._originals = {name: getattr(api, name) for name in self.NAMES}
@@ -861,13 +901,14 @@ class PhaseProbe:
 
     def _wrap(self, name, fn):
         def wrapper(*a, **kw):
-            before = counters()
+            before, events = counters(), graph_events()
             t0 = time.perf_counter()
             res = fn(*a, **kw)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             self.calls.append((name, res, seconds, {
                 k: v - before[k] for k, v in counters().items()}))
+            self.graphs.append(graph_events(events))
             return res
         return wrapper
 
@@ -1213,6 +1254,8 @@ def config4_phase(dev, card, name="config4"):
     (_, _, s1, c1), (_, _, s2, c2), (_, _, sa, ca), (_, _, sb, cb) = \
         probe.calls[:4]
     n1, n2, na = p["nu_z_iters"], p["theta_iters"], pr["warm_iters"]
+    ka = counted_sweeps(f"{what} phase 3, reference census", probe.graphs[2],
+                        na)
     finite_result(f"{what} reference", ra, pr["port_chains"], na)
     finite_result(f"{what} production", rb, C, n)
     check_counts(f"{what} phase 1", c1,
@@ -1221,7 +1264,7 @@ def config4_phase(dev, card, name="config4"):
                  {k: v * n2 for k, v in per_sweep("theta", "xi").items()})
     check_counts(f"{what} phase 3, {pr['port_chains']} chains, reference "
                  f"census", ca,
-                 phase3_launches(per_sweep("reference", "xi"), na)[1])
+                 phase3_launches(per_sweep("reference", "xi"), ka)[1])
     n_exc, want = phase3_launches(per_sweep("production", "xi"), n,
                                   pp["n_temp_trans"], pp["N_t"])
     check_counts(f"{what} phase 3, {C} chains, production census, "
@@ -1230,14 +1273,14 @@ def config4_phase(dev, card, name="config4"):
     # a phase-3 sweep draws Phi and xi once each, both at 256 at D = 1
     draws = {D: [256, D_xi].count(D) for D in want_k1}
     for D, k in draws.items():
-        check(by_shape[("chol_solve", (pr["port_chains"], D))] == k * na
+        check(by_shape[("chol_solve", (pr["port_chains"], D))] == k * ka
               and by_shape[("chol_solve", (C, D))]
               == k * want["chol_solve"] // 2,
               f"{what}: K1 did not launch {k} times a phase-3 sweep at "
               f"D = {D}")
     # update_eta's K3 at R = C D K once a phase-3 sweep of either ensemble
     # (at D = 1 update_nu's R = C K is the same shape)
-    for R, times in ((pr["port_chains"] * p["D"] * p["K"], na),
+    for R, times in ((pr["port_chains"] * p["D"] * p["K"], ka),
                      (C * p["D"] * p["K"], want["weighted_gram"] // 2)):
         got = by_shape.get(("weighted_gram", (R, p["N"], p["P"])))
         check(got == times * (2 if p["D"] == 1 else 1),
@@ -1300,6 +1343,7 @@ def config3_phase(dev, card):
                       [0, p["anneal"] - 1, p["sweeps"] - 1],
                       [p["beta0"], 1.0, 1.0])
     kernels.reset_launch_counts()
+    events = graph_events()
     t0 = time.perf_counter()
     with ShapeProbe() as shapes:
         res = drivers.phase_warm_start(g, st, data, hp, c,
@@ -1308,13 +1352,14 @@ def config3_phase(dev, card):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = counters()
+    counted = counted_sweeps("config 3", graph_events(events), p["sweeps"])
     for f, v in state_to_numpy(res.final_state).items():
         check(np.all(np.isfinite(v)), f"config 3: final {f} not finite")
     check(float(res.final_state.eta.abs().max()) > 0
           and not bool(res.final_state.xi.any()),
           "config 3: eta did not move, or xi did")
     check_counts("config 3", counts, {
-        k: v * p["sweeps"] for k, v in per_sweep("reference", "eta").items()})
+        k: v * counted for k, v in per_sweep("reference", "eta").items()})
     shapes.check_k1("config 3", "tiled")
     gate(f"config 3 ({C} chains)", ref["ensemble"], rule,
          res.loglik[:, -1].cpu(), res.final_state.sigma2.cpu())
@@ -1425,12 +1470,14 @@ def check_ci(what, ci, shape):
 
 
 def r_named_phases(probe, n_calls):
-    """The (seconds, launches) of the last ``n_calls`` api.fit_* calls the
-    probe saw, which must be fit_nu_z, fit_theta, fit_warm_start."""
+    """The (seconds, launches, captured sweep's events) of the last
+    ``n_calls`` api.fit_* calls the probe saw, which must be fit_nu_z,
+    fit_theta, fit_warm_start."""
     calls = probe.calls[-n_calls:]
     check([c[0] for c in calls] == list(PhaseProbe.NAMES),
           f"the R-named fitters ran {[c[0] for c in calls]}")
-    return [(s, {k: c[k] for k in KERNEL_NAMES}) for _, _, s, c in calls]
+    return [(s, {k: c[k] for k in KERNEL_NAMES}, ev) for (_, _, s, c), ev
+            in zip(calls, probe.graphs[-n_calls:])]
 
 
 def ref_api_functional(dev, card):
@@ -1460,7 +1507,7 @@ def ref_api_functional(dev, card):
                                       n_temp_trans=p["n_temp_trans"],
                                       N_t=p["N_t"], beta_N_t=p["beta_N_t"])
         counts = counters()
-        (s1, c1), (s2, c2), (s3, c3) = r_named_phases(probe, 3)
+        (s1, c1, _), (s2, c2, _), (s3, c3, _) = r_named_phases(probe, 3)
         check(est1.data.device.type == dev.type
               and torch.equal(est1.data.B, sim.B)
               and torch.equal(est1.data.y, sim.y),
@@ -1640,14 +1687,15 @@ def ref_api_families(dev):
         e3 = R.BMVMMM_warm_start(n, e1, e2, dir=d1)
         counts["config1"] = counters()
         phases = r_named_phases(probe, 3)
-        for (s, c), sweep in zip(phases, ("nu_z", "theta", "reference")):
+        for (s, c, ev), sweep in zip(phases, ("nu_z", "theta", "reference")):
+            m = counted_sweeps(f"R-named config 1, {sweep}", ev, n)
             check_counts(f"R-named config 1, {sweep}", c,
-                         {k: v * n for k, v in per_sweep(sweep, "mv").items()})
+                         {k: v * m for k, v in per_sweep(sweep, "mv").items()})
         check(counts["config1"]["mean_rss"] == 0
               and counts["config1"]["weighted_gram"] == 0
               and counts["config1"]["chol_solve"] > 0,
               f"R-named config 1 launched {counts['config1']}")
-        seconds["config1"] = [s for s, _ in phases]
+        seconds["config1"] = [s for s, _, _ in phases]
         check(e3.data.identity_basis and "B" not in e3 and np.allclose(
             e3["tau"], 1.0 / np.moveaxis(e3.traces["tau"], 0, -1)),
             "config 1: the MV list's tau or B")
@@ -1686,10 +1734,11 @@ def ref_api_families(dev):
         R.BHDFMMM_warm_start(n, e1, e2, dir=d5)
         counts["config5"] = counters()
         phases = r_named_phases(probe, 3)
-        for (s, c), sweep in zip(phases, ("nu_z", "theta", "reference")):
+        for (s, c, ev), sweep in zip(phases, ("nu_z", "theta", "reference")):
+            m = counted_sweeps(f"R-named config 5, {sweep}", ev, n)
             check_counts(f"R-named config 5, {sweep}", c,
-                         {k: v * n for k, v in per_sweep(sweep, "hd").items()})
-        seconds["config5"] = [s for s, _ in phases]
+                         {k: v * m for k, v in per_sweep(sweep, "hd").items()})
+        seconds["config5"] = [s for s, _, _ in phases]
         check(torch.equal(e1.data.B, data.B) and e1.data.P == 16,
               "config 5: the R names built other data")
         for k in range(1, K + 1):
@@ -2306,16 +2355,19 @@ def advi_phase(dev, g, card):
     grad_err = k2_grad_phase(dev, g, [(4, 100, 100, 8)])
 
     # 1. fit_advi_init: K2 forward and backward once an ADVI step; the warm
-    # start's reference census K1 / K2 / K3 1 / 2 / 1 a sweep
+    # start's reference census K1 / K2 / K3 1 / 2 / 1 a sweep run eagerly or
+    # captured (its replays launch from the graph)
     kernels.reset_launch_counts()
+    events = graph_events()
     t0 = time.perf_counter()
     res = advi_fit(dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = dict(kernels.LAUNCHES)
     n_w, n_a = p["warm_iters"], p["advi_steps"]
-    want = {"chol_solve": n_w, "mean_rss": n_a + 2 * n_w,
-            "mean_rss_grad": n_a, "weighted_gram": n_w}
+    k_w = counted_sweeps("fit_advi_init", graph_events(events), n_w)
+    want = {"chol_solve": k_w, "mean_rss": n_a + 2 * k_w,
+            "mean_rss_grad": n_a, "weighted_gram": k_w}
     print(f"  fit_advi_init: {n_a} ADVI steps, {p['n_chains']} chains x "
           f"{n_w} sweeps in {seconds:.3f} s; launches {counts}")
     check(counts == want, f"fit_advi_init: launches {counts}, expected "
@@ -3896,6 +3948,7 @@ def main(argv=None):
         line["kernels"].extend(advi_entries)
     if "timings" in phases:
         lap("timings")
+    line["sweep_graphs"] = SWEEP_GRAPH_RUNS
     line["phase_seconds"] = took
     print(f"phases' seconds on the host's clock: "
           + ", ".join(f"{k} {v}" for k, v in took.items())

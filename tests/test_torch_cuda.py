@@ -875,21 +875,30 @@ def test_fit_pt_and_fit_smc_run_on_the_card_by_default(dev):
 def test_fit_advi_init_runs_on_the_card_by_default(dev):
     """A short fit_advi_init with no device given: the data goes to the
     card, K2 forward and backward launch once an ADVI step, then the warm
-    start's reference census 1/2/1 a sweep, and every draw is finite."""
+    start's reference census 1/2/1 a sweep counted at its warm-up sweep and
+    its capture (the other 99 sweeps replay the graph), and every draw is
+    finite."""
     import numpy as np
 
     from bayesfmmm_torch import api
+    from bayesfmmm_torch.samplers import drivers
     from bayesfmmm_torch.utils.simulate import simulate_functional
 
     data, _ = simulate_functional(seed=3, N=20, K=2, P=5, M=2,
                                   n_time=(12, 16), device="cpu")
     kernels.reset_launch_counts()
+    before = dict(drivers.SWEEP_GRAPHS)
     res = api.fit_advi_init(data, K=2, M=2, advi_steps=40, warm_iters=100,
                             n_chains=3)
     torch.cuda.synchronize()
     assert res.data.device.type == "cuda"
-    assert kernels.LAUNCHES == {"chol_solve": 100, "mean_rss": 40 + 200,
-                                "mean_rss_grad": 40, "weighted_gram": 100}
+    n = drivers.WARMUP_SWEEPS + 1
+    assert drivers.SWEEP_GRAPHS == dict(
+        before, captures=before["captures"] + 1,
+        replays=before["replays"] + 100 - drivers.WARMUP_SWEEPS,
+        eager=before["eager"] + drivers.WARMUP_SWEEPS)
+    assert kernels.LAUNCHES == {"chol_solve": n, "mean_rss": 40 + 2 * n,
+                                "mean_rss_grad": 40, "weighted_gram": n}
     assert np.all(np.isfinite(res.elbo_trace))
     assert np.all(np.isfinite(res.all_chain_loglik))
 
@@ -927,3 +936,206 @@ def test_default_off_sweep_on_the_card(dev, D):
         assert bool(torch.isfinite(getattr(st, f)).all()), f
     torch.testing.assert_close(st.Z.sum(-1), torch.ones_like(st.Z[..., 0]))
     assert not st.xi.any()
+
+
+# ---------------------------------------------------------------------------
+# The captured sweep (samplers/drivers.py): replays against the eager loop
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """No graph held when the test starts, so that it captures its own."""
+    from bayesfmmm_torch.samplers import drivers
+    monkeypatch.setattr(drivers, "_GRAPH", None)
+    return drivers
+
+
+def _eager_run(monkeypatch, fn):
+    """``fn()`` with run_chain on its eager loop."""
+    from bayesfmmm_torch.samplers import drivers
+    with monkeypatch.context() as m:
+        m.setattr(drivers, "replays_sweep", lambda *a: False)
+        return fn()
+
+
+def _same_run(a, b):
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    for f in STATE_FIELDS:
+        assert torch.equal(a.traces[f], b.traces[f]), f
+        assert torch.equal(getattr(a.final_state, f),
+                           getattr(b.final_state, f)), f
+    assert torch.equal(a.loglik, b.loglik)
+
+
+def _graph_model(dev, C, family="headline"):
+    """(data, state, c, sweep flags): the headline model (K=3, P=8, M=4,
+    N=100 curves of 100 points), config 4's covariate-adjusted model at two
+    covariates (xi's joint draw at D = 512, K1's panels kernel with its
+    cluster launch), or the multivariate family (identity basis)."""
+    from bayesfmmm_torch.config import ModelConfig
+    from bayesfmmm_torch.models.state import init_state
+    from bayesfmmm_torch.utils.simulate import (simulate_functional,
+                                                simulate_multivariate)
+    if family == "headline":
+        data, _ = simulate_functional(seed=11, N=100, K=3, P=8, M=4,
+                                      n_time=(100, 100), device=dev)
+        cfg = ModelConfig(K=3, P=8, M=4)
+    elif family == "covariates":
+        data, _ = simulate_functional(seed=7, N=80, K=2, P=8, M=16, D=2,
+                                      n_time=(100, 100), with_eta=True,
+                                      with_xi=True, device=dev)
+        cfg = ModelConfig(K=2, P=8, M=16, D=2, covariate_mean=True,
+                          covariate_cov=True)
+    else:
+        data, _ = simulate_multivariate(seed=7, N=200, K=2, P=10, M=3,
+                                        device=dev)
+        cfg = ModelConfig(K=2, P=10, M=3, family="multivariate")
+    st = init_state(torch.Generator(device=dev).manual_seed(1), cfg, data,
+                    chains=C)
+    c = torch.full((cfg.K,), 10.0, device=dev)
+    return data, st, c, dict(covariate_mean=cfg.covariate_mean,
+                             covariate_cov=cfg.covariate_cov)
+
+
+@pytest.mark.parametrize("C,thin", [(1, 1), (1, 2), (8, 1), (8, 2)])
+def test_captured_reference_run_gives_the_eager_bits(dev, fresh_graphs,
+                                                     monkeypatch, C, thin):
+    """Seven sweeps of the headline model's reference census, captured and
+    replayed, against the eager loop from the same generator state: every
+    trace, the log-likelihoods, the final state and the generator's state
+    afterwards bit for bit; one capture, the rest replays; K1, K2 and K3
+    launched (counted at the warm-up and the capture)."""
+    from bayesfmmm_torch.config import Priors
+    drivers = fresh_graphs
+    data, st, c, flags = _graph_model(dev, C)
+
+    def run(seed_gen):
+        return seed_gen, drivers.phase_warm_start(
+            seed_gen, st, data, Priors(), c, n_iters=7, thin=thin, **flags)
+
+    g_e, want = _eager_run(monkeypatch, lambda: run(
+        torch.Generator(device=dev).manual_seed(3)))
+    before = dict(drivers.SWEEP_GRAPHS)
+    kernels.reset_launch_counts()
+    g_r, got = run(torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    assert {k: drivers.SWEEP_GRAPHS[k] - before[k] for k in before} == {
+        "captures": 1, "replays": 7 - drivers.WARMUP_SWEEPS,
+        "eager": drivers.WARMUP_SWEEPS}
+    # the warm-up sweeps with their kept draws' log-likelihoods, and the
+    # capture's sweep and log-likelihood
+    W = drivers.WARMUP_SWEEPS
+    kept = sum((i + 1) % thin == 0 for i in range(W))
+    assert kernels.LAUNCHES == {"chol_solve": W + 1,
+                                "mean_rss": W + kept + 2,
+                                "mean_rss_grad": 0, "weighted_gram": W + 1}
+    _same_run(got, want)
+    assert got.loglik.shape == (C, 7 // thin)
+    assert torch.equal(g_r.get_state(), g_e.get_state())
+
+
+def test_captured_runs_resume_through_a_checkpoint(dev, fresh_graphs,
+                                                   monkeypatch, tmp_path):
+    """Two captured runs of 5 sweeps, the second resumed from the first's
+    checkpoint (io.checkpoint: state and generator), give the bits of one
+    eager run of 10; the second replays the cached graph."""
+    from bayesfmmm_torch.config import Priors
+    from bayesfmmm_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from bayesfmmm_torch.models.state import STATE_FIELDS
+    drivers = fresh_graphs
+    data, st, c, flags = _graph_model(dev, 1)
+    whole = _eager_run(monkeypatch, lambda: drivers.phase_warm_start(
+        torch.Generator(device=dev).manual_seed(4), st, data, Priors(), c,
+        n_iters=10, **flags))
+    g = torch.Generator(device=dev).manual_seed(4)
+    first = drivers.phase_warm_start(g, st, data, Priors(), c, n_iters=5,
+                                     **flags)
+    ck = str(tmp_path / "graph.npz")
+    save_checkpoint(ck, first.final_state, g, iteration=5)
+    st2, g2, it, _ = load_checkpoint(ck, dev)
+    before = dict(drivers.SWEEP_GRAPHS)
+    rest = drivers.phase_warm_start(g2, st2, data, Priors(), c, n_iters=5,
+                                    start_iter=it, **flags)
+    assert drivers.SWEEP_GRAPHS == dict(before,
+                                        replays=before["replays"] + 5)
+    assert torch.equal(torch.cat([first.loglik, rest.loglik], 1),
+                       whole.loglik)
+    for f in STATE_FIELDS:
+        assert torch.equal(torch.cat([first.traces[f], rest.traces[f]], 1),
+                           whole.traces[f]), f
+        assert torch.equal(getattr(rest.final_state, f),
+                           getattr(whole.final_state, f)), f
+
+
+@pytest.mark.parametrize("family", ["covariates", "multivariate"])
+def test_captured_run_of_other_families_gives_the_eager_bits(
+        dev, fresh_graphs, monkeypatch, family):
+    """The covariate-adjusted reference census (eta and xi; xi's joint
+    draw on K1's panels kernel, launched with a cluster) and the
+    multivariate family (identity basis: no K2, no K3) replay too, with
+    the eager loop's bits."""
+    from bayesfmmm_torch.config import Priors
+    drivers = fresh_graphs
+    data, st, c, flags = _graph_model(dev, 2, family)
+    if family == "covariates":
+        assert kernels.chol_solve_plan(2, 512)["kernel"] == "panels"
+
+    def run():
+        g = torch.Generator(device=dev).manual_seed(6)
+        return g, drivers.phase_warm_start(g, st, data, Priors(), c,
+                                           n_iters=4, **flags)
+
+    g_e, want = _eager_run(monkeypatch, run)
+    before = drivers.SWEEP_GRAPHS["captures"]
+    g_r, got = run()
+    assert drivers.SWEEP_GRAPHS["captures"] == before + 1
+    _same_run(got, want)
+    assert torch.equal(g_r.get_state(), g_e.get_state())
+
+
+def test_capture_and_replays_under_the_profiler(dev, fresh_graphs,
+                                                monkeypatch):
+    """A run captured and replayed under torch.profiler: the eager run's
+    bits; one capture span; a sweep span for every sweep outside it (the
+    warm-up's and each replay's); one cudaGraphLaunch a replay; and K1, K2
+    and K3 of every replay on the profiler's device timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bayesfmmm_torch.config import Priors
+    from bayesfmmm_torch.utils import observability as obs
+    drivers = fresh_graphs
+    data, st, c, flags = _graph_model(dev, 1)
+
+    def run():
+        g = torch.Generator(device=dev).manual_seed(2)
+        return g, drivers.phase_warm_start(g, st, data, Priors(), c,
+                                           n_iters=6, **flags)
+
+    g_e, want = _eager_run(monkeypatch, run)
+    obs.clear_spans()
+    before = dict(drivers.SWEEP_GRAPHS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g_r, got = run()
+        torch.cuda.synchronize()
+    n_replays = 6 - drivers.WARMUP_SWEEPS
+    assert {k: drivers.SWEEP_GRAPHS[k] - before[k] for k in before} == {
+        "captures": 1, "replays": n_replays, "eager": drivers.WARMUP_SWEEPS}
+    _same_run(got, want)
+    assert torch.equal(g_r.get_state(), g_e.get_state())
+    spans = obs.recorded_spans()
+    cap = [s for s in spans if s.name == "samplers.drivers.capture_sweep"]
+    assert len(cap) == 1
+    outside = [s for s in spans if s.name == "ops.gibbs.sweep_full"
+               and not cap[0].start_ns <= s.start_ns <= cap[0].end_ns]
+    assert len(outside) == 6
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+    assert launches == n_replays
+    # the warm-up sweep's and each replay's: K1 once, K2 twice (the sweep's
+    # sigma2 and the log-likelihood), K3 once
+    for name, per_sweep in (("chol_tiled_kernel", 1),
+                            ("mean_rss_tile_kernel", 2),
+                            ("weighted_gram", 1)):
+        n = sum(e.count for e in events if name in e.key)
+        assert n == per_sweep * (n_replays + drivers.WARMUP_SWEEPS), (name, n)
