@@ -21,6 +21,11 @@ attribute of the program (pytest's ``monkeypatch.setattr``, or
     half of the curves, doubled.
   * ``altered``: every log-likelihood off by twice the limit where it is
     made.
+  * ``tensor_order``: the program's tensor basis and its penalty with the
+    first axis fastest, not the last (an hd run only: ``ONLY``).  The
+    program's fit is sound in its own numbering; only a check that builds
+    the surfaces' basis itself sees its coefficients belong to other
+    functions.
 
 ``tf32`` is the control on the program's own path rather than a fault:
 the sweep's float32 products in TF32 (the program's switch
@@ -120,6 +125,15 @@ def altered(patch, limit):
     patch(likelihood, "log_likelihood", off)
 
 
+def tensor_order(patch, limit):
+    from bayesfmmm_torch import basis
+    real = basis.mixed_radix_indices
+
+    def first_fastest(sizes):
+        return real(list(sizes)[::-1])[:, ::-1]
+    patch(basis, "mixed_radix_indices", first_fastest)
+
+
 def tf32(patch, limit):
     import torch
     from bayesfmmm_torch.ops import gibbs
@@ -132,4 +146,7 @@ def tf32(patch, limit):
 
 
 FAULTS = {f.__name__: f for f in (unchanged, half_rows, half_gram, half_phi,
-                                  k1_stuck, half_rss, altered, tf32)}
+                                  k1_stuck, half_rss, altered, tensor_order,
+                                  tf32)}
+# faults that only the data of one family can have
+ONLY = {"tensor_order": "hd"}

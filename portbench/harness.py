@@ -31,8 +31,7 @@ class Context:
 
 
 def curves_of(raw):
-    return model.Curves(raw["y"], raw["t"], raw["X"], raw["degree"],
-                        raw["internal"], raw["boundary"])
+    return model.Curves.from_raw(raw)
 
 
 def _sync(device):

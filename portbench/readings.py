@@ -10,7 +10,7 @@ at the cell's own size.  Not run by ``run.py``.
 Each seed sets the cell up as a run does, makes ``--calls`` timed calls
 and prints one JSON line: {"seed", "fault", "numbers": the run's numbers
 (``check.numbers``), "control_gap": the control's ``loglik_gap`` or null,
-"seconds"}.  On the card the control is cuBLAS's TF32 path.
+"seconds"}.
 """
 
 import argparse

@@ -24,8 +24,10 @@ UpdateNu.h, UpdateEta.h, UpdateChi.h):
     prod_{m' <= m} delta_km' gamma_kpm (diagonal);
   * ``xi``: blocks (k, m, d), W = Z_nk chi_nm x_nd, prior
     prod_{m' <= m} delta_xi_km'd gamma_xi_kpdm;
-  * ``nu``: blocks k, W = Z_nk, prior tau_k R with R the first-order
-    random-walk penalty D'D (D the (P-1, P) first differences);
+  * ``nu``: blocks k, W = Z_nk, prior tau_k R with R the data's penalty
+    (``model.Curves.R``): the first-order random walk D'D (D the (P-1, P)
+    first differences) of a functional family, the graph of first
+    differences along each axis of an hd family;
   * ``eta``: blocks (k, d), W = Z_nk x_nd, prior tau_eta_kd R;
   * ``chi``: per curve, chi_n in M coordinates with the directions
     U_n = sum_k Z_nk (Phi_k + sum_d xi_k[:, d, :] x_nd), prior N(0, I):
@@ -44,12 +46,6 @@ import numpy as np
 ZFIELDS = ("Phi", "xi", "nu", "eta", "chi")
 
 
-def rw1_penalty(P):
-    """D'D for the first differences D of P coordinates."""
-    D = np.diff(np.eye(P), axis=0)
-    return D.T @ D
-
-
 class Design:
     """What the conditionals need of the data, from the reference's own
     basis rows (``model.Curves``), in float64 on ``device``."""
@@ -62,7 +58,7 @@ class Design:
         self.G = torch.einsum("nlp,nlq->npq", S, S)
         self.u = torch.einsum("nlp,nl->np", S, t(curves.y * curves.mask))
         self.X = t(curves.X)
-        self.R = t(rw1_penalty(curves.S.shape[2]))
+        self.R = t(curves.R)
         self.device = device
 
 

@@ -4,6 +4,18 @@ A cell (an entry of ``workloads``) is ``workloads/<cell>.json``; its
 configuration ``configs/<config>.json``; a per-layer metric the reader
 ``metrics/<metric>.py``; the kind of call a cell drives ``entries/<entry>.py``.
 Adding any of them is adding a file: nothing here lists them.
+
+A configuration's ``family`` says what its data are: "functional" (the
+default where the file has none), curves on a cubic B-spline basis of P
+functions on [0, 1]; or "hd", surfaces on a tensor-product basis given by
+``basis_degrees`` (one an axis), ``internal_knots`` (a list an axis) and
+``boundary_knots`` ([lo, hi] an axis), whose column count P has to be.
+Every family keeps the sizes N, K, P, M, D and ``n_time`` = [min, max]
+points an observation, with the meaning the FLOP counts and the kernels'
+readers give them.  ``datagen.from_config`` checks the family and makes
+its data; the reference (``reference.model.Curves.from_raw``) and the
+program (``entries/common.py``) build their bases and nu's penalty from
+what it made.  Any other family is refused with a ValueError.
 """
 
 from __future__ import annotations

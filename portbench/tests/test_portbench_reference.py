@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from portbench import datagen, harness
+from portbench.entries.common import program_data
 from portbench.reference import bspline, check, conditionals, model
+from portbench.tests.conftest import HD_CONFIG
 from bayesfmmm_torch import api, convert
 from bayesfmmm_torch.config import Priors
 from bayesfmmm_torch.ops import gibbs
@@ -20,6 +22,12 @@ from bayesfmmm_torch.utils.simulate import simulate_functional
 SIZES = [dict(N=12, K=3, P=8, M=4, D=0, n_time=(20, 30)),
          dict(N=10, K=2, P=8, M=16, D=2, n_time=(25, 25), with_eta=True,
               with_xi=True)]
+# an hd configuration at a small size: surfaces on upstream's 6 x 6 basis
+HD_SIZE = dict(HD_CONFIG, N=12, n_time=(80, 100))
+# the functional simulator's defaults, which ``from_config`` takes from a
+# configuration's file
+DEFAULTS = dict(sigma2=0.01, nu_scale=3.0, phi_scale=0.5, with_eta=False,
+                with_xi=False)
 
 
 def test_basis_equals_the_ports():
@@ -41,12 +49,9 @@ def test_datagen_is_the_ports_simulator(size):
         assert np.array_equal(raw["truth"][f], truth[f])
 
 
-def _states(size, chains=5, seed=4):
-    raw = datagen.simulate(seed, **size)
-    data = api.build_data(raw["y"], raw["t"], basis_degree=3,
-                          internal_knots=raw["internal"],
-                          boundary_knots=raw["boundary"], X=raw["X"],
-                          device="cpu")
+def _states(size, chains=5, seed=4, device="cpu"):
+    raw = datagen.from_config(dict(DEFAULTS, **size), seed)
+    data = program_data(api, raw, device)
     rng = np.random.default_rng(seed)
     states = {f: np.repeat(raw["truth"][f][None], chains, 0)
               for f in raw["truth"]}
@@ -57,7 +62,7 @@ def _states(size, chains=5, seed=4):
     return raw, data, states
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", SIZES + [HD_SIZE])
 def test_reference_loglik_equals_the_ports(size):
     raw, data, states = _states(size)
     port = log_likelihood(convert.state_from_numpy(states, device="cpu"),
@@ -66,7 +71,7 @@ def test_reference_loglik_equals_the_ports(size):
     assert np.max(np.abs(port - ref)) < 1e-3 * np.max(np.abs(ref)) * 1e-2
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", SIZES + [HD_SIZE])
 def test_control_reads_far_wider_than_float32(size):
     raw, data, states = _states(size, chains=8)
     curves = harness.curves_of(raw)
@@ -103,7 +108,7 @@ def test_judge_takes_the_worst_call_and_pools_the_draws():
     assert check.judge([], {"loglik_gap": 0.1})[0] is False
 
 
-@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("size", SIZES + [HD_SIZE])
 def test_conditionals_agree_with_the_ports_updaters(size):
     """Where the port's updater has just drawn a field from its full
     conditional, the reference's z of that field is N(0, I): mean z^2
@@ -154,23 +159,21 @@ def test_reference_imports_nothing_of_the_program():
     assert not {"jax", "jaxlib", "flax", "bayesfmmm_tpu"} & set(top)
 
 
-# the two configurations' own sizes: at small shapes cuBLAS need not take
-# its TF32 path at all
+# the two configurations' own sizes, and the hd drop-in's (PERF.md), whose
+# surfaces of up to 897 points at seed 4 (not a multiple of 4) would have
+# kept a control left to cuBLAS's TF32 switch in float32
 CARD_SIZES = [dict(N=100, K=3, P=8, M=4, D=0, n_time=(100, 100)),
               dict(N=80, K=2, P=8, M=16, D=2, n_time=(100, 100),
-                   with_eta=True, with_xi=True)]
+                   with_eta=True, with_xi=True), HD_CONFIG]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", CARD_SIZES)
 def test_control_on_the_card_reads_far_wider_than_the_program(size, card):
-    """On the card the control is cuBLAS's TF32 path; the program's float32
-    log-likelihood (K2) stays far closer to the float64 reference."""
-    raw, _, states = _states(size, chains=64)
-    data = api.build_data(raw["y"], raw["t"], basis_degree=3,
-                          internal_knots=raw["internal"],
-                          boundary_knots=raw["boundary"], X=raw["X"],
-                          device=card)
+    """On the card the control's factors are rounded to TF32 as on the CPU;
+    the program's float32 log-likelihood (K2) stays far closer to the
+    float64 reference."""
+    raw, data, states = _states(size, chains=64, device=card)
     curves = harness.curves_of(raw)
     ref = model.loglik(states, curves)
     prog = log_likelihood(convert.state_from_numpy(states, device=card),

@@ -10,10 +10,12 @@ import sys
 import pytest
 
 from portbench import faults, spec
-from portbench.tests.conftest import ROOT, run_small, with_hmc
+from portbench.tests.conftest import (HEADLINE, ROOT, full_root, run_small,
+                                      with_hmc)
 
-BENCH = spec.load_benchmark(ROOT)
-CELLS = [w["name"] for w in BENCH["workloads"]]
+# the cells of BENCHMARK.json and the headline cell kept as files
+FULL = full_root()
+CELLS = [w["name"] for w in spec.load_benchmark(FULL)["workloads"]]
 
 
 def _check_line(line, cell, trace, root=ROOT):
@@ -40,7 +42,7 @@ def _check_line(line, cell, trace, root=ROOT):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_line_shape(cell):
-    _check_line(run_small(cell), cell, False)
+    _check_line(run_small(cell, root=FULL), cell, False, FULL)
 
 
 def test_hmc_cell_line_shape(tmp_path):
@@ -54,9 +56,9 @@ def test_hmc_cell_line_shape(tmp_path):
 
 
 def test_traced_line_shape():
-    cell = "fmm_k3.warm_prod.c256"
-    line = run_small(cell, trace=True, seconds=3.0)
-    _check_line(line, cell, True)
+    cell = HEADLINE
+    line = run_small(cell, trace=True, seconds=3.0, root=FULL)
+    _check_line(line, cell, True, FULL)
     assert {"busy_s", "window_s"} <= set(line["device"])
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     # on the CPU no device operation ran: no launches, idle or roofline
@@ -68,7 +70,7 @@ def test_traced_line_shape():
 def _run_py(*extra, cwd=ROOT, env=None):
     return subprocess.run(
         [sys.executable, "portbench/run.py", "--workload",
-         "fmm_k3.warm_prod.c256", "--seed", str(2 ** 31 + 3), "--seconds",
+         "fmm_k3.warm_ref.c1", "--seed", str(2 ** 31 + 3), "--seconds",
          "1", "--trace", "0", *extra], cwd=cwd, capture_output=True,
         text=True, timeout=300, env=env)
 
@@ -104,13 +106,13 @@ s = importlib.util.spec_from_file_location(
     "run", {str(ROOT / "portbench/run.py")!r})
 run = importlib.util.module_from_spec(s); s.loader.exec_module(run)
 from portbench import harness, spec
-from portbench.tests.conftest import run_small
+from portbench.tests.conftest import HEADLINE, full_root, run_small
 from pathlib import Path
 for p in Path({str(ROOT / "portbench")!r}).glob("entries/*.py"):
     spec.load_entry(p.stem)
 for p in Path({str(ROOT / "portbench")!r}).glob("metrics/*.py"):
     spec.load_reader(p.stem)
-run_small("fmm_k3.warm_prod.c256", trace=True)
+run_small(HEADLINE, trace=True, root=full_root())
 print(run.forbidden_modules(), "bayesfmmm_torch" in sys.modules)
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -121,19 +123,24 @@ print(run.forbidden_modules(), "bayesfmmm_torch" in sys.modules)
 
 # --- faults: the timed path broken underneath, correct must be False ----
 
-# what each cell can have (``tf32`` changes nothing on the CPU); at covcov
-# a Phi draw from half the curves leaves no trace on the outputs, on the
-# card at the cell's size as here (PERF.md)
-SEEN = {cell: sorted(set(faults.FAULTS) - {"tf32"}) for cell in CELLS}
+# what each cell can have (``tf32`` changes nothing on the CPU; a fault of
+# another family's data has nothing to break); at covcov a Phi draw from
+# half the curves leaves no trace on the outputs, on the card at the cell's
+# size as here (PERF.md)
+FAMILY = {cell: spec.load_cell(cell, FULL)[2].get("family", "functional")
+          for cell in CELLS}
+SEEN = {cell: sorted(f for f in set(faults.FAULTS) - {"tf32"}
+                     if faults.ONLY.get(f, FAMILY[cell]) == FAMILY[cell])
+        for cell in CELLS}
 SEEN["covcov_d2.warm_prod.c256"].remove("half_phi")
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
                                         for f in SEEN[c]])
 def test_faults_make_correct_false(cell, fault, monkeypatch):
-    _, c, _ = spec.load_cell(cell)
+    _, c, _ = spec.load_cell(cell, FULL)
     faults.FAULTS[fault](monkeypatch.setattr, c["limits"]["loglik_gap"])
-    line = run_small(cell)
+    line = run_small(cell, root=FULL)
     assert line["correct"] is False and line["failed"] >= 1, line["check"]
 
 

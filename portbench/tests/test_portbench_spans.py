@@ -7,11 +7,11 @@ import pytest
 
 from portbench import spec
 from portbench import spans as sp
-from portbench.tests.conftest import ROOT, run_small
+from portbench.tests.conftest import ROOT, full_root, run_small
 from portbench.trace import Event
 
-BENCH = spec.load_benchmark(ROOT)
-CELLS = [w["name"] for w in BENCH["workloads"]]
+# the cells of BENCHMARK.json and the headline cell kept as files
+CELLS = [w["name"] for w in spec.load_benchmark(full_root())["workloads"]]
 READERS = ("api_self_pct", "driver_self_pct", "host_syncs_per_sweep")
 SWEEP = "ops.gibbs.sweep_full"
 
@@ -95,7 +95,7 @@ def test_interval_arithmetic():
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_traced_run_reads_the_programs_spans(cell):
     """8 chains: the spans' readings, not the draws' check, are tested."""
-    line = run_small(cell, trace=True, chains=8)
+    line = run_small(cell, trace=True, chains=8, root=full_root())
     m = line["metrics"]
     assert 0 < m["api_self_pct"]["value"] < 100
     assert 0 < m["driver_self_pct"]["value"] < 100
