@@ -99,7 +99,20 @@ class FitResult:
 def build_data(Y, time=None, *, family="functional", basis_degree=3,
                internal_knots=None, boundary_knots=None, X=None,
                basis_degrees=None, internal_knots_list=None, device=None):
-    """Construct the padded device data container for any model family."""
+    """Construct the padded device data container for any model family, in
+    one span ``api.build_data`` that names the family and counts the
+    observations N, the basis functions P and the points observed."""
+    with span("api.build_data") as s:
+        data = _family_data(Y, time, family, basis_degree, internal_knots,
+                            boundary_knots, X, basis_degrees,
+                            internal_knots_list, device)
+        s.set(family=family, N=data.N, P=data.P, points=int(data.n_obs))
+    return data
+
+
+def _family_data(Y, time, family, basis_degree, internal_knots,
+                 boundary_knots, X, basis_degrees, internal_knots_list,
+                 device):
     if family == "functional":
         if Y is None or len(Y) < 1:
             raise ValueError("'n_funct' must be an integer greater than or "

@@ -6,11 +6,13 @@
 At the main path's shapes (256 chains of the headline model: K1 C=256,
 D=96; K2 C=256 and the MGP-scale moves' 512 chain rows, N=L=100, P=8; K3
 R=768, N=100, P=8; K2's backward at ``GRAD_SHAPES``, those of fit_hmc,
-ADVI, one chain, the hd family and a general P) it times, for each kernel,
-the kernel, its plain PyTorch
-version, the single PyTorch call that computes the same function where
-there is one (K3: ``torch.matmul(W, G.reshape(N, P * P))``), and the empty
-kernel (the launch floor).  The candidates of one kernel are timed in
+ADVI, one chain, the hd family and a general P) and at the shapes of the hd
+configuration at upstream's basis (``HD_SHAPES``: K2's general
+instantiation at 64 and 128 chain rows, K3's chunked kernel) it times, for
+each kernel, the kernel, its plain PyTorch version, the single PyTorch
+call that computes the same function where there is one (K3:
+``torch.matmul(W, G.reshape(N, P * P))``), and the empty kernel (the
+launch floor).  The candidates of one kernel are timed in
 turns, forwards then backwards, ``--rounds`` times on the same inputs, so
 the inputs stay warm in L2 as the sampler's B and G do; the figure kept is
 the median over rounds of the device time per call (the profiler's summed
@@ -69,6 +71,11 @@ CHAINS, N, L, P, K, D = 256, 100, 100, 8, 3, 96
 # general P
 GRAD_SHAPES = ((64, 100, 100, 8), (4, 100, 100, 8), (1, 100, 100, 8),
                (64, 64, 144, 16), (64, 100, 100, 10))
+# BHDFMMM at upstream's basis (P = 6 x 6 = 36; 100 surfaces of up to 900
+# points, 64 chains, K = 2): K2 (C, N, L, P) at the chains and at twice
+# them, K3 (R, N, P) at R = C K
+HD_SHAPES = {"mean_rss": ((64, 100, 900, 36), (128, 100, 900, 36)),
+             "weighted_gram": ((128, 100, 36),)}
 
 
 def card_line():
@@ -397,6 +404,24 @@ def main(argv=None):
         groups[name] = {
             "kernel": lambda name=name: kernels.mean_rss_grad(*x[name]),
             "plain": lambda name=name: kernels.mean_rss_grad_plain(*x[name])}
+    for C_, N_, L_, P_ in HD_SHAPES["mean_rss"]:
+        name = f"mean_rss_c{C_}_n{N_}_l{L_}_p{P_}"
+        x[name] = (torch.randn(N_, L_, P_, generator=g2, device=dev),
+                   torch.randn(N_, L_, generator=g2, device=dev),
+                   torch.randn(C_, N_, P_, generator=g2, device=dev))
+        shapes[name] = ("mean_rss", dict(C=C_, N=N_, L=L_, P=P_))
+        groups[name] = {
+            "kernel": lambda name=name: kernels.mean_rss(*x[name]),
+            "plain": lambda name=name: kernels.mean_rss_plain(*x[name])}
+    for R_, N_, P_ in HD_SHAPES["weighted_gram"]:
+        name = f"weighted_gram_r{R_}_n{N_}_p{P_}"
+        x[name] = (torch.rand(R_, N_, generator=g2, device=dev),
+                   torch.randn(N_, P_, P_, generator=g2, device=dev))
+        shapes[name] = ("weighted_gram", dict(R=R_, N=N_, P=P_))
+        groups[name] = {
+            "kernel": lambda name=name: kernels.weighted_gram(*x[name]),
+            "plain": lambda name=name: kernels.weighted_gram_plain(*x[name]),
+            "library": lambda name=name: library_weighted_gram(*x[name])}
     for cands in groups.values():
         cands["empty"] = lambda: kernels.empty_launch(dev)
     if base is not None:

@@ -92,7 +92,8 @@ class Span(NamedTuple):
     ``call`` that of the outermost ``api.fit_*`` span it lies in (its own
     for that span): the spans of one fit call share it.  Either is -1
     where there is none.  ``end_ns`` is None while the span is open;
-    ``counts`` holds integers such as ``bytes`` or ``sweeps``."""
+    ``counts`` holds integers such as ``bytes`` or ``sweeps``, or a name
+    such as ``family``."""
     name: str
     start_ns: int
     end_ns: int | None
@@ -187,9 +188,9 @@ _INERT = _Inert()
 
 def span(name, **counts):
     """A context manager that records its body as the span ``name``, with
-    the integer ``counts``, while torch.profiler records on this thread,
-    and does nothing otherwise.  What it yields takes further counts by
-    ``set(**counts)``."""
+    the ``counts`` (integers, or a name), while torch.profiler records on
+    this thread, and does nothing otherwise.  What it yields takes further
+    counts by ``set(**counts)``."""
     if not _profiling():
         return _INERT
     return _Recording(name, counts)
