@@ -39,7 +39,7 @@ __all__ = [
     "normal", "uniform", "randint", "standard_gamma", "rdirichlet",
     "dirichlet_logpdf_unnormalized", "log_multi_beta", "truncnorm_sample",
     "truncnorm_logpdf", "mvn_from_precision", "chol_precision",
-    "mvn_from_chol",
+    "mvn_from_chol", "jitter_eps",
 ]
 
 
@@ -163,13 +163,34 @@ def mvn_from_precision(generator, prec, b, *, jitter=1e-6):
     return mvn_from_chol(generator, chol_precision(prec, jitter=jitter), b)
 
 
+# The ridge a jittered factor adds is jitter * (s + 1) * I, s the mean of the
+# precision's diagonal (the JAX package's contract, distributions.py:110-111
+# and linalg.py:325-326) capped at JITTER_SPREAD times its smallest entry.
+# An MGP prior can spread a joint draw's diagonal over tens of orders of
+# magnitude; the uncapped mean then swamps the weakly penalised coordinates
+# and draws them towards zero, the tower answers with more shrinkage, and
+# the chain collapses (xi at the covariate-covariance model within ~2,000
+# sweeps).  Below that spread the cap does not bind and the ridge is the
+# JAX package's, bit for bit.
+JITTER_SPREAD = 1e3
+
+
+def jitter_eps(diag, jitter):
+    """The ridge jitter * (min(mean, JITTER_SPREAD * min) + 1) of a
+    precision whose diagonal is ``diag`` (..., P), one a matrix (...)."""
+    P = diag.shape[-1]
+    scale = torch.minimum(diag.sum(-1) / P, JITTER_SPREAD * diag.amin(-1))
+    return jitter * (scale + 1.0)
+
+
 def chol_precision(prec, *, jitter=1e-6):
-    """Jittered batched Cholesky of a precision: chol(prec + eps*scale*I)
-    with scale = tr(prec)/P + 1 (distributions.py:110-111)."""
+    """Jittered batched Cholesky of a precision: chol(prec + eps * I) with
+    eps = ``jitter_eps`` of its diagonal (distributions.py:110-111, the
+    scale capped)."""
     P = prec.shape[-1]
-    scale = prec.diagonal(dim1=-2, dim2=-1).sum(-1) / P + 1.0
+    eps = jitter_eps(prec.diagonal(dim1=-2, dim2=-1), jitter)
     eye = torch.eye(P, dtype=prec.dtype, device=prec.device)
-    return linalg.small_chol(prec + (jitter * scale)[..., None, None] * eye)
+    return linalg.small_chol(prec + eps[..., None, None] * eye)
 
 
 def mvn_from_chol(generator, L, b):

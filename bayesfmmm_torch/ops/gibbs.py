@@ -53,6 +53,7 @@ from bayesfmmm_torch.ops import kernels
 from bayesfmmm_torch.ops.distributions import (
     chol_precision,
     dirichlet_logpdf_unnormalized,
+    jitter_eps,
     log_multi_beta,
     mvn_from_chol,
     normal,
@@ -178,7 +179,11 @@ def _joint_blocked_draw(generator, data, s, W, prior_diag, blocks_cur, w):
     bvec = s[:, None] * Wr.reshape(C, Bn * P)
     A = s[:, None, None] * A.reshape(C, Bn * P, Bn * P) \
         + torch.diag_embed(prior_diag.reshape(C, Bn * P))
-    new, _ = mvn_from_precision_fused(generator, A, bvec)
+    # the ridge, capped (jitter_eps), goes onto A's diagonal here, so K1
+    # adds none
+    diag = A.diagonal(dim1=-2, dim2=-1)
+    diag += jitter_eps(diag, 1e-6)[:, None]
+    new, _ = mvn_from_precision_fused(generator, A, bvec, jitter=0.0)
     blocks_new = new.reshape(C, Bn, P)
     w_new = w_excl + torch.einsum("cbn,cbp->cnp", W, blocks_new)
     return blocks_new, w_new
@@ -1245,7 +1250,10 @@ def update_phi_chi(generator, state, data, hp, cache: SweepCache, beta=1.0,
 def update_phi_mala(generator, state, data, hp, cache: SweepCache, beta=1.0,
                     *, step=0.05, n_steps=4):
     """``n_steps`` preconditioned MALA steps on Phi, then the joint chi
-    redraw.  Nothing leaves this function attached to a graph."""
+    redraw.  Nothing leaves this function attached to an autograd graph.
+    Nothing is read on the host and ``n_steps`` is fixed for a run, so a
+    captured sweep holds these steps, their backward passes included
+    (samplers/drivers.py)."""
     C, K, P, M = state.Phi.shape
     dt, dev = state.Phi.dtype, state.Phi.device
     pri = torch.cumprod(state.delta, dim=2)[:, :, None, :] * state.gamma

@@ -58,11 +58,12 @@ def precision_draw_pair(A, b, z, jitter=0.0):
 
 
 def mvn_from_precision_fused(generator, A, b, *, jitter=1e-6):
-    """Sample N(A^-1 b, A^-1) with the jitter contract of
-    distributions.chol_precision (A + jitter * (tr(A) / D + 1) * I, as at
-    linalg.py:325-326 of the JAX package; K1 adds it to the diagonal it
-    holds on chip, so no (..., D, D) tensor is built here); returns
-    (sample, mean)."""
+    """Sample N(A^-1 b, A^-1) with the JAX package's jitter contract
+    (A + jitter * (tr(A) / D + 1) * I, linalg.py:325-326, uncapped; K1 adds
+    it to the diagonal it holds on chip, so no (..., D, D) tensor is built
+    here); returns (sample, mean).  The sweep's joint draws put their
+    capped ridge (``distributions.jitter_eps``) on A themselves and pass
+    ``jitter=0``."""
     z = distributions.normal(generator, b.shape, dtype=b.dtype,
                              device=b.device)
     mean, noise = precision_draw_pair(A, b, z, jitter)

@@ -6,12 +6,13 @@ batched sweeps of ops/gibbs.py, and the traces stack on the device with the
 chain axis first.  Restarts ("n_try", UserFunctions.cpp:302-325) and
 production chains are the chain axis.
 
-On the card ``phase_warm_start`` runs ``sweep_full``'s reference census as
-replays of a CUDA graph instead (``replay_chain``; ``replays_sweep`` says
-when): one sweep, its log-likelihood and the copy of the new state into the
-graph's buffers, captured once.  A process keeps one graph, so later runs
-on the same data and shapes replay without a capture; a run that needs
-another captures it in its place.  The replays draw what the eager sweeps
+On the card ``phase_warm_start`` runs ``sweep_full``, in the reference or
+the production census, as replays of a CUDA graph instead
+(``replay_chain``; ``replays_sweep`` says when): one sweep, its
+log-likelihood and the copy of the new state into the graph's buffers,
+captured once.  A process keeps one graph, so later runs on the same data,
+flags and shapes replay without a capture; a run that needs another
+captures it in its place.  The replays draw what the eager sweeps
 draw, bit for bit: the graph's generator takes the run's generator state
 before them and gives it back after.  Both loops keep their draws the same
 way (``_run``).  ``SWEEP_GRAPHS`` counts captures, replays and the
@@ -204,9 +205,10 @@ SWEEP_GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 # kernel and library the sweep uses, which a capture cannot do.
 WARMUP_SWEEPS = 1
 
-# sweep_full's flags that turn on a kernel outside the reference census.
-_CENSUS_SWITCHES = ("collapsed_z", "gauge", "phi_chi_moves",
-                    "phi_mala_steps", "z_anchor", "hmc_steps")
+# sweep_full's default-off switches, which no run replays: the Phi column
+# moves, the anchor stage and the whole-model HMC step (with its own
+# autograd Function and an inverse mass that may come from the host).
+_DEFAULT_OFF_SWITCHES = ("phi_chi_moves", "z_anchor", "hmc_steps")
 
 # The process's one captured sweep (a SweepGraph), replaced by the next
 # capture.
@@ -216,11 +218,13 @@ _GRAPH = None
 def replays_sweep(device, mesh, flags, n_temp_trans):
     """Whether a run of ``sweep_full(**flags)`` replays a captured sweep:
     only on CUDA, outside a mesh (whose draws broadcast over the host's
-    collectives), without tempered excursions, and for the reference census
-    (covariate flags allowed)."""
+    collectives), without tempered excursions, and without a default-off
+    switch.  The reference and the production census replay (the collapsed
+    (Z, chi) block, the gauge block and the Phi MALA, whose autograd
+    gradient is captured with the rest), covariate flags allowed."""
     return (torch.device(device).type == "cuda" and mesh is None
             and not n_temp_trans
-            and not any(flags.get(k) for k in _CENSUS_SWITCHES))
+            and not any(flags.get(k) for k in _DEFAULT_OFF_SWITCHES))
 
 
 class SweepBuffers(NamedTuple):
@@ -278,7 +282,10 @@ class SweepGraph:
         graph.register_generator_state(self.generator)
         with torch.cuda.device(self.buf.c.device):
             # captured on a stream of the graph's own device; a replay
-            # launches on that device's current stream
+            # launches on that device's current stream.  The Phi MALA's
+            # backward runs on autograd's device thread, on this stream:
+            # its kernels join the capture and its allocations the graph's
+            # pool, which follow the stream's capture, not the thread
             with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
                                   capture_error_mode="thread_local"):
                 self.step()
@@ -316,13 +323,13 @@ def replay_chain(generator, state, data, hp, c, flags, *, n_iters, thin=1,
                  betas=None):
     """``run_chain`` of ``sweep_full(**flags)`` as replays of the process's
     captured sweep, which also takes the new state's log-likelihood; for
-    the runs ``replays_sweep`` allows.  Where the process holds no graph for
-    this key (``sweep_graph_key``), the run's first ``WARMUP_SWEEPS`` sweeps
-    run eagerly and the next is captured, in place of the graph held
-    before.  The graph's generator takes ``generator``'s state before the
-    replays and gives it back after, so the draws, log-likelihoods, final
-    state and generator state are those of the eager loop, bit for bit; the
-    kept draws are copies of the graph's buffers."""
+    the runs ``replays_sweep`` allows, in either census.  Where the process
+    holds no graph for this key (``sweep_graph_key``), the run's first
+    ``WARMUP_SWEEPS`` sweeps run eagerly and the next is captured, in place
+    of the graph held before.  The graph's generator takes ``generator``'s
+    state before the replays and gives it back after, so the draws,
+    log-likelihoods, final state and generator state are those of the eager
+    loop, bit for bit; the kept draws are copies of the graph's buffers."""
     gibbs.use_full_f32()
     key = sweep_graph_key(data, hp, flags, state, c)
     graph = _GRAPH if _GRAPH is not None and _GRAPH.key == key else None
@@ -389,9 +396,9 @@ def phase_warm_start(generator, state, data, hp, c, *, n_iters, thin=1,
     production census with collapsed_z=True, gauge=True, p_indep=0.3,
     phi_mala_steps=4, phi_mala_step=0.05); the excursions' rungs run the
     same sweep.  Where ``replays_sweep`` allows (the card, no mesh, no
-    excursions, the reference census), the run replays a captured sweep
-    (``replay_chain``) with the eager loop's bits; elsewhere it is
-    ``run_chain``'s eager loop."""
+    excursions, no default-off switch: the reference and the production
+    census), the run replays a captured sweep (``replay_chain``) with the
+    eager loop's bits; elsewhere it is ``run_chain``'s eager loop."""
     if replays_sweep(state.Z.device, active_mesh(), sweep_flags,
                      n_temp_trans):
         return replay_chain(generator, state, data, hp, c, sweep_flags,

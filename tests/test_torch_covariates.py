@@ -274,6 +274,56 @@ def test_sequential_scan_targets_the_joint_conditional(chains, monkeypatch):
                f"{name} fixed point", rtol=5e-4)
 
 
+def test_joint_xi_draw_keeps_its_weak_columns_under_a_collapsed_tower(
+        chains, monkeypatch):
+    """xi's joint draw with its MGP tower collapsed past the first column
+    (delta_xi 1e15 there, so the precision's diagonal spans ~15 orders of
+    magnitude): the ridge stays at a thousandth of the smallest diagonal
+    entry (``distributions.jitter_eps``), and with the noise at zero the
+    draw is the float64 conditional mean to 1 % on the weakly penalised
+    coordinates.  The uncapped contract, a millionth of the diagonal's
+    mean, would have drawn those coordinates to zero: the collapse it
+    feeds."""
+    _, tdata, _, ts = chains
+    delta_xi = ts.delta_xi.clone()
+    delta_xi[:, :, 1] = 1e15
+    ts = ts.replace(delta_xi=delta_xi)
+    seen = {}
+    real_eps, real_draw = tg.jitter_eps, tg.mvn_from_precision_fused
+
+    def eps_of(diag, jitter):
+        seen["eps"] = real_eps(diag, jitter)
+        return seen["eps"]
+
+    def draw(generator, A, b, *, jitter):
+        seen.update(A=A.clone(), b=b.clone(), jitter=jitter)
+        seen["out"] = real_draw(generator, A, b, jitter=jitter)
+        return seen["out"]
+
+    monkeypatch.setattr(tg, "jitter_eps", eps_of)
+    monkeypatch.setattr(tg, "mvn_from_precision_fused", draw)
+    monkeypatch.setattr(torch, "randn",
+                        lambda shape, generator=None, dtype=None, device=None:
+                        torch.zeros(tuple(shape), dtype=dtype))
+    tg.update_xi(None, ts, tdata, TPriors(), tcache(tdata, ts), BETA)
+    assert seen["jitter"] == 0.0          # K1 adds no ridge of its own
+    eps = seen["eps"].double()
+    A = seen["A"].double() - torch.diag_embed(
+        eps[:, None].expand(seen["A"].shape[:-1]))
+    diag = A.diagonal(dim1=-2, dim2=-1)
+    assert float(diag.amax() / diag.amin()) > 1e12
+    assert bool((eps <= 1.01e-3 * diag.amin(-1)).all())
+    b = seen["b"].double()[..., None]
+    exact = torch.linalg.solve(A, b)[..., 0]
+    uncapped = torch.linalg.solve(A + torch.diag_embed(
+        1e-6 * (diag.mean(-1, keepdim=True) + 1.0).expand_as(diag)), b)[..., 0]
+    weak = diag < 1e6
+    scale = exact[weak].abs().max()
+    port = seen["out"][0].double()
+    assert float((port - exact)[weak].abs().max()) <= 1e-2 * scale
+    assert float((uncapped - exact)[weak].abs().max()) >= 0.5 * scale
+
+
 # ---------------------------------------------------------------------------
 # Updaters by moments and acceptance, against their vmapped JAX twins
 # ---------------------------------------------------------------------------

@@ -1034,16 +1034,102 @@ def test_captured_reference_run_gives_the_eager_bits(dev, fresh_graphs,
     assert torch.equal(g_r.get_state(), g_e.get_state())
 
 
+# K1, K2 (without the run loop's log-likelihood) and K3 launches of one
+# production sweep, by family: Phi's joint draw (and xi's), sigma's RSS, 4
+# MGP-scale moves and MALA's RSS, nu's Gram (and eta's)
+PRODUCTION_SWEEP = {"headline": (1, 6, 1), "covariates": (2, 6, 2),
+                    "multivariate": (1, 0, 0)}
+
+
+@pytest.mark.parametrize("family,C,thin", [
+    ("headline", 8, 1), ("headline", 8, 2), ("covariates", 8, 1),
+    ("covariates", 8, 2), ("multivariate", 2, 1)])
+def test_captured_production_run_gives_the_eager_bits(
+        dev, fresh_graphs, monkeypatch, family, C, thin):
+    """Seven sweeps of the production census (collapsed (Z, chi), gauge,
+    interweaves, four MALA steps with autograd's gradient), captured and
+    replayed, against the eager loop from the same generator state: every
+    trace, the log-likelihoods, the final state and the generator's state
+    afterwards bit for bit; one capture, the rest replays; the hand kernels
+    launched at the warm-up and the capture, K1's panels kernel among them
+    at the covariate model's xi draw (D = 512)."""
+    from bayesfmmm_torch.api import PRODUCTION_FLAGS
+    from bayesfmmm_torch.config import Priors
+    drivers = fresh_graphs
+    data, st, c, flags = _graph_model(dev, C, family)
+    flags = dict(flags, **PRODUCTION_FLAGS)
+    if family == "covariates":
+        assert kernels.chol_solve_plan(C, 512)["kernel"] == "panels"
+
+    def run(seed_gen):
+        return seed_gen, drivers.phase_warm_start(
+            seed_gen, st, data, Priors(), c, n_iters=7, thin=thin, **flags)
+
+    g_e, want = _eager_run(monkeypatch, lambda: run(
+        torch.Generator(device=dev).manual_seed(3)))
+    before = dict(drivers.SWEEP_GRAPHS)
+    kernels.reset_launch_counts()
+    g_r, got = run(torch.Generator(device=dev).manual_seed(3))
+    torch.cuda.synchronize()
+    assert {k: drivers.SWEEP_GRAPHS[k] - before[k] for k in before} == {
+        "captures": 1, "replays": 7 - drivers.WARMUP_SWEEPS,
+        "eager": drivers.WARMUP_SWEEPS}
+    W = drivers.WARMUP_SWEEPS
+    kept = sum((i + 1) % thin == 0 for i in range(W))
+    k1, k2, k3 = PRODUCTION_SWEEP[family]
+    probe = 1 if k2 else 0
+    assert kernels.LAUNCHES == {"chol_solve": k1 * (W + 1),
+                                "mean_rss": k2 * (W + 1)
+                                + probe * (kept + 1),
+                                "mean_rss_grad": 0,
+                                "weighted_gram": k3 * (W + 1)}
+    _same_run(got, want)
+    assert got.loglik.shape == (C, 7 // thin)
+    assert torch.equal(g_r.get_state(), g_e.get_state())
+
+
+def test_each_census_captures_its_own_graph_on_the_card(dev, fresh_graphs,
+                                                         monkeypatch):
+    """One process runs the reference census, then the production census,
+    then the reference again on the same data: each run captures its own
+    graph in place of the one held, and each gives the eager run's bits
+    and generator state."""
+    from bayesfmmm_torch.api import PRODUCTION_FLAGS
+    from bayesfmmm_torch.config import Priors
+    drivers = fresh_graphs
+    data, st, c, ref = _graph_model(dev, 8)
+    before = drivers.SWEEP_GRAPHS["captures"]
+    for flags in (ref, dict(ref, **PRODUCTION_FLAGS), ref):
+        def run():
+            g = torch.Generator(device=dev).manual_seed(5)
+            return g, drivers.phase_warm_start(g, st, data, Priors(), c,
+                                               n_iters=4, **flags)
+
+        g_e, want = _eager_run(monkeypatch, run)
+        g_r, got = run()
+        assert drivers._GRAPH.flags == flags
+        _same_run(got, want)
+        assert torch.equal(g_r.get_state(), g_e.get_state())
+    assert drivers.SWEEP_GRAPHS["captures"] == before + 3
+
+
+@pytest.mark.parametrize("census", ["reference", "production"])
 def test_captured_runs_resume_through_a_checkpoint(dev, fresh_graphs,
-                                                   monkeypatch, tmp_path):
+                                                   monkeypatch, tmp_path,
+                                                   census):
     """Two captured runs of 5 sweeps, the second resumed from the first's
     checkpoint (io.checkpoint: state and generator), give the bits of one
-    eager run of 10; the second replays the cached graph."""
+    eager run of 10, in either census; the second replays the cached
+    graph."""
+    from bayesfmmm_torch.api import PRODUCTION_FLAGS
     from bayesfmmm_torch.config import Priors
     from bayesfmmm_torch.io.checkpoint import load_checkpoint, save_checkpoint
     from bayesfmmm_torch.models.state import STATE_FIELDS
     drivers = fresh_graphs
-    data, st, c, flags = _graph_model(dev, 1)
+    C = 1 if census == "reference" else 8
+    data, st, c, flags = _graph_model(dev, C)
+    if census == "production":
+        flags = dict(flags, **PRODUCTION_FLAGS)
     whole = _eager_run(monkeypatch, lambda: drivers.phase_warm_start(
         torch.Generator(device=dev).manual_seed(4), st, data, Priors(), c,
         n_iters=10, **flags))
@@ -1093,18 +1179,24 @@ def test_captured_run_of_other_families_gives_the_eager_bits(
     assert torch.equal(g_r.get_state(), g_e.get_state())
 
 
+@pytest.mark.parametrize("census", ["reference", "production"])
 def test_capture_and_replays_under_the_profiler(dev, fresh_graphs,
-                                                monkeypatch):
-    """A run captured and replayed under torch.profiler: the eager run's
-    bits; one capture span; a sweep span for every sweep outside it (the
-    warm-up's and each replay's); one cudaGraphLaunch a replay; and K1, K2
-    and K3 of every replay on the profiler's device timeline."""
+                                                monkeypatch, census):
+    """A run captured and replayed under torch.profiler, in either census:
+    the eager run's bits; one capture span; a sweep span for every sweep
+    outside it (the warm-up's and each replay's); one cudaGraphLaunch a
+    replay; and K1, K2 and K3 of every replay on the profiler's device
+    timeline."""
     from torch.profiler import ProfilerActivity, profile
 
+    from bayesfmmm_torch.api import PRODUCTION_FLAGS
     from bayesfmmm_torch.config import Priors
     from bayesfmmm_torch.utils import observability as obs
     drivers = fresh_graphs
-    data, st, c, flags = _graph_model(dev, 1)
+    C = 1 if census == "reference" else 8
+    data, st, c, flags = _graph_model(dev, C)
+    if census == "production":
+        flags = dict(flags, **PRODUCTION_FLAGS)
 
     def run():
         g = torch.Generator(device=dev).manual_seed(2)
@@ -1132,10 +1224,12 @@ def test_capture_and_replays_under_the_profiler(dev, fresh_graphs,
     events = prof.key_averages()
     launches = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     assert launches == n_replays
-    # the warm-up sweep's and each replay's: K1 once, K2 twice (the sweep's
-    # sigma2 and the log-likelihood), K3 once
+    # the warm-up sweep's and each replay's: K1 once, K2 twice in the
+    # reference census (the sweep's sigma2 and the log-likelihood) and 7
+    # times in the production census, K3 once
+    k2 = 2 if census == "reference" else PRODUCTION_SWEEP["headline"][1] + 1
     for name, per_sweep in (("chol_tiled_kernel", 1),
-                            ("mean_rss_tile_kernel", 2),
+                            ("mean_rss_tile_kernel", k2),
                             ("weighted_gram", 1)):
         n = sum(e.count for e in events if name in e.key)
         assert n == per_sweep * (n_replays + drivers.WARMUP_SWEEPS), (name, n)

@@ -105,3 +105,24 @@ def test_mvn_from_chol_moments():
     np.testing.assert_allclose(s.double().numpy().mean(0), cov @ b,
                                atol=5 * np.sqrt(np.diag(cov).max() / N))
     np.testing.assert_allclose(np.cov(s.double().numpy().T), cov, atol=0.01)
+
+
+def test_jitter_eps_is_the_jax_ridge_until_the_spread_cap():
+    """Below JITTER_SPREAD between the diagonal's mean and its smallest
+    entry the ridge is the JAX package's jitter * (mean + 1), bit for bit,
+    and chol_precision matches the JAX package's; past it the mean is
+    capped at JITTER_SPREAD times the smallest entry."""
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(6, 6))
+    prec = (X @ X.T + 6 * np.eye(6)).astype(np.float32)
+    tp = torch.from_numpy(prec)
+    diag = tp.diagonal()
+    assert torch.equal(td.jitter_eps(diag, 1e-6),
+                       1e-6 * (diag.sum() / 6 + 1.0))
+    np.testing.assert_allclose(td.chol_precision(tp).numpy(),
+                               jd.chol_precision(jnp.asarray(prec)),
+                               rtol=1e-5, atol=1e-6)
+    spread = torch.tensor([[2.0, 1e20, 3.0], [2.0, 4.0, 6.0]])
+    eps = td.jitter_eps(spread, 1e-6)
+    assert torch.equal(eps, 1e-6 * (torch.tensor(
+        [td.JITTER_SPREAD * 2.0, 12.0 / 3]) + 1.0))

@@ -19,14 +19,17 @@ from bayesfmmm_torch.samplers import drivers  # noqa: E402
 from bayesfmmm_torch.utils.simulate import simulate_functional  # noqa: E402
 
 
-def _model(C, D=0, seed=4):
+def _model(C, D=0, seed=4, census="reference"):
+    """(data, state, c, sweep flags) of a small functional model; the
+    production census adds ``PRODUCTION_FLAGS`` to the flags."""
     data, _ = simulate_functional(seed=seed, N=12, K=2, P=5, M=2, D=D,
                                   n_time=(10, 14), with_eta=D > 0,
                                   with_xi=D > 0, device="cpu")
     cfg = ModelConfig(K=2, P=5, M=2, D=D, covariate_mean=D > 0,
                       covariate_cov=D > 0)
     st = init_state(torch.Generator().manual_seed(1), cfg, data, chains=C)
-    flags = dict(covariate_mean=D > 0, covariate_cov=D > 0)
+    flags = dict(covariate_mean=D > 0, covariate_cov=D > 0,
+                 **(PRODUCTION_FLAGS if census == "production" else {}))
     return data, st, torch.full((2,), 10.0), flags
 
 
@@ -48,19 +51,28 @@ def _assert_same_state(a, b):
     ("cuda", None, {}, 60, False),
     ("cuda", None, {"collapsed_z": False, "gauge": False, "hmc_steps": 0},
      0, True),
-    ("cuda", None, PRODUCTION_FLAGS, 0, False),
-    ("cuda", None, {"collapsed_z": True}, 0, False),
-    ("cuda", None, {"gauge": True}, 0, False),
-    ("cuda", None, {"phi_mala_steps": 4}, 0, False),
+    ("cuda", None, PRODUCTION_FLAGS, 0, True),
+    ("cuda", None, {"collapsed_z": True}, 0, True),
+    ("cuda", None, {"gauge": True}, 0, True),
+    ("cuda", None, {"phi_mala_steps": 4}, 0, True),
     ("cuda", None, {"z_anchor": True}, 0, False),
     ("cuda", None, {"phi_chi_moves": 2}, 0, False),
     ("cuda", None, {"hmc_steps": 2}, 0, False),
+    ("cuda:0", None, dict(PRODUCTION_FLAGS, covariate_mean=True,
+                          covariate_cov=True), 0, True),
+    ("cpu", None, PRODUCTION_FLAGS, 0, False),
+    ("cuda", object(), PRODUCTION_FLAGS, 0, False),
+    ("cuda", None, PRODUCTION_FLAGS, 60, False),
+    ("cuda", None, dict(PRODUCTION_FLAGS, z_anchor=True), 0, False),
+    ("cuda", None, dict(PRODUCTION_FLAGS, phi_chi_moves=2), 0, False),
+    ("cuda", None, dict(PRODUCTION_FLAGS, hmc_steps=2), 0, False),
 ])
-def test_replays_only_the_reference_census_on_cuda(device, mesh, flags,
-                                                   n_temp_trans, want):
+def test_replays_either_census_on_cuda_without_default_off_switches(
+        device, mesh, flags, n_temp_trans, want):
     """True only on CUDA, without a mesh, without excursions, for
-    sweep_full of the reference census (switches given and off included);
-    each production or default-off switch alone turns it off."""
+    sweep_full of the reference or the production census (each production
+    switch alone included); each default-off switch turns it off, alone or
+    beside the production census."""
     assert drivers.replays_sweep(device, mesh, flags, n_temp_trans) is want
 
 
@@ -89,13 +101,20 @@ def test_phase_warm_start_decides_and_run_chain_stays_eager(monkeypatch):
 # The step a graph wraps
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C,D", [(1, 0), (3, 0), (2, 1)])
-def test_buffered_step_gives_the_eager_bits(C, D):
+@pytest.mark.parametrize("C,D,census", [
+    pytest.param(1, 0, "reference", id="1-0"),
+    pytest.param(3, 0, "reference", id="3-0"),
+    pytest.param(2, 1, "reference", id="2-1"),
+    pytest.param(1, 0, "production", id="production-1-0"),
+    pytest.param(3, 0, "production", id="production-3-0"),
+    pytest.param(2, 1, "production", id="production-2-1")])
+def test_buffered_step_gives_the_eager_bits(C, D, census):
     """The buffered step (beta a tensor of ones, the state updated in
     place) run eagerly n times gives the bits of n sweep_full +
     log_likelihood steps at the float beta 1, and the generator ends in
-    the same state."""
-    data, st, c, flags = _model(C, D)
+    the same state, in either census (the production one with its MALA
+    gradient)."""
+    data, st, c, flags = _model(C, D, census=census)
     hp = Priors()
     g_eager, g_buf = (torch.Generator().manual_seed(9) for _ in range(2))
     buf = drivers.SweepBuffers(
@@ -164,12 +183,19 @@ def _assert_same_run(a, b):
     _assert_same_state(a.final_state, b.final_state)
 
 
-@pytest.mark.parametrize("C,thin", [(1, 1), (3, 1), (3, 2)])
-def test_replayed_run_gives_the_eager_bits(stand_in, monkeypatch, C, thin):
+@pytest.mark.parametrize("C,thin,census", [
+    pytest.param(1, 1, "reference", id="1-1"),
+    pytest.param(3, 1, "reference", id="3-1"),
+    pytest.param(3, 2, "reference", id="3-2"),
+    pytest.param(1, 1, "production", id="production-1-1"),
+    pytest.param(3, 2, "production", id="production-3-2")])
+def test_replayed_run_gives_the_eager_bits(stand_in, monkeypatch, C, thin,
+                                           census):
     """A run through the replay loop gives the eager run's traces,
-    log-likelihoods, final state and generator state; the first run warms
-    up and captures once, the second replays every sweep from the cache."""
-    data, st, c, flags = _model(C)
+    log-likelihoods, final state and generator state, in either census;
+    the first run warms up and captures once, the second replays every
+    sweep from the cache."""
+    data, st, c, flags = _model(C, census=census)
     hp = Priors()
 
     def run(g, state):
@@ -246,6 +272,28 @@ def test_a_new_key_captures_in_place_of_the_held_graph(stand_in):
         drivers.phase_warm_start(g, st, data, hp, c, n_iters=2, **flags)
     assert drivers.SWEEP_GRAPHS["captures"] == before + 3
     assert drivers._GRAPH.data is da
+
+
+def test_each_census_captures_its_own_graph(stand_in, monkeypatch):
+    """On one data object the reference census, then the production
+    census, then the reference again: the flags are in the key, so each
+    run captures its own graph in place of the other's, and each gives
+    its eager run's bits and generator state."""
+    data, st, c, ref = _model(2)
+    hp = Priors()
+    g = torch.Generator().manual_seed(3)
+    before = drivers.SWEEP_GRAPHS["captures"]
+    for flags in (ref, dict(ref, **PRODUCTION_FLAGS), ref):
+        g_e = torch.Generator()
+        g_e.set_state(g.get_state())
+        want = _eager(monkeypatch, lambda: drivers.phase_warm_start(
+            g_e, st, data, hp, c, n_iters=3, **flags))
+        got = drivers.phase_warm_start(g, st, data, hp, c, n_iters=3,
+                                       **flags)
+        _assert_same_run(got, want)
+        assert torch.equal(g.get_state(), g_e.get_state())
+        assert drivers._GRAPH.flags == flags
+    assert drivers.SWEEP_GRAPHS["captures"] == before + 3
 
 
 def test_eager_runs_count_their_iterations():
